@@ -1,0 +1,97 @@
+"""Shared eval-mode blocks: the subset of keypoint_bench_tpu/models/common.py
+that ALIKE-t needs.
+
+These helpers work on NCHW tensors (torch's native conv layout); the model
+classes convert at their public boundary, which keeps the JAX package's
+NHWC layout. Parameter dicts hold torch-layout tensors (weights/convert.py).
+"""
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+
+def conv2d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None,
+           stride: int = 1, padding: int = 0) -> torch.Tensor:
+    """x [B,Ci,H,W], w [Co,Ci,kh,kw] (OIHW)."""
+    return F.conv2d(x, w, b, stride, padding)
+
+
+def bn_eval(x: torch.Tensor, gamma, beta, mean, var,
+            eps: float = 1e-5) -> torch.Tensor:
+    """BatchNorm inference transform, in the JAX package's operation order:
+    (x - mean) * rsqrt(var + eps) * gamma + beta, per channel of NCHW."""
+    def c(v):
+        return v[:, None, None]
+    return (x - c(mean)) * c(torch.rsqrt(var + eps)) * c(gamma) + c(beta)
+
+
+def max_pool(x: torch.Tensor, k: int) -> torch.Tensor:
+    """k x k max pool, stride k, VALID padding."""
+    return F.max_pool2d(x, k, k)
+
+
+def relu(x: torch.Tensor) -> torch.Tensor:
+    return torch.clamp_min(x, 0)
+
+
+@functools.lru_cache(maxsize=64)
+def _interp_matrix(n_out: int, n_in: int) -> np.ndarray:
+    """Row-stochastic [n_out, n_in] bilinear matrix with align_corners=True
+    (src = i * (n_in-1)/(n_out-1)), as keypoint_bench_tpu's
+    models/common._interp_matrix builds it."""
+    if n_in == 1:
+        return np.ones((n_out, 1), np.float32)
+    i = np.arange(n_out)
+    src = i * (n_in - 1) / (n_out - 1) if n_out > 1 else np.zeros(1)
+    lo = np.clip(np.floor(src).astype(np.int64), 0, n_in - 2)
+    frac = src - lo
+    a = np.zeros((n_out, n_in), np.float32)
+    a[i, lo] = 1 - frac
+    a[i, lo + 1] = frac
+    return a
+
+
+def resize_bilinear_align(x: torch.Tensor, out_h: int,
+                          out_w: int) -> torch.Tensor:
+    """F.interpolate(bilinear, align_corners=True) of NCHW x, computed as
+    two dense interpolation products like the JAX package does."""
+    ah = torch.from_numpy(_interp_matrix(out_h, x.shape[-2])).to(x.device)
+    aw = torch.from_numpy(_interp_matrix(out_w, x.shape[-1])).to(x.device)
+    y = torch.einsum("oh,bchw->bcow", ah, x)
+    return torch.einsum("pw,bcow->bcop", aw, y)
+
+
+def upsample_bilinear_align(x: torch.Tensor, factor: int) -> torch.Tensor:
+    return resize_bilinear_align(x, x.shape[-2] * factor,
+                                 x.shape[-1] * factor)
+
+
+def conv_bn_relu(x, p, conv: str, bn: str, stride: int = 1,
+                 padding: int = 1):
+    y = conv2d(x, p[f"{conv}.weight"], p.get(f"{conv}.bias"), stride, padding)
+    y = bn_eval(y, p[f"{bn}.weight"], p[f"{bn}.bias"],
+                p[f"{bn}.running_mean"], p[f"{bn}.running_var"])
+    return relu(y)
+
+
+def conv_block(x, p, prefix: str):
+    """conv3x3 + BN + ReLU, twice."""
+    y = conv_bn_relu(x, p, f"{prefix}.conv1", f"{prefix}.bn1")
+    return conv_bn_relu(y, p, f"{prefix}.conv2", f"{prefix}.bn2")
+
+
+def res_block(x, p, prefix: str, stride: int = 1):
+    """conv-bn-relu, conv-bn, plus a 1x1 downsample identity, then relu."""
+    idn = conv2d(x, p[f"{prefix}.downsample.weight"],
+                 p.get(f"{prefix}.downsample.bias"), 1, 0)
+    y = conv_bn_relu(x, p, f"{prefix}.conv1", f"{prefix}.bn1", stride)
+    y = conv2d(y, p[f"{prefix}.conv2.weight"], p.get(f"{prefix}.conv2.bias"),
+               1, 1)
+    y = bn_eval(y, p[f"{prefix}.bn2.weight"], p[f"{prefix}.bn2.bias"],
+                p[f"{prefix}.bn2.running_mean"],
+                p[f"{prefix}.bn2.running_var"])
+    return relu(y + idn)

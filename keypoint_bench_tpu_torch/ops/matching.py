@@ -1,0 +1,63 @@
+"""Brute-force descriptor matching: squared distances + mutual nearest
+neighbours (counterpart of keypoint_bench_tpu/ops/matching.py).
+
+Fixed-K descriptors with validity masks; invalid rows and columns are
+pushed to 1e30 so they never match. Every function takes optional leading
+batch dimensions.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from keypoint_bench_tpu_torch.ops.grid_sample import sample_at_points
+
+_BIG = 1e30
+
+
+def pairwise_sqdist(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """[..., M, D] x [..., N, D] -> [..., M, N] squared euclidean
+    distances, |a|^2 + |b|^2 - 2ab in f32 (TF32 off, device.py)."""
+    a = a.float()
+    b = b.float()
+    a2 = (a * a).sum(-1, keepdim=True)
+    b2 = (b * b).sum(-1, keepdim=True)
+    ab = a @ b.transpose(-1, -2)
+    return torch.clamp_min(a2 + b2.transpose(-1, -2) - 2.0 * ab, 0.0)
+
+
+def mutual_nn_match(desc0: torch.Tensor, desc1: torch.Tensor,
+                    valid0: torch.Tensor, valid1: torch.Tensor,
+                    max_distance: float = math.inf):
+    """Returns (idx1_of_0 [..., M], match_mask [..., M]): for each row of
+    desc0 its nearest row of desc1 (first index on ties); the mask holds
+    iff the pair is mutual, both are valid and the distance is strictly
+    below max_distance."""
+    d2 = pairwise_sqdist(desc0, desc1)
+    d2 = torch.where(valid0[..., :, None] & valid1[..., None, :], d2,
+                     torch.full_like(d2, _BIG))
+    nn01 = torch.argmin(d2, dim=-1)
+    nn10 = torch.argmin(d2, dim=-2)
+    rows = torch.arange(d2.shape[-2], device=d2.device)
+    mutual = nn10.gather(-1, nn01) == rows
+    best = d2.gather(-1, nn01[..., None])[..., 0]
+    ok = (mutual & valid0 & (best < float(max_distance) ** 2)
+          & (best < _BIG))
+    return nn01, ok
+
+
+def take_rows(values: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """values[..., idx, :]: values [..., N, D], idx [..., M] -> [..., M, D]."""
+    return values.gather(-2, idx[..., None].expand(
+        *idx.shape, values.shape[-1]))
+
+
+def brute_force_match(kpts0, valid0, kpts1, valid1, desc_map0, desc_map1,
+                      max_distance: float = 5.0):
+    """Reference brute-force matcher on dense descriptor maps [H,W,D]:
+    (kpts0 [K,3], matched kpts1 rows [K,3], match mask [K])."""
+    desc0 = sample_at_points(desc_map0, kpts0)
+    desc1 = sample_at_points(desc_map1, kpts1)
+    nn01, ok = mutual_nn_match(desc0, desc1, valid0, valid1, max_distance)
+    return kpts0, take_rows(kpts1, nn01), ok

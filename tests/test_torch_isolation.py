@@ -1,0 +1,148 @@
+"""The PyTorch port stands alone: it imports neither jax nor the JAX
+package, its entry points refuse to run on a host without CUDA unless
+asked for the CPU, and a failed kernel build raises instead of falling
+back to the plain twin."""
+import ast
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from keypoint_bench_tpu_torch.ops import _build, cuda_nms, cuda_sample
+from keypoint_bench_tpu_torch.ops.detect import fast_nms
+from keypoint_bench_tpu_torch.ops.sparse_desc import sample_branches
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(ROOT, "keypoint_bench_tpu_torch")
+
+
+def _port_files():
+    files = [os.path.join(ROOT, "chip_smoke.py")]
+    for d, _, names in os.walk(PKG):
+        files += [os.path.join(d, n) for n in names if n.endswith(".py")]
+    return sorted(files)
+
+
+def _modules():
+    mods = []
+    for path in _port_files()[1:]:
+        rel = os.path.relpath(path, ROOT)[:-3].replace(os.sep, ".")
+        mods.append(rel[:-len(".__init__")] if rel.endswith("__init__")
+                    else rel)
+    return mods
+
+
+def _forbidden(name: str) -> bool:
+    top = name.split(".")[0]
+    return top in ("jax", "jaxlib", "keypoint_bench_tpu")
+
+
+@pytest.mark.parametrize("path", _port_files(),
+                         ids=lambda p: os.path.relpath(p, ROOT))
+def test_no_jax_imports_in_source(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module]
+        else:
+            continue
+        bad = [n for n in names if _forbidden(n)]
+        assert not bad, f"{path}:{node.lineno} imports {bad}"
+
+
+def test_importing_the_port_loads_no_jax():
+    code = (
+        "import importlib, sys, runpy\n"
+        f"for m in {_modules()!r}:\n"
+        "    importlib.import_module(m)\n"
+        f"runpy.run_path({os.path.join(ROOT, 'chip_smoke.py')!r}, "
+        "run_name='not_main')\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'keypoint_bench_tpu'))\n"
+        "print('BAD', bad)\n"
+        "assert not bad, bad\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert "BAD []" in res.stdout
+
+
+def _default_device_calls(tmp_path):
+    from keypoint_bench_tpu_torch import cli
+    from keypoint_bench_tpu_torch.device import resolve_device
+    from keypoint_bench_tpu_torch.models import get_model
+    from keypoint_bench_tpu_torch.ops.detect import DetectParams
+    from keypoint_bench_tpu_torch.pipeline import extract_match
+    from keypoint_bench_tpu_torch.runner import EvalConfig, Evaluator
+    from keypoint_bench_tpu_torch.weights import load_params
+    cfg = {"model_type": "Alike", "task_type": "repeatability",
+           "data_params": {"type": "synthetic_homography", "num_pairs": 1,
+                           "image_size": 64},
+           "output_dir": str(tmp_path)}
+    cfg_path = tmp_path / "cfg.yaml"
+    cfg_path.write_text(__import__("yaml").safe_dump(cfg))
+    imgs = np.zeros((1, 64, 64, 3), np.float32)
+    params = load_params("Alike")
+    return {
+        "resolve_device": lambda: resolve_device(),
+        "extract_match": lambda: extract_match(
+            get_model("Alike")(params), params, imgs, imgs, DetectParams()),
+        "Evaluator": lambda: Evaluator(EvalConfig.from_dict(cfg)),
+        "cli": lambda: cli.main(["-c", str(cfg_path)]),
+    }
+
+
+@pytest.mark.parametrize("entry", ["resolve_device", "extract_match",
+                                   "Evaluator", "cli"])
+def test_default_device_raises_without_cuda(tmp_path, entry):
+    if torch.cuda.is_available():
+        pytest.skip("this host has CUDA")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        _default_device_calls(tmp_path)[entry]()
+
+
+def _failing_build(name):
+    raise RuntimeError(f"build of {name} failed")
+
+
+def _nms_args():
+    return (torch.rand(2, 40, 48), 4)
+
+
+def _sample_args():
+    feats = tuple(torch.rand(1, 16, h, w) for h, w in
+                  ((64, 64), (32, 32), (8, 8), (4, 4)))
+    return (feats, torch.rand(1, 10) * 63, torch.rand(1, 10) * 63, 64, 64)
+
+
+@pytest.mark.parametrize("mod,launch,args", [
+    (cuda_nms, cuda_nms.nms_cuda, _nms_args),
+    (cuda_sample, cuda_sample.sample_cuda, _sample_args)])
+def test_failed_build_raises_on_the_kernel_path(monkeypatch, mod, launch,
+                                                args):
+    monkeypatch.setattr(_build, "build", _failing_build)
+    monkeypatch.setattr(mod.KERNEL, "_fn", None)
+    before = mod.KERNEL.launches
+    with pytest.raises(RuntimeError, match="failed"):
+        launch(*args())
+    assert mod.KERNEL.launches == before
+
+
+def test_cpu_tensors_take_the_plain_twin_without_building(monkeypatch):
+    monkeypatch.setattr(_build, "build", _failing_build)
+    monkeypatch.setattr(cuda_nms.KERNEL, "_fn", None)
+    monkeypatch.setattr(cuda_sample.KERNEL, "_fn", None)
+    before = (cuda_nms.KERNEL.launches, cuda_sample.KERNEL.launches)
+    maps, d = _nms_args()
+    assert torch.equal(cuda_nms.nms_fixpoint(maps, d), fast_nms(maps, d))
+    args = _sample_args()
+    assert torch.equal(cuda_sample.fused_samples_batch(*args),
+                       sample_branches(*args))
+    assert (cuda_nms.KERNEL.launches, cuda_sample.KERNEL.launches) == before
