@@ -33,7 +33,7 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 DEVICE, SIZE, PAIRS, K = "cuda", 512, 16, 1000
-# H100 SXM peaks (on-chip-measurement guide): HBM bytes/s, f32 FLOP/s
+# H100 SXM peaks (vendor datasheet): HBM bytes/s, f32 FLOP/s
 PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
 
 
