@@ -9,8 +9,8 @@ Phases, each fatal on failure:
   3. kernel A (NMS fixpoint) vs its plain twin on real ALIKE-t score maps
      at 512^2, a tie-heavy bf16 map and a signed map: bit equality;
   4. kernel B (sparse sampler) vs its plain twin on real branch features
-     at 512^2, K=1000, original and y-sorted keypoint order: max abs error
-     <= 1e-5;
+     at 512^2, K=1000, original and y-sorted keypoint order, and on random
+     features whose last branch is 3 x 3 or 2 x 2: max abs error <= 1e-5;
   5. the main path, `extract_match` at 512^2, 16 pairs, nms 6, border 8,
      top_k 1000, max_distance 5, with the launch counts reset just before
      it: keypoints and masks equal to the same pipeline through the plain
@@ -30,11 +30,15 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 DEVICE, SIZE, PAIRS, K = "cuda", 512, 16, 1000
-# H100 SXM peaks (vendor datasheet): HBM bytes/s, f32 FLOP/s
+# H100 SXM peaks (vendor datasheet): HBM bytes/s, f32 FLOP/s (an FMA
+# counts 2). Compares, max and adds issue at most one per f32 lane and
+# clock, half the FMA-counted rate.
 PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
+PEAK_F32_OPS = PEAK_F32 / 2
 
 
 def log(*args):
@@ -81,15 +85,23 @@ def plain_twins():
         cuda_nms.nms_cuda, cuda_sample.sample_cuda = saved
 
 
-def nms_bound(maps, rounds, d):
-    """(ms, bound_by): read + write each f32 map once; ~(4d+3) compare/max
-    operations per pixel for the first mask and (8d+6) per pixel per round
-    run (separable suppression count + separable local-max mask)."""
+def nms_bound(maps, rounds):
+    """(ms, bound_by): read + write each f32 map once; the operations the
+    function needs, independent of d, per pixel:
+      local-max mask, 14: the row maxima of the d values left and right of
+        a pixel are one width-d sliding max (van Herk / Gil-Werman, 3 max),
+        the full row max 2 more, the column maxima of that over the d rows
+        above and below one more sliding max (3); before/after 2,
+        the strict / >= compares and their and 3, the count 1;
+      suppression, 7: a box count by running sums (2 per axis), minus the
+        pixel itself, a compare and a select.
+    The mask runs once before the rounds, both run in every round this
+    run's maps needed; all at the compare / add rate."""
     n = maps.numel()
     hw = maps.shape[-1] * maps.shape[-2]
     t_bytes = 2 * n * 4 / PEAK_BYTES
-    ops = (int(rounds.sum()) * (8 * d + 6) + maps.shape[0] * (4 * d + 3)) * hw
-    t_ops = ops / PEAK_F32
+    ops = (int(rounds.sum()) * (14 + 7) + maps.shape[0] * 14) * hw
+    t_ops = ops / PEAK_F32_OPS
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -148,8 +160,8 @@ def main() -> int:
                                                      fast_nms_rounds)
     from keypoint_bench_tpu_torch.ops.matching import mutual_nn_match
     from keypoint_bench_tpu_torch.ops.sparse_desc import (
-        alike_sparse_descriptors_cm_batch_yorder, band_coverage_ok,
-        row_tap_keys, sample_branches)
+        alike_sparse_descriptors_cm_batch_yorder, row_tap_keys,
+        sample_branches)
     from keypoint_bench_tpu_torch.pipeline import extract, extract_match
     from keypoint_bench_tpu_torch.runner import EvalConfig, Evaluator
     from keypoint_bench_tpu_torch.weights import load_params
@@ -165,12 +177,9 @@ def main() -> int:
 
     with phase("build kernels (nvcc, parallel)"):
         t0 = time.perf_counter()
-        _build.build_all(["nms", "sample"])
+        with ThreadPoolExecutor() as pool:
+            list(pool.map(_build.build, ["nms", "sample"]))
         log(f"build: {time.perf_counter() - t0:.1f} s")
-        for name in ("nms", "sample"):
-            for line in _build.build_log(name).splitlines():
-                if "registers" in line or "spill" in line:
-                    log(f"  {name}: {line.strip()}")
 
     params = load_params("Alike", device=dev)
     model = get_model("Alike")(params).eval()
@@ -217,7 +226,7 @@ def main() -> int:
         nms_plain_ms = cuda_ms(lambda: fast_nms(maps0, 6, 30), iters=3,
                                warmup=1)
         _, rounds = fast_nms_rounds(maps0, 6, 30)
-        nms_bound_ms, nms_bound_by = nms_bound(maps0, rounds, 6)
+        nms_bound_ms, nms_bound_by = nms_bound(maps0, rounds)
         log(f"  [16,512,512] d=6: kernel {nms_ms:.4f} ms, plain "
             f"{nms_plain_ms:.4f} ms, bound {nms_bound_ms:.4f} ms "
             f"({nms_bound_by}); rounds per map {rounds.tolist()}")
@@ -246,12 +255,25 @@ def main() -> int:
                     params, feats0, kpts0, valid0, SIZE, SIZE)
         diff = float((d_k - d_p).abs().max())
         errs["sample"] = max(errs["sample"], diff)
-        log(f"  yorder descriptors: max_abs_err={diff:.3g}; band coverage "
-            f"(reference band kernel would apply): "
-            f"{bool(band_coverage_ok(row_tap_keys(k_k, SIZE), SIZE))}")
+        log(f"  yorder descriptors: max_abs_err={diff:.3g}")
         if not (diff <= 1e-5 and torch.equal(k_k, k_p)
                 and torch.equal(v_k, v_p)):
             raise AssertionError(f"yorder kernel vs plain: {diff}")
+        # branches of 3 and 2 rows (a 96^2 or 64^2 image's last branch):
+        # the plain twin resizes them densely, the kernel takes its taps
+        gen = torch.Generator(device=dev).manual_seed(1)
+        for lo in (3, 2):
+            sz = 32 * lo
+            tiny = tuple(torch.rand((2, 16, sz // r, sz // r), device=dev,
+                                    generator=gen) for r in (1, 2, 8, 32))
+            tx, ty = (torch.rand((2, 300), device=dev, generator=gen)
+                      * (sz - 1) for _ in range(2))
+            diff = float((cuda_sample.sample_cuda(tiny, tx, ty, sz, sz)
+                          - sample_branches(tiny, tx, ty, sz, sz)).abs().max())
+            errs["sample"] = max(errs["sample"], diff)
+            log(f"  {sz}^2 branches (last {lo}x{lo}): max_abs_err={diff:.3g}")
+            if not diff <= 1e-5:
+                raise AssertionError(f"kernel B differs at {sz}^2: {diff}")
         samp_ms = cuda_ms(lambda: cuda_sample.sample_cuda(
             feats0, pxs, pys, SIZE, SIZE))
         samp_plain_ms = cuda_ms(lambda: sample_branches(

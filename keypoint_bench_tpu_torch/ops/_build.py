@@ -18,7 +18,7 @@ PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
 
 def _nvcc() -> str:
@@ -40,52 +40,22 @@ def _target(name: str) -> tuple[str, str]:
                              f"lib{name}_{digest.hexdigest()[:16]}.so")
 
 
-def _start(name: str):
-    """Start nvcc for `name` unless its library exists. Returns
-    (out_path, Popen | None, tmp_path | None)."""
+def build(name: str) -> str:
+    """Path of the built library for csrc/<name>.cu, building it if needed.
+    Each call runs its own nvcc, so threads may build several at once."""
     src, out = _target(name)
     if os.path.exists(out):
-        return out, None, None
+        return out
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
-    proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
-                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                            text=True)
-    return out, proc, tmp
-
-
-def _finish(name: str, out: str, proc, tmp) -> str:
-    if proc is None:
-        return out
-    log, _ = proc.communicate()
-    with open(out[:-3] + ".log", "w") as f:
-        f.write(log)
+    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
+                          capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for csrc/{name}.cu "
-                           f"(rc {proc.returncode}):\n{log}")
+                           f"(rc {proc.returncode}):\n{proc.stdout}"
+                           f"{proc.stderr}")
     os.replace(tmp, out)
     return out
-
-
-def build(name: str) -> str:
-    """Path of the built library for csrc/<name>.cu, building it if needed."""
-    return _finish(name, *_start(name))
-
-
-def build_all(names) -> dict:
-    """Build several sources at once, one nvcc process each, all started
-    together. Returns {name: library path}."""
-    started = {n: _start(n) for n in names}
-    return {n: _finish(n, *started[n]) for n in names}
-
-
-def build_log(name: str) -> str:
-    """nvcc's output (ptxas register / shared-memory report) of the build."""
-    path = _target(name)[1][:-3] + ".log"
-    if not os.path.exists(path):
-        return ""
-    with open(path) as f:
-        return f.read()
 
 
 class Kernel:

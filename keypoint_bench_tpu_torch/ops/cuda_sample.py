@@ -4,9 +4,10 @@
 Replaces keypoint_bench_tpu/ops/pallas_sample.py `_kernel` and, for the
 y-ordered API, `_sorted_kernel`. The plain twin is
 ops/sparse_desc.py `sample_branches`; `fused_samples_batch` takes it for
-CPU tensors, and for branches under 4 rows or columns, where the
-reference does not use its kernel either (pallas_sample.supported). For
-other CUDA tensors it launches the kernel or raises.
+CPU tensors only. For CUDA tensors it launches the kernel or raises. The
+kernel's taps read rows lo and lo+1 of a branch with lo <= n-2, so it
+needs branches of at least 2 x 2; it also serves the 2- and 3-row maps
+for which the reference leaves its 4-row TPU window and resizes densely.
 """
 from __future__ import annotations
 
@@ -23,16 +24,11 @@ KERNEL = Kernel("sample", "kbt_sample",
                 [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _I, _I, _P])
 
 
-def supported(feats_b) -> bool:
-    """Every branch at least 4 x 4 (the composite taps span 4 rows)."""
-    return all(f.shape[-2] >= 4 and f.shape[-1] >= 4 for f in feats_b)
-
-
 def fused_samples_batch(feats_b, px_b: torch.Tensor, py_b: torch.Tensor,
                         h: int, w: int) -> torch.Tensor:
     """feats_b: tuple of channel-major [B,C,H_i,W_i] (branch 0 at h x w);
     px_b/py_b [B,K] f32 pixel coordinates -> [B, sum C_i, K] f32."""
-    if not px_b.is_cuda or not supported(feats_b):
+    if not px_b.is_cuda:
         from keypoint_bench_tpu_torch.ops.sparse_desc import sample_branches
         return sample_branches(feats_b, px_b, py_b, h, w)
     return sample_cuda(feats_b, px_b, py_b, h, w)
@@ -60,8 +56,9 @@ def sample_cuda(feats_b, px_b: torch.Tensor, py_b: torch.Tensor,
         if f.dim() != 4 or f.shape[0] != b or f.shape[1] != c:
             raise ValueError(f"branch features must be [B={b}, C={c}, h, w]; "
                              f"got {tuple(f.shape)}")
-    if tuple(feats_b[0].shape[-2:]) != (h, w) or not supported(feats_b):
-        raise ValueError("branch 0 must be h x w and every branch >= 4 x 4")
+    if tuple(feats_b[0].shape[-2:]) != (h, w) or min(
+            min(f.shape[-2:]) for f in feats_b) < 2:
+        raise ValueError("branch 0 must be h x w and every branch >= 2 x 2")
     out = torch.empty((b, nb * c, k), dtype=torch.float32, device=dev)
     if k == 0 or b == 0:
         return out

@@ -23,11 +23,10 @@ from keypoint_bench_tpu_torch.ops import cuda_sample
 from keypoint_bench_tpu_torch.ops.grid_sample import sample_bilinear_pixels
 
 # The JAX package's y-ordered API sorts only where its row-band TPU kernel
-# applies (pallas_sample.sorted_supported with ROWS0 = 80 rows, 128
-# keypoints a tile); the port keeps that rule so its output order equals
-# the reference's on every shape.
+# applies (pallas_sample.sorted_supported: every branch at least 4 x 4 and
+# ROWS0 = 80 resident rows); the port keeps that rule so its output order
+# equals the reference's on every shape.
 ROWS0 = 80
-KT = 128
 
 
 def _onehot4(idx: torch.Tensor) -> torch.Tensor:
@@ -178,7 +177,7 @@ def alike_sparse_descriptors_cm_batch(params: dict, feats_b,
 
 
 def _sorted_supported(feats_b, h: int) -> bool:
-    return (cuda_sample.supported(feats_b) and h >= ROWS0
+    return (all(min(f.shape[-2:]) >= 4 for f in feats_b) and h >= ROWS0
             and (h - ROWS0) % 8 == 0)
 
 
@@ -210,23 +209,3 @@ def alike_sparse_descriptors_cm_batch_yorder(params: dict, feats_b,
     valid_s = valid_b.gather(1, order)
     desc = alike_sparse_descriptors_cm_batch(params, feats_b, kpts_s, h, w)
     return desc, kpts_s, valid_s
-
-
-def band_coverage_ok(keys_sorted: torch.Tensor, h: int) -> torch.Tensor:
-    """The reference's coverage contract for its band kernel, on y-sorted
-    row-tap keys [B,K]: every 128-keypoint tile's y0 span fits the ROWS0
-    resident rows from its 8-aligned start (otherwise the TPU takes its
-    whole-height kernel). Kernel B gathers its taps directly and needs no
-    band, so the port's result does not depend on it; this reports
-    whether the reference would have taken its band path. Scalar bool."""
-    b, k = keys_sorted.shape
-    kp = -(-k // KT) * KT
-    keys = torch.cat([keys_sorted, torch.full((b, kp - k), h,
-                                              dtype=keys_sorted.dtype,
-                                              device=keys_sorted.device)], 1)
-    tiles = keys.reshape(b, kp // KT, KT)
-    starts = torch.clamp_max(torch.div(tiles[:, :, 0], 8,
-                                       rounding_mode="floor") * 8,
-                             (h - ROWS0) // 8 * 8)
-    return torch.all((tiles <= (starts + ROWS0 - 2)[..., None])
-                     | (tiles >= h))

@@ -34,10 +34,14 @@ def extract_match(model, params: dict, imgs0, imgs1,
     """imgs0/imgs1 [B,H,W,3] (float in [0,1] or uint8) -> (n_matches
     0-d tensor, k0 [B,K,3], m1 [B,K,3]): k0 in the sampler's y order, m1 the
     keypoints of imgs1 that each row of k0 matched (rows of unmatched
-    keypoints are padding)."""
+    keypoints are padding). The model and params must already be on
+    `device` (`load_params(..., device=)`): the step moves no weights."""
     dev = resolve_device(device)
-    model = model.to(dev)
-    params = {k: v.to(dev) for k, v in params.items()}
+    w_dev = next(iter(params.values())).device
+    if w_dev.type != dev.type or (dev.index is not None
+                                  and w_dev.index != dev.index):
+        raise ValueError(f"params are on {w_dev}, the step runs on {dev}: "
+                         f"load them with load_params(..., device=)")
     imgs0 = torch.as_tensor(imgs0, device=dev)
     imgs1 = torch.as_tensor(imgs1, device=dev)
     d0, k0, v0 = extract(model, params, imgs0, detect_params)

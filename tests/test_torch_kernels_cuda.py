@@ -59,10 +59,10 @@ def test_nms_kernel_respects_max_iter(dev, max_iter):
                        fast_nms(maps, 4, max_iter))
 
 
-def _sample_case(dev, b, k, seed):
+def _sample_case(dev, b, k, seed,
+                 shapes=((160, 224), (80, 112), (20, 28), (5, 7))):
     rng = np.random.default_rng(seed)
-    h, w = 160, 224
-    shapes = [(160, 224), (80, 112), (20, 28), (5, 7)]
+    h, w = shapes[0]
     feats = tuple(torch.from_numpy(rng.random((b, 16, hh, ww),
                                               np.float32)).to(dev)
                   for hh, ww in shapes)
@@ -84,12 +84,26 @@ def test_sample_kernel_matches_plain(dev, b, k):
     assert float((got - want).abs().max()) <= 1e-5
 
 
+@pytest.mark.parametrize("lo", [(2, 2), (3, 2), (3, 3)])
+def test_sample_kernel_tiny_branches_match_dense_resize(dev, lo):
+    """Branches of 2 or 3 rows: the plain twin resizes densely, as the
+    reference does; the kernel's composite taps give the same samples."""
+    shapes = ((64, 64), (32, 32), (8, 8), lo)
+    args = _sample_case(dev, 2, 200, 5, shapes)
+    got = cuda_sample.fused_samples_batch(*args)
+    want = sample_branches(*args)
+    assert float((got - want).abs().max()) <= 1e-5
+
+
 def test_sample_kernel_rejects_bad_input(dev):
     feats, px, py, h, w = _sample_case(dev, 1, 10, 0)
     with pytest.raises(ValueError):
         cuda_sample.sample_cuda(feats, px.double(), py, h, w)
     with pytest.raises(ValueError):
         cuda_sample.sample_cuda(feats, px.cpu(), py, h, w)
+    one_row = feats[:3] + (feats[3][:, :, :1].contiguous(),)
+    with pytest.raises(ValueError):
+        cuda_sample.fused_samples_batch(one_row, px, py, h, w)
     assert cuda_sample.sample_cuda(feats, px[:, :0].contiguous(),
                                    py[:, :0].contiguous(), h, w).numel() == 0
 

@@ -151,3 +151,12 @@ def test_extract_match_accepts_uint8(highest):
                        *(torch.from_numpy(x.astype(np.float32) / 255.0)
                          for x in to8), dp, device="cpu")[0]
     assert int(n8) == int(nf) > 0
+
+
+def test_extract_match_refuses_weights_on_another_device():
+    """The step moves no weights: params elsewhere than `device` raise."""
+    params = {k: v.to("meta") for k, v in load_params("Alike").items()}
+    imgs = np.zeros((1, 64, 64, 3), np.float32)
+    with pytest.raises(ValueError, match="params are on meta"):
+        extract_match(get_model("Alike")(params), params, imgs, imgs,
+                      DetectParams(), device="cpu")

@@ -170,13 +170,43 @@ def test_tiny_maps_fall_back_like_jax(highest):
     np.testing.assert_allclose(d.numpy(), np.asarray(d_ref), atol=1e-5)
 
 
-@pytest.mark.parametrize("spread,expect", [(0.9, False), (0.05, True)])
-def test_band_coverage(spread, expect):
-    """Keypoints spread over the full height overflow a 128-keypoint
-    tile's 80-row band; clustered ones fit."""
-    h = 512
-    ky = np.linspace(0.5 - spread / 2, 0.5 + spread / 2, 200,
-                     dtype=np.float32)
-    kpts = torch.from_numpy(np.stack([ky, ky, ky], -1)[None])
-    keys = torch.sort(tsd.row_tap_keys(kpts, h), dim=1, stable=True)[0]
-    assert bool(tsd.band_coverage_ok(keys, h)) is expect
+def _kernel_taps_up(p, n_hi, n_lo):
+    """Kernel B's composite taps (csrc/sample.cu `taps_up`) in numpy: rows
+    la, la+1, lb, lb+1 with no 4-row window, so 2- and 3-row maps work."""
+    f = np.floor(p)
+    dy = p - f
+    s = np.float32((n_lo - 1.0) / (n_hi - 1.0))
+
+    def lo_frac(y):
+        src = y.astype(np.float32) * s
+        lo = np.clip(np.floor(src).astype(np.int64), 0, n_lo - 2)
+        return lo, src - lo
+
+    la, fa = lo_frac(f.astype(np.int64))
+    lb, fb = lo_frac(np.minimum(f.astype(np.int64) + 1, n_hi - 1))
+    return (np.stack([la, la + 1, lb, lb + 1], -1),
+            np.stack([(1 - dy) * (1 - fa), (1 - dy) * fa, dy * (1 - fb),
+                      dy * fb], -1))
+
+
+@pytest.mark.parametrize("n_lo", [2, 3, 5])
+def test_kernel_taps_match_dense_upsample(n_lo):
+    """Kernel B samples branches of 2 and 3 rows with its composite taps,
+    where the reference resizes densely (its 4-row TPU window does not
+    fit): both give the sample of the align-corners upsample, within
+    1e-6 (f32, other summation order)."""
+    rng = np.random.default_rng(n_lo)
+    f = rng.random((n_lo, n_lo + 1, 8), np.float32)
+    px, py = (a[0] for a in _coords(rng, 1, 100))
+    px[:2], py[:2] = [0.0, W - 1.0], [H - 1.0, 0.0]
+    ri, wr = _kernel_taps_up(py, H, n_lo)
+    ci, wc = _kernel_taps_up(px, W, n_lo + 1)
+    got = np.einsum("ka,kb,kabc->kc", wr, wc,
+                    f[ri[:, :, None], ci[:, None, :]])
+    want = jsd.sample_upsampled(jnp.asarray(f), jnp.asarray(px),
+                                jnp.asarray(py), H, W)
+    np.testing.assert_allclose(got, np.asarray(want), atol=1e-6)
+    np.testing.assert_allclose(
+        tsd.sample_upsampled(torch.from_numpy(f), torch.from_numpy(px),
+                             torch.from_numpy(py), H, W).numpy(),
+        np.asarray(want), atol=1e-6)
