@@ -2,23 +2,42 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU: `python3 chip_smoke.py`.
 
 Phases, each fatal on failure:
-  1. the card's name and power limit; build both CUDA kernels from
+  1. the card's name and power limit; build the four CUDA kernels from
      keypoint_bench_tpu_torch/csrc with nvcc, in parallel;
-  2. the ALIKE-t forward on the card vs the CPU at 128^2 (atol 1e-4, f32
-     with TF32 off on both);
+  2. the ALIKE-t and SuperPoint forwards on the card vs the CPU at 128^2
+     (atol 1e-4, f32 with TF32 off on both);
   3. kernel A (NMS fixpoint) vs its plain twin on real ALIKE-t score maps
      at 512^2, a tie-heavy bf16 map and a signed map: bit equality;
   4. kernel B (sparse sampler) vs its plain twin on real branch features
      at 512^2, K=1000, original and y-sorted keypoint order, and on random
      features whose last branch is 3 x 3 or 2 x 2: max abs error <= 1e-5;
-  5. the main path, `extract_match` at 512^2, 16 pairs, nms 6, border 8,
-     top_k 1000, max_distance 5, with the launch counts reset just before
-     it: keypoints and masks equal to the same pipeline through the plain
-     twins, match count within 0.5% of the valid keypoints; then timed
-     (median of 7 windows) with a per-stage breakdown;
+  5. the ALIKE-t path, `extract_match` at 512^2, 16 pairs, nms 6, border
+     8, top_k 1000, max_distance 5, with the launch counts reset just
+     before it: keypoints and masks equal to the same pipeline through the
+     plain twins, match count within 0.5% of the valid keypoints; then
+     timed (median of 7 windows) with a per-stage breakdown;
   6. synthetic repeatability (configs/repeatability_synthetic.yaml, 4
      pairs at 512^2) through the port's runner, equal to the plain-twin run;
-  7. a `kernels` JSON line and, last, the device JSON line.
+  7. kernel D (nearest neighbours) vs its plain twin on real SuperPoint
+     (D = 256) and ALIKE-t (D = 64) descriptors at K = 1000 with invalid
+     rows and columns: indices equal except near ties (the two candidates'
+     distances within 1e-5 of |a|^2 + |b|^2), distances within 1e-4 of it;
+  8. kernel E (masked attention) vs its plain twin within 1e-5 absolute
+     and relative: 8 pairs x 2 sides x 4 heads at K = 1000 for both scales,
+     all keys invalid (finite and uniform), n != m off the tile size;
+  9. `superpoint_mha_step` at 512^2, nms 6, border 8, top_k 1000,
+     max_distance 5, n_hyp 512 with brute force (16 pairs) and with
+     LightGlue (8 pairs), launch counts reset just before each: matches
+     and MHA hits against the plain-twin step on the same generator seed
+     (0.5% match-count rule, differences in hits recorded), LightGlue's
+     2-layer scores against the plain twins on the step's descriptors;
+     then timed (median of 7 windows) with a per-stage breakdown, and one
+     step under torch.profiler for the device's busy time and top kernels;
+ 10. the port's Evaluator: MHA with SuperPoint + light_glue on 4 synthetic
+     pairs at 512^2 from golden weights staged under output/, equal to the
+     plain-twin run;
+ 11. kernel E timed alone at K = 4096;
+ 12. a `kernels` JSON line and, last, the device JSON line.
 Exits non-zero without CUDA, or without the port's package beside it.
 """
 from __future__ import annotations
@@ -34,6 +53,7 @@ from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 DEVICE, SIZE, PAIRS, K = "cuda", 512, 16, 1000
+LG_PAIRS, K_LARGE = 8, 4096     # LightGlue pairs; bench.py:314's second K
 # H100 SXM peaks (vendor datasheet): HBM bytes/s, f32 FLOP/s (an FMA
 # counts 2). Compares, max and adds issue at most one per f32 lane and
 # clock, half the FMA-counted rate.
@@ -73,16 +93,148 @@ def cuda_ms(fn, iters=10, warmup=2):
 def plain_twins():
     """Route CUDA tensors through the kernels' plain twins (the reference
     the kernels are held against); restored on exit."""
-    from keypoint_bench_tpu_torch.ops import cuda_nms, cuda_sample
+    from keypoint_bench_tpu_torch.ops import (cuda_attention, cuda_match,
+                                              cuda_nms, cuda_sample)
+    from keypoint_bench_tpu_torch.ops.attention import fused_attention
     from keypoint_bench_tpu_torch.ops.detect import fast_nms
+    from keypoint_bench_tpu_torch.ops.matching import nn_dists
     from keypoint_bench_tpu_torch.ops.sparse_desc import sample_branches
-    saved = cuda_nms.nms_cuda, cuda_sample.sample_cuda
+    saved = (cuda_nms.nms_cuda, cuda_sample.sample_cuda,
+             cuda_match.nn_dists_cuda, cuda_attention.attention_cuda)
     cuda_nms.nms_cuda = fast_nms
     cuda_sample.sample_cuda = sample_branches
+    cuda_match.nn_dists_cuda = nn_dists
+    cuda_attention.attention_cuda = fused_attention
     try:
         yield
     finally:
-        cuda_nms.nms_cuda, cuda_sample.sample_cuda = saved
+        (cuda_nms.nms_cuda, cuda_sample.sample_cuda,
+         cuda_match.nn_dists_cuda, cuda_attention.attention_cuda) = saved
+
+
+def kernel_handles():
+    """The four kernels' launch counters, by the names in the JSON line."""
+    from keypoint_bench_tpu_torch.ops import (cuda_attention, cuda_match,
+                                              cuda_nms, cuda_sample)
+    return {"nms": cuda_nms.KERNEL, "sample": cuda_sample.KERNEL,
+            "nn_match": cuda_match.KERNEL, "attention": cuda_attention.KERNEL}
+
+
+def reset_launches():
+    for k in kernel_handles().values():
+        k.launches = 0
+
+
+def read_launches():
+    return {n: k.launches for n, k in kernel_handles().items()}
+
+
+def check_nn(got, want, a, b):
+    """Kernel D's (nn01, d01, nn10, d10) against the plain twin's, in
+    float64 from the inputs: indices equal except near ties (the two
+    candidates' distances within 1e-5 of |a|^2 + |b|^2, the operands'
+    scale), distances within 1e-4 of that scale. Returns ([near ties
+    between penalty-free pairs, near ties where a penalty sits], max abs
+    error of d over penalty-free pairs, max error relative to scale)."""
+    a64, b64 = a.double(), b.double()
+    near, err_free, rel = [0, 0], 0.0, 0.0
+    for side, (x, y) in enumerate(((a64, b64), (b64, a64))):
+        nn_g, d_g = got[2 * side].long(), got[2 * side + 1].double()
+        nn_w, d_w = want[2 * side].long(), want[2 * side + 1].double()
+        xn, yn = (x * x).sum(-1), (y * y).sum(-1)
+
+        def dist(nn):
+            yy = y.gather(1, nn[..., None].expand(*nn.shape, y.shape[-1]))
+            return ((x - yy) ** 2).sum(-1), xn + yn.gather(-1, nn)
+
+        dg, scale = dist(nn_g)
+        dw, _ = dist(nn_w)
+        differ = nn_g != nn_w
+        if not bool(((dg - dw).abs() <= 1e-5 * scale)[differ].all()):
+            raise AssertionError("kernel D picks a neighbour that is not a "
+                                 "near tie of the plain twin's")
+        e = (d_g - d_w).abs()
+        if not bool((e <= 1e-4 * scale).all()):
+            raise AssertionError(f"kernel D distances differ by "
+                                 f"{float((e / scale).max())} of scale")
+        free = scale < 1e4          # no penalty at either end
+        near[0] += int((differ & free).sum())
+        near[1] += int((differ & ~free).sum())
+        rel = max(rel, float((e / scale).max()))
+        if bool(free.any()):
+            err_free = max(err_free, float(e[free].max()))
+    return near, err_free, rel
+
+
+def close_scores(got, want):
+    """LightGlue log scores: masked entries masked on both sides, the
+    difference's norm within 1e-4 of the reference's, each entry within
+    1e-3 of the largest unmasked score. Returns the relative norm."""
+    live = want > -1e8
+    if not bool(((got > -1e8) == live).all()):
+        raise AssertionError("LightGlue masks differ")
+    diff = (got - want).abs()[live]
+    rel = float(diff.norm() / want[live].norm())
+    if not (float(diff.max()) <= 1e-3 * float(want[live].abs().max())
+            and rel <= 1e-4):
+        raise AssertionError(f"LightGlue scores differ: {rel}")
+    return rel
+
+
+def profile_step(step, top=6):
+    """One step under torch.profiler: (device busy ms, host window ms,
+    [(kernel, device ms)] of the `top` kernels by device time). Busy time
+    is the union of the device activity intervals; the window spans every
+    recorded event, host and device."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    events = prof.events()
+    device = [e for e in events if e.device_type == DeviceType.CUDA]
+    busy, end, per_kernel = 0.0, float("-inf"), {}
+    for e in sorted(device, key=lambda e: e.time_range.start):
+        a, b = e.time_range.start, e.time_range.end
+        per_kernel[e.key] = per_kernel.get(e.key, 0.0) + (b - a) / 1e3
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    window = (max(e.time_range.end for e in events)
+              - min(e.time_range.start for e in events)) if events else 0.0
+    kernels = sorted(per_kernel.items(), key=lambda kt: -kt[1])[:top]
+    return busy / 1e3, window / 1e3, kernels
+
+
+def match_bound(a, b):
+    """(ms, bound_by) of kernel D on a [B,M,D], b [B,N,D]: a and b read
+    once, nn and d written once per row and column; 2*M*N*D FLOPs of the
+    distance products at the FMA rate, plus 5 operations per (i, j) at the
+    add / compare rate: the two norms added, 2ab scaled and subtracted, and
+    one compare each for the row and the column minimum."""
+    bsz, m, d = a.shape
+    n = b.shape[1]
+    t_bytes = (4 * bsz * (m + n) * d + 8 * bsz * (m + n)) / PEAK_BYTES
+    t_ops = (2 * bsz * m * n * d / PEAK_F32
+             + 5 * bsz * m * n / PEAK_F32_OPS)
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def attention_bound(q, m):
+    """(ms, bound_by, exps) of kernel E on q [..., n, 64] against m keys:
+    q, k, v and the mask read once, the output written once; 4*n*m*dh
+    FLOPs per slice (QK^T and PV) at the f32 FMA rate. The n*m
+    exponentials are counted apart (the peak table has no rate for them)."""
+    dh, n = q.shape[-1], q.shape[-2]
+    g = q.numel() // (n * dh)
+    t_bytes = (4 * g * dh * (2 * n + 2 * m) + g * m) / PEAK_BYTES
+    t_ops = 4 * g * n * m * dh / PEAK_F32
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", g * n * m)
 
 
 def nms_bound(maps, rounds):
@@ -153,18 +305,33 @@ def main() -> int:
 
     from keypoint_bench_tpu_torch.datasets import get_dataset
     from keypoint_bench_tpu_torch.models import get_model
-    from keypoint_bench_tpu_torch.ops import _build, cuda_nms, cuda_sample
+    from keypoint_bench_tpu_torch.ops import (_build, cuda_attention,
+                                              cuda_match, cuda_nms,
+                                              cuda_sample)
     from keypoint_bench_tpu_torch.ops.detect import (DetectParams,
                                                      detection_batch,
                                                      fast_nms,
                                                      fast_nms_rounds)
-    from keypoint_bench_tpu_torch.ops.matching import mutual_nn_match
+    from keypoint_bench_tpu_torch.ops.matching import (mutual_nn_match,
+                                                       nn_dists, penalized)
     from keypoint_bench_tpu_torch.ops.sparse_desc import (
         alike_sparse_descriptors_cm_batch_yorder, row_tap_keys,
         sample_branches)
-    from keypoint_bench_tpu_torch.pipeline import extract, extract_match
+    import torch.nn.functional as F
+
+    from keypoint_bench_tpu_torch.models.lightglue import (
+        lightglue_scores, sample_descriptors_lg)
+    from keypoint_bench_tpu_torch.ops.attention import fused_attention
+    from keypoint_bench_tpu_torch.ops.grid_sample import sample_at_points
+    from keypoint_bench_tpu_torch.pipeline import (covisible, extract,
+                                                   extract_match, match_pairs,
+                                                   superpoint_detect,
+                                                   superpoint_mha_step)
     from keypoint_bench_tpu_torch.runner import EvalConfig, Evaluator
-    from keypoint_bench_tpu_torch.weights import load_params
+    from keypoint_bench_tpu_torch.tasks.mha import mha_pair
+    from keypoint_bench_tpu_torch.weights import (load_golden_params,
+                                                  load_params,
+                                                  stage_golden_weights)
 
     dev = torch.device(DEVICE)
     card = subprocess.run(
@@ -178,25 +345,33 @@ def main() -> int:
     with phase("build kernels (nvcc, parallel)"):
         t0 = time.perf_counter()
         with ThreadPoolExecutor() as pool:
-            list(pool.map(_build.build, ["nms", "sample"]))
+            list(pool.map(_build.build,
+                          ["nms", "sample", "match", "attention"]))
         log(f"build: {time.perf_counter() - t0:.1f} s")
 
     params = load_params("Alike", device=dev)
     model = get_model("Alike")(params).eval()
     dp = DetectParams(nms_dist=6, border_dist=8, top_k=K)
-    errs = {"nms": 0.0, "sample": 0.0}
+    errs = {"nms": 0.0, "sample": 0.0, "nn_match": 0.0, "attention": 0.0}
+    sp_params = load_golden_params("SuperPoint", dev)
+    sp_model = get_model("SuperPoint")(sp_params).eval()
+    lg_params = load_golden_params("lightglue", dev)
 
-    with phase("forward: card vs CPU at 128^2"):
+    with phase("forward: ALIKE-t and SuperPoint, card vs CPU at 128^2"):
         img = torch.from_numpy(np.random.default_rng(0).random(
             (1, 128, 128, 3), np.float32))
-        with torch.inference_mode():
-            s_gpu, d_gpu = model(img.to(dev))
-            s_cpu, d_cpu = get_model("Alike")(load_params("Alike"))(img)
-        err = max(float((s_gpu.cpu() - s_cpu).abs().max()),
-                  float((d_gpu.cpu() - d_cpu).abs().max()))
-        log(f"forward max abs err {err:.3g}")
-        if not err <= 1e-4:
-            raise AssertionError(f"forward card vs CPU: {err}")
+        for name, m_gpu, m_cpu in (
+                ("Alike", model, get_model("Alike")(load_params("Alike"))),
+                ("SuperPoint", sp_model, get_model("SuperPoint")(
+                    load_golden_params("SuperPoint")))):
+            with torch.inference_mode():
+                s_gpu, d_gpu = m_gpu(img.to(dev))
+                s_cpu, d_cpu = m_cpu(img)
+            err = max(float((s_gpu.cpu() - s_cpu).abs().max()),
+                      float((d_gpu.cpu() - d_cpu).abs().max()))
+            log(f"  {name} forward max abs err {err:.3g}")
+            if not err <= 1e-4:
+                raise AssertionError(f"{name} forward card vs CPU: {err}")
 
     with phase("data: 16 synthetic homography pairs at 512^2"):
         ds = get_dataset({"type": "synthetic_homography",
@@ -285,16 +460,15 @@ def main() -> int:
             f"({samp_bound_by})")
 
     with phase("main path: extract_match, 16 pairs at 512^2"):
-        cuda_nms.KERNEL.launches = 0
-        cuda_sample.KERNEL.launches = 0
+        reset_launches()
         n, k0, m1 = extract_match(model, params, imgs0, imgs1, dp, 5.0,
                                  device=DEVICE)
         torch.cuda.synchronize()
-        launches = {"nms": cuda_nms.KERNEL.launches,
-                    "sample": cuda_sample.KERNEL.launches}
-        log(f"  launches in one main-path run: {launches}")
-        if min(launches.values()) <= 0:
-            raise AssertionError(f"a kernel was not launched: {launches}")
+        got = read_launches()
+        log(f"  launches in one extract_match run: {got}")
+        launches = {k: got[k] for k in ("nms", "sample")}
+        if min(got["nms"], got["sample"], got["nn_match"]) <= 0:
+            raise AssertionError(f"a kernel was not launched: {got}")
         with torch.inference_mode():
             ext_k = [extract(model, params, im, dp) for im in (imgs0, imgs1)]
             with plain_twins():
@@ -343,7 +517,7 @@ def main() -> int:
                   "yorder descriptors (16 maps)":
                   cuda_ms(lambda: alike_sparse_descriptors_cm_batch_yorder(
                       params, feats0, kpts0, valid0, SIZE, SIZE), iters=5),
-                  "mutual_nn_match (16 pairs)":
+                  "mutual_nn_match (16 pairs, kernel D)":
                   cuda_ms(lambda: mutual_nn_match(
                       ext_k[0][0], ext_k[1][0], ext_k[0][2], ext_k[1][2],
                       5.0), iters=5)}
@@ -364,6 +538,245 @@ def main() -> int:
                 == rep_p["per_pair_repeatability"]):
             raise AssertionError("repeatability out of range or != plain")
 
+    Hs = torch.from_numpy(np.stack(
+        [s["warp01_params"]["homography_matrix"] for s in items])).to(dev)
+    Hinvs = torch.from_numpy(np.stack(
+        [s["warp10_params"]["homography_matrix"] for s in items])).to(dev)
+    with torch.inference_mode():
+        sk0, sv0, sdm0 = superpoint_detect(sp_model, imgs0, dp)
+        sk1, sv1, sdm1 = superpoint_detect(sp_model, imgs1, dp)
+        sva, svb = covisible(sk0, sv0, sk1, sv1, Hs, Hinvs, SIZE, SIZE)
+
+    with phase("kernel D (nearest neighbours) vs plain nn_dists"):
+        rows = torch.arange(K, device=dev)
+        cases = [("SuperPoint D=256", sample_at_points(sdm0, sk0), sva,
+                  sample_at_points(sdm1, sk1), svb),
+                 ("ALIKE-t D=64", ext_k[0][0], ext_k[0][2], ext_k[1][0],
+                  ext_k[1][2])]
+        for name, da, va_, db, vb_ in cases:
+            # covisibility leaves invalid rows; add more on both sides
+            a, _ = penalized(da, va_ & (rows % 9 != 0))
+            b, _ = penalized(db, vb_ & (rows % 11 != 0))
+            got = cuda_match.nn_dists_cuda(a, b)
+            want = nn_dists(a, b)
+            near, err_free, rel = check_nn(got, want, a, b)
+            errs["nn_match"] = max(errs["nn_match"], err_free)
+            log(f"  {name} [16 pairs, K={K}]: near-tie index differences "
+                f"{near[0]} penalty-free, {near[1]} under a penalty, of "
+                f"{2 * a.shape[0] * K}; d max abs err {err_free:.3g} "
+                f"(penalty-free), {rel:.3g} of scale")
+            if name.startswith("SuperPoint"):
+                a_sp, b_sp = a, b
+
+        def mm_argmin(a, b):
+            s = torch.baddbmm((a * a).sum(-1)[..., None]
+                              + (b * b).sum(-1)[:, None, :], a,
+                              b.transpose(1, 2), alpha=-2.0)
+            return s.argmin(-1), s.argmin(-2)
+
+        match_ms = cuda_ms(lambda: cuda_match.nn_dists_cuda(a_sp, b_sp))
+        match_plain_ms = cuda_ms(lambda: nn_dists(a_sp, b_sp), iters=5)
+        mm_argmin_ms = cuda_ms(lambda: mm_argmin(a_sp, b_sp), iters=5)
+        match_bound_ms, match_bound_by = match_bound(a_sp, b_sp)
+        log(f"  [16 pairs, K={K}, D=257]: kernel {match_ms:.4f} ms, plain "
+            f"{match_plain_ms:.4f} ms, matmul + argmin {mm_argmin_ms:.4f} "
+            f"ms, bound {match_bound_ms:.4f} ms ({match_bound_by})")
+
+    with phase("kernel E (masked attention) vs plain fused_attention"):
+        gen = torch.Generator(device=dev).manual_seed(2)
+
+        def qkv(lead, n, m):
+            return [torch.randn((*lead, r, 64), device=dev, generator=gen)
+                    for r in (n, m, m)]
+
+        def check_e(name, q, k, v, kv, scale=None):
+            got = cuda_attention.attention_cuda(q, k, v, kv, scale)
+            want = fused_attention(q, k, v, kv, scale)
+            err = (got - want).abs()
+            bad = err > 1e-5 + 1e-5 * want.abs()
+            errs["attention"] = max(errs["attention"], float(err.max()))
+            log(f"  {name}: max abs err {float(err.max()):.3g}, outside "
+                f"1e-5 abs/rel: {int(bad.sum())}")
+            if bool(bad.any()) or not bool(torch.isfinite(got).all()):
+                raise AssertionError(f"kernel E differs on {name}")
+            return got
+
+        lead = (2 * LG_PAIRS, 4)
+        q, k, v = qkv(lead, K, K)
+        kv = torch.rand((2 * LG_PAIRS, 1, K), device=dev, generator=gen) > 0.1
+        for scale in (None, 1.0):
+            check_e(f"[16,4,{K},64] scale {scale or 'dh^-0.5'}", q, k, v, kv,
+                    scale)
+        got = check_e("all keys invalid", q, k, v, torch.zeros_like(kv))
+        if not torch.allclose(got, v.mean(-2, keepdim=True).expand_as(got),
+                              atol=1e-5, rtol=1e-5):
+            raise AssertionError("all-invalid rows are not uniform")
+        q2, k2, v2 = qkv((3, 4), 333, 517)
+        check_e("n=333, m=517", q2, k2, v2,
+                torch.rand((3, 1, 517), device=dev, generator=gen) > 0.2)
+
+        def sdpa_ms(q, k, v, kv, iters):
+            mask = torch.where(kv, 0.0, -1e9)[..., None, :]
+            return cuda_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask), iters=iters)
+
+        att_ms = cuda_ms(lambda: cuda_attention.attention_cuda(q, k, v, kv))
+        att_plain_ms = cuda_ms(lambda: fused_attention(q, k, v, kv), iters=5)
+        att_lib_ms = sdpa_ms(q, k, v, kv, 5)
+        att_bound_ms, att_bound_by, exps = attention_bound(q, K)
+        log(f"  [16,4,{K},64]: kernel {att_ms:.4f} ms, plain "
+            f"{att_plain_ms:.4f} ms, sdpa {att_lib_ms:.4f} ms, bound "
+            f"{att_bound_ms:.4f} ms ({att_bound_by}), {exps} exps")
+
+    for matcher, pairs in (("brute_force", PAIRS), ("light_glue", LG_PAIRS)):
+        with phase(f"superpoint_mha_step: {matcher}, {pairs} pairs at "
+                   f"{SIZE}^2"):
+            lgp = lg_params if matcher == "light_glue" else None
+            args = (sp_model, imgs0[:pairs], imgs1[:pairs], Hs[:pairs],
+                    Hinvs[:pairs], dp)
+
+            def step(seed=0):
+                return superpoint_mha_step(
+                    *args, torch.Generator(device=dev).manual_seed(seed),
+                    matcher, lgp, 5.0, 512, device=DEVICE)
+
+            reset_launches()
+            hits, m0, m1, ok = step()
+            torch.cuda.synchronize()
+            got = read_launches()
+            need = "nn_match" if matcher == "brute_force" else "attention"
+            log(f"  launches in one run: {got}")
+            if got["nms"] <= 0 or got[need] <= 0:
+                raise AssertionError(f"a kernel was not launched: {got}")
+            launches[need] = got[need]
+            with plain_twins():
+                hits_p, m0_p, m1_p, ok_p = step()
+            n_valid = int(sv0[:pairs].sum() + sv1[:pairs].sum())
+            n_ok, n_ok_p = int(ok.sum()), int(ok_p.sum())
+            rows_differ = int((ok != ok_p).sum() + (
+                ok & ok_p & (m1 != m1_p).any(-1)).sum())
+            hit_diff = int((hits != hits_p).any(-1).sum())
+            log(f"  matches kernel {n_ok} plain {n_ok_p} of {n_valid} valid "
+                f"keypoints; rows that differ {rows_differ}; MHA@3/5/7 "
+                f"kernel {hits.mean(0).tolist()} plain "
+                f"{hits_p.mean(0).tolist()}; pairs whose hits differ "
+                f"{hit_diff}")
+            if not (torch.equal(m0, m0_p) and hits.shape == (pairs, 3)
+                    and bool(torch.isfinite(m1).all())
+                    and bool(((hits == 0) | (hits == 1)).all())):
+                raise AssertionError("MHA step outputs malformed or "
+                                     "keypoints differ from plain")
+            if abs(n_ok - n_ok_p) > 0.005 * n_valid / 2:
+                raise AssertionError(f"match count {n_ok} vs plain {n_ok_p}")
+
+            with torch.inference_mode():
+                heat0, _ = sp_model(imgs0[:pairs])
+                k0_, v0_, dm0_ = sk0[:pairs], sva[:pairs], sdm0[:pairs]
+                k1_, v1_, dm1_ = sk1[:pairs], svb[:pairs], sdm1[:pairs]
+                mk0, mk1, mok = match_pairs(matcher, k0_, v0_, k1_, v1_,
+                                            dm0_, dm1_, SIZE, SIZE, 5.0, lgp)
+                if matcher == "light_glue":
+                    p0 = k0_[..., :2] * (SIZE - 1.0)
+                    p1 = k1_[..., :2] * (SIZE - 1.0)
+                    lg_in = (p0, v0_, sample_descriptors_lg(p0, dm0_, 8),
+                             p1, v1_, sample_descriptors_lg(p1, dm1_, 8))
+                    sc = {}
+                    for n_layers in (2, 9):
+                        sc[n_layers] = lightglue_scores(lg_params, *lg_in,
+                                                        n_layers=n_layers)
+                        with plain_twins():
+                            sc[n_layers] = (sc[n_layers], lightglue_scores(
+                                lg_params, *lg_in, n_layers=n_layers))
+                    rel2 = close_scores(*sc[2])
+                    live = sc[9][1] > -1e8
+                    rel9 = float((sc[9][0] - sc[9][1])[live].norm()
+                                 / sc[9][1][live].norm())
+                    log(f"  LightGlue scores vs plain twins: 2 layers "
+                        f"{rel2:.3g}, 9 layers {rel9:.3g} (relative norm)")
+            for _ in range(2):
+                step()
+            windows = []
+            for _ in range(7):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(3):
+                    step()
+                torch.cuda.synchronize()
+                windows.append((time.perf_counter() - t0) / 3)
+            dt = statistics.median(windows)
+            pps = [pairs / w for w in windows]
+            log(f"  step: median {dt * 1e3:.3f} ms per {pairs}-pair batch, "
+                f"{pairs / dt:.2f} pairs/s (min {min(pps):.2f}, max "
+                f"{max(pps):.2f}) on {card}")
+            gen_t = torch.Generator(device=dev).manual_seed(0)
+            with torch.inference_mode():
+                st = {f"forward, SuperPoint on {pairs} images":
+                      cuda_ms(lambda: sp_model(imgs0[:pairs]), iters=5),
+                      f"detection_batch, {pairs} maps":
+                      cuda_ms(lambda: detection_batch(heat0, dp), iters=5),
+                      "covisibility warp":
+                      cuda_ms(lambda: covisible(k0_, sv0[:pairs], k1_,
+                                                sv1[:pairs], Hs[:pairs],
+                                                Hinvs[:pairs], SIZE, SIZE),
+                              iters=5),
+                      f"match: {matcher}":
+                      cuda_ms(lambda: match_pairs(
+                          matcher, k0_, v0_, k1_, v1_, dm0_, dm1_, SIZE,
+                          SIZE, 5.0, lgp), iters=5),
+                      "RANSAC-H + MHA":
+                      cuda_ms(lambda: mha_pair(mk0, mk1, mok, Hs[:pairs],
+                                               SIZE, SIZE, SIZE, SIZE,
+                                               gen_t), iters=5)}
+            for name, ms in st.items():
+                log(f"  stage {name}: {ms:.4f} ms")
+            busy, window, top = profile_step(step)
+            log(f"  profiled step: device busy {busy:.3f} ms of a "
+                f"{window:.3f} ms window, idle share "
+                f"{1.0 - busy / window:.4f}" if window > 0 else
+                "  profiled step: no events recorded")
+            for name, ms in top:
+                log(f"    device time {ms:.4f} ms: {name[:90]}")
+
+    with phase("MHA runner: SuperPoint + light_glue, 4 pairs at 512^2"):
+        cfg = EvalConfig(
+            model_type="SuperPoint", task_type="MHA",
+            data_params={"type": "synthetic_homography", "num_pairs": 4,
+                         "image_size": SIZE},
+            extractor_params={"nms_dist": 6, "border_dist": 8, "top_k": K,
+                              "threshold": 0, "min_score": 0.0},
+            matcher_params={"type": "light_glue"},
+            task_params={"th": [3, 5, 7]},
+            weights_dir=stage_golden_weights(os.path.join(
+                ROOT, "output", "chip_smoke_weights")),
+            output_dir=os.path.join(ROOT, "output", "chip_smoke_mha"))
+        reset_launches()
+        res = Evaluator(cfg, DEVICE).run()
+        got = read_launches()
+        with plain_twins():
+            res_p = Evaluator(cfg, DEVICE).run()
+        log(f"  MHA@3/5/7 {[res[f'MHA@{t}'] for t in (3, 5, 7)]} (plain "
+            f"{[res_p[f'MHA@{t}'] for t in (3, 5, 7)]}); launches {got}")
+        if got["attention"] <= 0 or got["nn_match"] != 0:
+            raise AssertionError(f"the runner missed kernel E: {got}")
+        if res["per_pair"] != res_p["per_pair"]:
+            raise AssertionError("MHA runner differs from the plain twins")
+
+    with phase(f"kernel E alone at K={K_LARGE}"):
+        q4, k4, v4 = qkv(lead, K_LARGE, K_LARGE)
+        kv4 = torch.rand((2 * LG_PAIRS, 1, K_LARGE), device=dev,
+                         generator=gen) > 0.1
+        check_e(f"[16,4,{K_LARGE},64]", q4, k4, v4, kv4)
+        att4_ms = cuda_ms(lambda: cuda_attention.attention_cuda(
+            q4, k4, v4, kv4), iters=3, warmup=1)
+        att4_plain_ms = cuda_ms(lambda: fused_attention(q4, k4, v4, kv4),
+                                iters=2, warmup=1)
+        att4_lib_ms = sdpa_ms(q4, k4, v4, kv4, 3)
+        att4_bound_ms, _, _ = attention_bound(q4, K_LARGE)
+        log(f"  [16,4,{K_LARGE},64]: kernel {att4_ms:.4f} ms, plain "
+            f"{att4_plain_ms:.4f} ms, sdpa {att4_lib_ms:.4f} ms, bound "
+            f"{att4_bound_ms:.4f} ms")
+        del q4, k4, v4
+
     kernels = [
         {"name": "nms_fixpoint", "route": "cuda",
          "source": "keypoint_bench_tpu_torch/csrc/nms.cu",
@@ -377,6 +790,23 @@ def main() -> int:
          "launches": launches["sample"], "max_abs_err": errs["sample"],
          "ms": samp_ms, "plain_ms": samp_plain_ms, "bound_ms": samp_bound_ms,
          "bound_by": samp_bound_by, "library_ms": None},
+        {"name": "nn_match", "route": "cuda",
+         "source": "keypoint_bench_tpu_torch/csrc/match.cu",
+         "replaces": "keypoint_bench_tpu/ops/pallas_match.py:29",
+         "launches": launches["nn_match"], "max_abs_err": errs["nn_match"],
+         "ms": match_ms, "plain_ms": match_plain_ms,
+         "bound_ms": match_bound_ms, "bound_by": match_bound_by,
+         "library_ms": None, "matmul_argmin_ms": mm_argmin_ms},
+        {"name": "attention", "route": "cuda",
+         "source": "keypoint_bench_tpu_torch/csrc/attention.cu",
+         "replaces": "keypoint_bench_tpu/ops/pallas_attention.py:33",
+         "launches": launches["attention"],
+         "max_abs_err": errs["attention"], "ms": att_ms,
+         "plain_ms": att_plain_ms, "bound_ms": att_bound_ms,
+         "bound_by": att_bound_by, "library_ms": att_lib_ms,
+         f"ms_k{K_LARGE}": att4_ms, f"plain_ms_k{K_LARGE}": att4_plain_ms,
+         f"library_ms_k{K_LARGE}": att4_lib_ms,
+         f"bound_ms_k{K_LARGE}": att4_bound_ms},
     ]
     log(card)
     log(json.dumps({"kernels": kernels}))

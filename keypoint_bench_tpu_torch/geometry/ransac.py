@@ -1,0 +1,130 @@
+"""Fixed-hypothesis RANSAC for homographies (counterpart of the homography
+part of keypoint_bench_tpu/geometry/ransac.py, on the exact path that the
+JAX package takes on the CPU: stacked DLT rows, the SVD of A^T A).
+
+A static batch of minimal samples (Gumbel top-4 over the validity mask,
+drawn from an explicit torch.Generator), one batched SVD for every
+hypothesis, one [n_hyp, K] residual matrix, the best hypothesis by inlier
+count, then a Hartley-normalized weighted refit on its inliers. Every
+function takes leading batch dimensions. The JAX package's TPU-only
+list-form and fixed-iteration solves are not ported: they are numerics
+workarounds for the TPU, not semantics.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+
+def _sample_minimal(mask: torch.Tensor, n_hyp: int, sample_size: int,
+                    generator: torch.Generator) -> torch.Tensor:
+    """[..., n_hyp, sample_size] distinct indices of valid entries of mask
+    [..., K] (Gumbel top-k by argmax peeling). With fewer than sample_size
+    valid entries the result repeats indices; callers gate on the count."""
+    k = mask.shape[-1]
+    u = torch.rand((*mask.shape[:-1], n_hyp, k), generator=generator,
+                   device=mask.device)
+    g = -torch.log(-torch.log(u))
+    cur = torch.where(mask[..., None, :], g, torch.full_like(g, -math.inf))
+    cols = torch.arange(k, device=mask.device)
+    idxs = []
+    for _ in range(sample_size):
+        am = cur.argmax(-1)
+        idxs.append(am)
+        cur = torch.where(cols == am[..., None], torch.full_like(cur,
+                                                                 -math.inf),
+                          cur)
+    return torch.stack(idxs, dim=-1)
+
+
+def _solve_dlt_h(p0: torch.Tensor, p1: torch.Tensor,
+                 w: torch.Tensor) -> torch.Tensor:
+    """Weighted homography DLT: p0, p1 [..., N, 2], w [..., N] -> H
+    [..., 3, 3] mapping p0 to p1, the right singular vector of the
+    smallest singular value of A^T A for the weighted [2N, 9] design A."""
+    x, y = p0[..., 0], p0[..., 1]
+    u, v = p1[..., 0], p1[..., 1]
+    z = torch.zeros_like(x)
+    o = torch.ones_like(x)
+    r1 = torch.stack([-x, -y, -o, z, z, z, u * x, u * y, u], dim=-1)
+    r2 = torch.stack([z, z, z, -x, -y, -o, v * x, v * y, v], dim=-1)
+    a = torch.cat([r1 * w[..., None], r2 * w[..., None]], dim=-2)
+    _, _, vh = torch.linalg.svd(a.transpose(-1, -2) @ a)
+    return vh[..., -1, :].unflatten(-1, (3, 3))
+
+
+def _normalize_pts(p: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Hartley normalization over weighted points: the similarity T [..., 3,
+    3] taking the weighted centroid to 0 and the mean distance to sqrt(2)."""
+    wsum = torch.clamp_min(w.sum(-1), 1e-9)
+    c = (p * w[..., None]).sum(-2) / wsum[..., None]
+    d = torch.sqrt(((p - c[..., None, :]) ** 2).sum(-1) + 1e-18)
+    md = (d * w).sum(-1) / wsum
+    s = math.sqrt(2.0) / torch.clamp_min(md, 1e-9)
+    zero = torch.zeros_like(s)
+    one = torch.ones_like(s)
+    return torch.stack([
+        torch.stack([s, zero, -s * c[..., 0]], dim=-1),
+        torch.stack([zero, s, -s * c[..., 1]], dim=-1),
+        torch.stack([zero, zero, one], dim=-1)], dim=-2)
+
+
+def _apply_T(T: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    scale = torch.stack([T[..., 0, 0], T[..., 1, 1]], dim=-1)
+    shift = torch.stack([T[..., 0, 2], T[..., 1, 2]], dim=-1)
+    return p * scale[..., None, :] + shift[..., None, :]
+
+
+def _homography_residual(H: torch.Tensor, p0: torch.Tensor,
+                         p1: torch.Tensor) -> torch.Tensor:
+    """Forward reprojection error |p1 - H p0| (cv2.findHomography's
+    measure): H [..., 3, 3], p0/p1 [..., N, 2] -> [..., N]."""
+    ph = torch.cat([p0, torch.ones_like(p0[..., :1])], dim=-1)
+    q = ph @ H.transpose(-1, -2)
+    qz = q[..., 2:3]
+    qz = torch.where(qz.abs() > 1e-12, qz, torch.full_like(qz, 1e-12))
+    return torch.linalg.vector_norm(q[..., 0:2] / qz - p1, dim=-1)
+
+
+def _take(p: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """p [..., K, 2], idx [..., n, s] -> [..., n, s, 2]."""
+    flat = idx.flatten(-2).long()
+    out = p.gather(-2, flat[..., None].expand(*flat.shape, p.shape[-1]))
+    return out.unflatten(-2, idx.shape[-2:])
+
+
+def ransac_homography_from_samples(p0: torch.Tensor, p1: torch.Tensor,
+                                   mask: torch.Tensor, idx: torch.Tensor,
+                                   thresh: float = 3.0):
+    """RANSAC over given minimal samples idx [..., n_hyp, 4]; p0, p1
+    [..., K, 2] pixel coordinates, mask [..., K]. Returns (H [..., 3, 3]
+    with H[2, 2] = 1, inliers [..., K], ok [...])."""
+    q0, q1 = _take(p0, idx), _take(p1, idx)
+    hs = _solve_dlt_h(q0, q1, torch.ones_like(q0[..., 0]))
+    res = _homography_residual(hs, p0[..., None, :, :], p1[..., None, :, :])
+    inl = (res < thresh) & mask[..., None, :]
+    counts = inl.sum(-1)
+    best = counts.argmax(-1, keepdim=True)
+    w = inl.gather(-2, best[..., None].expand(*best.shape,
+                                              inl.shape[-1]))[..., 0, :]
+    w = w.float()
+    t0 = _normalize_pts(p0, w)
+    t1 = _normalize_pts(p1, w)
+    hn = _solve_dlt_h(_apply_T(t0, p0), _apply_T(t1, p1), w)
+    H = torch.linalg.inv_ex(t1)[0] @ (hn @ t0)
+    h22 = H[..., 2:3, 2:3]
+    H = H / torch.where(h22.abs() > 1e-12, h22, torch.full_like(h22, 1e-12))
+    final = (_homography_residual(H, p0, p1) < thresh) & mask
+    ok = (mask.sum(-1) >= 4) & (counts.gather(-1, best)[..., 0] >= 4)
+    return H, final, ok
+
+
+def ransac_homography(p0: torch.Tensor, p1: torch.Tensor, mask: torch.Tensor,
+                      generator: torch.Generator, n_hyp: int = 512,
+                      thresh: float = 3.0):
+    """p0, p1 [..., K, 2] pixel coordinates, mask [..., K]; minimal samples
+    drawn from `generator` (on the tensors' device). Returns (H [..., 3, 3],
+    inliers [..., K], ok [...])."""
+    idx = _sample_minimal(mask, n_hyp, 4, generator)
+    return ransac_homography_from_samples(p0, p1, mask, idx, thresh)

@@ -11,20 +11,20 @@ import torch
 
 def warp_homography(kpts01: torch.Tensor, valid: torch.Tensor,
                     H: torch.Tensor, width, height):
-    """kpts01 [K,>=2] normalized (x, y); H [3,3]; width/height of the image
-    H is expressed in. Returns (kpts0 [K,2], kpts01w [K,2], valid [K]), all
-    normalized by (w-1, h-1)."""
+    """kpts01 [..., K, >=2] normalized (x, y); H [..., 3, 3]; width/height
+    of the image H is expressed in. Returns (kpts0 [..., K, 2], kpts01w
+    [..., K, 2], valid [..., K]), all normalized by (w-1, h-1)."""
     H = torch.as_tensor(H, dtype=torch.float32, device=kpts01.device)
     scale = torch.tensor([float(width) - 1.0, float(height) - 1.0],
                          dtype=torch.float32, device=kpts01.device)
-    p = kpts01[:, 0:2] * scale
-    ph = torch.cat([p, torch.ones_like(p[:, :1])], dim=1)
-    q = ph @ H.T
-    qz = q[:, 2:3]
+    p = kpts01[..., 0:2] * scale
+    ph = torch.cat([p, torch.ones_like(p[..., :1])], dim=-1)
+    q = ph @ H.transpose(-1, -2)
+    qz = q[..., 2:3]
     safe = torch.where(qz.abs() > 1e-12, qz, torch.full_like(qz, 1e-12))
-    q = q[:, 0:2] / safe
-    inb = ((q[:, 0] >= 0) & (q[:, 0] <= scale[0])
-           & (q[:, 1] >= 0) & (q[:, 1] <= scale[1]))
+    q = q[..., 0:2] / safe
+    inb = ((q[..., 0] >= 0) & (q[..., 0] <= scale[0])
+           & (q[..., 1] >= 0) & (q[..., 1] <= scale[1]))
     return p / scale, q / scale, valid & inb
 
 

@@ -10,33 +10,14 @@ emit are TPU lane workarounds, not different math.
 from __future__ import annotations
 
 import torch
-from torch import nn
 
 from keypoint_bench_tpu_torch.models import common as c
 from keypoint_bench_tpu_torch.models.registry import register
 
 
-def to_float_image(image: torch.Tensor) -> torch.Tensor:
-    """uint8 images scale to [0, 1]; float images pass through as float32."""
-    if image.dtype == torch.uint8:
-        return image.float() / 255.0
-    return image.float()
-
-
 @register("Alike_s2d")
 @register("Alike")
-class Alike(nn.Module):
-    """params: torch-layout tensors keyed by the converted torch names."""
-
-    def __init__(self, params: dict):
-        super().__init__()
-        self._names = sorted(params)
-        for k in self._names:
-            self.register_buffer(k.replace(".", "__"), params[k])
-
-    @property
-    def params(self) -> dict:
-        return {k: getattr(self, k.replace(".", "__")) for k in self._names}
+class Alike(c.ParamModule):
 
     def _branches(self, image: torch.Tensor):
         """NHWC image -> (params, [a1, a2, a3, a4]) post-ReLU NCHW branch
@@ -45,7 +26,7 @@ class Alike(nn.Module):
         # contiguous NCHW: a permuted NHWC view is channels-last in memory,
         # and cuDNN would keep that format for every activation, while the
         # sampler kernel takes channel-major branch features
-        x = to_float_image(image).permute(0, 3, 1, 2).contiguous()
+        x = c.to_float_image(image).permute(0, 3, 1, 2).contiguous()
         x1 = c.conv_block(x, p, "block1")
         x2 = c.res_block(c.max_pool(x1, 2), p, "block2")
         x3 = c.res_block(c.max_pool(x2, 4), p, "block3")

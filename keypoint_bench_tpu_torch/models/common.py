@@ -1,5 +1,5 @@
 """Shared eval-mode blocks: the subset of keypoint_bench_tpu/models/common.py
-that ALIKE-t needs.
+that ALIKE-t and SuperPoint need.
 
 These helpers work on NCHW tensors (torch's native conv layout); the model
 classes convert at their public boundary, which keeps the JAX package's
@@ -12,6 +12,29 @@ import functools
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch import nn
+
+
+class ParamModule(nn.Module):
+    """A model built from a parameter dict: torch-layout tensors keyed by
+    the converted torch names, held as buffers so `.to()` moves them."""
+
+    def __init__(self, params: dict):
+        super().__init__()
+        self._names = sorted(params)
+        for k in self._names:
+            self.register_buffer(k.replace(".", "__"), params[k])
+
+    @property
+    def params(self) -> dict:
+        return {k: getattr(self, k.replace(".", "__")) for k in self._names}
+
+
+def to_float_image(image: torch.Tensor) -> torch.Tensor:
+    """uint8 images scale to [0, 1]; float images pass through as float32."""
+    if image.dtype == torch.uint8:
+        return image.float() / 255.0
+    return image.float()
 
 
 def conv2d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None,
@@ -36,6 +59,25 @@ def max_pool(x: torch.Tensor, k: int) -> torch.Tensor:
 
 def relu(x: torch.Tensor) -> torch.Tensor:
     return torch.clamp_min(x, 0)
+
+
+def l2_normalize(x: torch.Tensor, dim: int = -1,
+                 eps: float = 0.0) -> torch.Tensor:
+    """x / |x| along `dim` (plus eps in the denominator when given)."""
+    n = torch.sqrt((x * x).sum(dim, keepdim=True))
+    return x / (n + eps) if eps else x / n
+
+
+def depth_to_space(x: torch.Tensor, block: int) -> torch.Tensor:
+    """NCHW [B, block*block, Hc, Wc] -> [B, 1, Hc*block, Wc*block] with the
+    SuperPoint heatmap layout: channels-last reshape to
+    [B, Hc, Wc, block, block], then permute (0, 1, 3, 2, 4)."""
+    b, cc, hc, wc = x.shape
+    if cc != block * block:
+        raise ValueError(f"expected {block * block} channels, got {cc}")
+    y = x.permute(0, 2, 3, 1).reshape(b, hc, wc, block, block)
+    y = y.permute(0, 1, 3, 2, 4)
+    return y.reshape(b, 1, hc * block, wc * block)
 
 
 @functools.lru_cache(maxsize=64)

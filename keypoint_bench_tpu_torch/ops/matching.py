@@ -14,6 +14,7 @@ import torch
 from keypoint_bench_tpu_torch.ops.grid_sample import sample_at_points
 
 _BIG = 1e30
+_PEN = 1e8  # kernel D: penalty per invalid endpoint, via a sqrt feature
 
 
 def pairwise_sqdist(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -33,7 +34,12 @@ def mutual_nn_match(desc0: torch.Tensor, desc1: torch.Tensor,
     """Returns (idx1_of_0 [..., M], match_mask [..., M]): for each row of
     desc0 its nearest row of desc1 (first index on ties); the mask holds
     iff the pair is mutual, both are valid and the distance is strictly
-    below max_distance."""
+    below max_distance.
+
+    CUDA tensors take `mutual_nn_fused` (kernel D, which never writes the
+    [M, N] matrix); CPU tensors the dense form below."""
+    if desc0.is_cuda:
+        return mutual_nn_fused(desc0, desc1, valid0, valid1, max_distance)
     d2 = pairwise_sqdist(desc0, desc1)
     d2 = torch.where(valid0[..., :, None] & valid1[..., None, :], d2,
                      torch.full_like(d2, _BIG))
@@ -45,6 +51,53 @@ def mutual_nn_match(desc0: torch.Tensor, desc1: torch.Tensor,
     ok = (mutual & valid0 & (best < float(max_distance) ** 2)
           & (best < _BIG))
     return nn01, ok
+
+
+def nn_dists(a: torch.Tensor, b: torch.Tensor):
+    """Plain twin of kernel D (counterpart of pallas_match.pallas_nn_dists):
+    a [..., M, D], b [..., N, D] f32 -> (nn01 [..., M] int32, d01 [..., M],
+    nn10 [..., N] int32, d10 [..., N]), the row and column minima and
+    their first indices of s = |a|^2 + |b|^2 - 2ab (no clamp at 0). Unlike
+    the TPU kernel, no zero-padded phantom rows or columns take part."""
+    a = a.float()
+    b = b.float()
+    a2 = (a * a).sum(-1, keepdim=True)
+    b2 = (b * b).sum(-1, keepdim=True)
+    s = a2 + b2.transpose(-1, -2) - 2.0 * (a @ b.transpose(-1, -2))
+    d01, nn01 = s.min(dim=-1)
+    d10, nn10 = s.min(dim=-2)
+    return nn01.int(), d01, nn10.int(), d10
+
+
+def penalized(desc: torch.Tensor, valid: torch.Tensor):
+    """desc [..., K, D], valid [..., K] -> (kernel D's input [..., K, D+1]
+    f32 with the sqrt(penalty) feature appended, penalty [..., K])."""
+    pen = torch.where(valid, 0.0, _PEN).float()
+    return torch.cat([desc.float(), torch.sqrt(pen)[..., None]], dim=-1), pen
+
+
+def _gather(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    return x.gather(-1, idx.long())
+
+
+def mutual_nn_fused(desc0: torch.Tensor, desc1: torch.Tensor,
+                    valid0: torch.Tensor, valid1: torch.Tensor,
+                    max_distance: float = math.inf):
+    """Mutual-NN matching through kernel D's semantics (counterpart of
+    pallas_match.pallas_mutual_nn): an appended sqrt(_PEN) feature on
+    invalid rows and columns keeps them out of every valid minimum; the
+    penalties come off the winning distance before the cut-off. CUDA
+    tensors launch kernel D, CPU tensors take `nn_dists`."""
+    from keypoint_bench_tpu_torch.ops.cuda_match import nearest_neighbours
+    a, pen0 = penalized(desc0, valid0)
+    b, pen1 = penalized(desc1, valid1)
+    nn01, d01, nn10, _ = nearest_neighbours(a, b)
+    rows = torch.arange(desc0.shape[-2], device=desc0.device)
+    mutual = _gather(nn10, nn01) == rows
+    true_d = d01 - pen0 - _gather(pen1, nn01)
+    ok = (mutual & valid0 & _gather(valid1, nn01)
+          & (true_d < float(max_distance) ** 2))
+    return nn01.long(), ok
 
 
 def take_rows(values: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

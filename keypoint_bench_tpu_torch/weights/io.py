@@ -3,6 +3,12 @@
 `weights_npz/<name>.npz` holds the torch parameter names with conv kernels
 in HWIO and linears in [in, out] (the JAX layout); `params_from_jax`
 (weights/convert.py) turns them back into torch's OIHW / [out, in].
+
+`tests/golden/<name>.npz` fixtures hold the same layout under `param:`
+keys: full-width parameters with randomized values for the models whose
+upstream checkpoints are not in the repository (SuperPoint, LightGlue).
+`load_golden_params` reads them; `stage_golden_weights` writes them into a
+`weights_dir` under the names the runner loads.
 """
 from __future__ import annotations
 
@@ -13,12 +19,17 @@ import torch
 
 from keypoint_bench_tpu_torch.weights.convert import params_from_jax
 
-WEIGHTS_DIR = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
-        __file__)))), "weights_npz")
+REPO_DIR = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
+WEIGHTS_DIR = os.path.join(REPO_DIR, "weights_npz")
+GOLDEN_DIR = os.path.join(REPO_DIR, "tests", "golden")
 
 # Alike_s2d is a TPU layout variant of the same checkpoint and forward
 _ALIASES = {"Alike_s2d": "Alike"}
+# golden fixture -> the weights_dir file name the runner loads
+GOLDEN_STAGE_NAMES = {"SuperPoint": "SuperPoint",
+                      "lightglue": "lightglue_superpoint"}
+_PREFIX = "param:"
 
 
 def load_npz(name: str, weights_dir: str | None = None) -> dict:
@@ -33,3 +44,27 @@ def load_params(name: str, weights_dir: str | None = None,
                 device: str | torch.device = "cpu") -> dict:
     """Torch-layout parameters of model `name` as float32 tensors."""
     return params_from_jax(load_npz(name, weights_dir), device)
+
+
+def golden_npz(name: str) -> dict:
+    """The JAX-layout `param:` arrays of tests/golden/<name>.npz, with the
+    prefix stripped."""
+    with np.load(os.path.join(GOLDEN_DIR, f"{name}.npz")) as g:
+        return {k[len(_PREFIX):]: g[k] for k in g.files
+                if k.startswith(_PREFIX)}
+
+
+def load_golden_params(name: str,
+                       device: str | torch.device = "cpu") -> dict:
+    """Torch-layout parameters of the golden fixture `name`."""
+    return params_from_jax(golden_npz(name), device)
+
+
+def stage_golden_weights(weights_dir: str) -> str:
+    """Write the golden SuperPoint and LightGlue parameters into
+    `weights_dir` as `SuperPoint.npz` and `lightglue_superpoint.npz` (JAX
+    layout, as weights_npz/ holds them); returns `weights_dir`."""
+    os.makedirs(weights_dir, exist_ok=True)
+    for name, stage in GOLDEN_STAGE_NAMES.items():
+        np.savez(os.path.join(weights_dir, f"{stage}.npz"), **golden_npz(name))
+    return weights_dir

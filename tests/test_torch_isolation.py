@@ -11,7 +11,8 @@ import numpy as np
 import pytest
 import torch
 
-from keypoint_bench_tpu_torch.ops import _build, cuda_nms, cuda_sample
+from keypoint_bench_tpu_torch.ops import (_build, cuda_attention, cuda_match,
+                                          cuda_nms, cuda_sample)
 from keypoint_bench_tpu_torch.ops.detect import fast_nms
 from keypoint_bench_tpu_torch.ops.sparse_desc import sample_branches
 
@@ -122,9 +123,20 @@ def _sample_args():
     return (feats, torch.rand(1, 10) * 63, torch.rand(1, 10) * 63, 64, 64)
 
 
+def _match_args():
+    return (torch.rand(2, 30, 65), torch.rand(2, 20, 65))
+
+
+def _attention_args():
+    return (torch.rand(8, 30, 64), torch.rand(8, 20, 64),
+            torch.rand(8, 20, 64), torch.rand(8, 20) > 0.5)
+
+
 @pytest.mark.parametrize("mod,launch,args", [
     (cuda_nms, cuda_nms.nms_cuda, _nms_args),
-    (cuda_sample, cuda_sample.sample_cuda, _sample_args)])
+    (cuda_sample, cuda_sample.sample_cuda, _sample_args),
+    (cuda_match, cuda_match.nn_dists_cuda, _match_args),
+    (cuda_attention, cuda_attention.attention_cuda, _attention_args)])
 def test_failed_build_raises_on_the_kernel_path(monkeypatch, mod, launch,
                                                 args):
     monkeypatch.setattr(_build, "build", _failing_build)

@@ -6,17 +6,29 @@ imports torch only (the card's machine has no JAX).
 
 Tolerances: kernel A (NMS) is bit-exact; kernel B (sampler) within 1e-5
 absolute of the plain gather (f32 sums of the same products, another
-order).
+order). Kernel D (nearest neighbours): on integer descriptors every
+distance is exact, so indices and distances are equal, ties included; on
+float descriptors indices are equal except at near ties (the two
+candidates' distances within 1e-5 of |a|^2 + |b|^2) and distances agree
+within 1e-5 of that scale. Kernel E (attention) within 1e-5 absolute and
+relative of the plain twin (online softmax, another summation order).
 """
 import numpy as np
 import pytest
 import scipy.ndimage as ndi
 import torch
 
-from keypoint_bench_tpu_torch.ops import cuda_nms, cuda_sample
+from keypoint_bench_tpu_torch.models import lightglue as tlg
+from keypoint_bench_tpu_torch.ops import (cuda_attention, cuda_match,
+                                          cuda_nms, cuda_sample)
+from keypoint_bench_tpu_torch.ops.attention import fused_attention
 from keypoint_bench_tpu_torch.ops.detect import (DetectParams,
                                                  detection_batch, fast_nms)
+from keypoint_bench_tpu_torch.ops.matching import (mutual_nn_fused,
+                                                   mutual_nn_match, nn_dists)
 from keypoint_bench_tpu_torch.ops.sparse_desc import sample_branches
+from keypoint_bench_tpu_torch.weights import load_golden_params
+from keypoint_bench_tpu_torch.weights.io import GOLDEN_DIR
 
 pytestmark = pytest.mark.cuda
 
@@ -116,3 +128,137 @@ def test_detection_on_card_matches_cpu_and_counts_launches(dev):
     assert cuda_nms.KERNEL.launches == before + 1 + 2 * dp.max_nms_iter
     k_cpu, v_cpu = detection_batch(maps, dp)
     assert torch.equal(k.cpu(), k_cpu) and torch.equal(v.cpu(), v_cpu)
+
+
+def _penalized(b, m, d, seed, integer):
+    """[b, m, d+1] descriptors with kernel D's penalty column: integers
+    with every row valid (all sums exact in f32), or unit vectors with 15%
+    of the rows carrying the sqrt(1e8) penalty."""
+    rng = np.random.default_rng(seed)
+    if integer:
+        x = rng.integers(-3, 4, (b, m, d)).astype(np.float32)
+    else:
+        x = rng.normal(size=(b, m, d)).astype(np.float32)
+        x /= np.linalg.norm(x, axis=-1, keepdims=True)
+    pen = np.where(rng.random((b, m)) < (0 if integer else 0.15), 1e4, 0.0)
+    return np.concatenate([x, pen[..., None]], -1).astype(np.float32)
+
+
+def _check_nn(got, want, a, b):
+    """Equal indices except near ties; distances within 1e-5 of the
+    operands' scale |a|^2 + |b|^2 (float64 reference)."""
+    a64, b64 = a.double().cpu(), b.double().cpu()
+    for side, (x, y) in enumerate(((a64, b64), (b64, a64))):
+        nn_g, d_g = got[2 * side].cpu().long(), got[2 * side + 1].cpu()
+        nn_w, d_w = want[2 * side].cpu().long(), want[2 * side + 1].cpu()
+        xn = (x * x).sum(-1)
+        yn = (y * y).sum(-1)
+
+        def dist(nn):
+            yy = y.gather(-2, nn[..., None].expand(*nn.shape, y.shape[-1]))
+            return ((x - yy) ** 2).sum(-1), xn + yn.gather(-1, nn)
+
+        dg, scale = dist(nn_g)
+        dw, _ = dist(nn_w)
+        differ = nn_g != nn_w
+        assert bool(((dg - dw).abs() <= 1e-5 * scale)[differ].all())
+        assert bool(((d_g.double() - d_w.double()).abs()
+                     <= 1e-5 * scale).all())
+
+
+@pytest.mark.parametrize("b,m,n,d", [(1, 1, 1, 65), (2, 70, 130, 65),
+                                     (3, 1000, 1000, 257), (1, 64, 200, 3)])
+@pytest.mark.parametrize("integer", [True, False])
+def test_match_kernel_matches_plain(dev, b, m, n, d, integer):
+    a = torch.from_numpy(_penalized(b, m, d - 1, m, integer)).to(dev)
+    bb = torch.from_numpy(_penalized(b, n, d - 1, n + 1, integer)).to(dev)
+    if integer and n > 100:
+        bb[:, n - 3] = bb[:, 2]          # equal columns in far-apart tiles
+    got = cuda_match.nn_dists_cuda(a, bb)
+    want = nn_dists(a, bb)
+    if integer:
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+    else:
+        _check_nn(got, want, a, bb)
+
+
+def test_mutual_nn_match_on_card_launches_kernel_d(dev):
+    rng = np.random.default_rng(0)
+    desc = [torch.from_numpy(rng.integers(-3, 4, (2, 300, 64)).astype(
+        np.float32)).to(dev) for _ in range(2)]
+    valid = [torch.from_numpy(rng.random((2, 300)) > 0.2).to(dev)
+             for _ in range(2)]
+    before = cuda_match.KERNEL.launches
+    nn, ok = mutual_nn_match(desc[0], desc[1], valid[0], valid[1], 3.0)
+    assert cuda_match.KERNEL.launches == before + 2
+    nn_c, ok_c = mutual_nn_fused(*(x.cpu() for x in (*desc, *valid)), 3.0)
+    # an invalid row's neighbour is rounding noise at the 1e8 penalty
+    v0 = valid[0].cpu()
+    assert torch.equal(nn.cpu()[v0], nn_c[v0]) and torch.equal(ok.cpu(),
+                                                                ok_c)
+
+
+def test_match_kernel_rejects_bad_input(dev):
+    a = torch.rand(2, 10, 65, device=dev)
+    with pytest.raises(ValueError):
+        cuda_match.nn_dists_cuda(a.double(), a.double())
+    with pytest.raises(ValueError):
+        cuda_match.nn_dists_cuda(a, a[:, :, :64].contiguous())
+    with pytest.raises(ValueError):
+        cuda_match.nn_dists_cuda(a, a.cpu())
+
+
+def _qkv(lead, n, m, seed, dev):
+    g = torch.Generator().manual_seed(seed)
+    return [torch.randn((*lead, r, 64), generator=g).to(dev)
+            for r in (n, m, m)]
+
+
+@pytest.mark.parametrize("lead,n,m", [((1,), 1, 1), ((4,), 300, 420),
+                                      ((2, 4), 1000, 1000), ((3,), 65, 31)])
+@pytest.mark.parametrize("scale", [None, 1.0])
+@pytest.mark.parametrize("valid", ["mixed", "none"])
+def test_attention_kernel_matches_plain(dev, lead, n, m, scale, valid):
+    q, k, v = _qkv(lead, n, m, n + m, dev)
+    kv = (torch.rand((*lead, m), device=dev) > 0.3 if valid == "mixed"
+          else torch.zeros((*lead, m), dtype=torch.bool, device=dev))
+    got = cuda_attention.attention_cuda(q, k, v, kv, scale)
+    want = fused_attention(q, k, v, kv, scale)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+    if valid == "none":
+        torch.testing.assert_close(got, v.mean(-2, keepdim=True).expand_as(
+            got), atol=1e-5, rtol=1e-5)
+
+
+def test_attention_kernel_broadcasts_mask_and_rejects_bad_input(dev):
+    q, k, v = _qkv((2, 4), 50, 70, 0, dev)
+    kv = torch.rand((2, 1, 70), device=dev) > 0.5
+    torch.testing.assert_close(cuda_attention.attention_cuda(q, k, v, kv),
+                               fused_attention(q, k, v, kv),
+                               atol=1e-5, rtol=1e-5)
+    with pytest.raises(ValueError):
+        cuda_attention.attention_cuda(q[..., :32], k[..., :32],
+                                      v[..., :32], kv)
+    with pytest.raises(ValueError):
+        cuda_attention.attention_cuda(q.double(), k, v, kv)
+    with pytest.raises(ValueError):
+        cuda_attention.attention_cuda(q, k, v, kv.float())
+
+
+def test_lightglue_on_card_matches_golden_and_cpu(dev):
+    g = np.load(f"{GOLDEN_DIR}/lightglue.npz")
+    params = load_golden_params("lightglue")
+    args = [torch.from_numpy(x) for x in (
+        g["kpts0"][0], np.ones(64, bool), g["desc0"][0], g["kpts1"][0],
+        np.ones(80, bool), g["desc1"][0])]
+    before = cuda_attention.KERNEL.launches
+    m0, ms, _ = tlg.lightglue_forward(
+        {k: v.to(dev) for k, v in params.items()}, *(a.to(dev) for a in args))
+    # kernel E: one self and one cross launch per layer (K0 != K1 here:
+    # two of each)
+    assert cuda_attention.KERNEL.launches - before == 9 * 4
+    assert (m0.cpu().numpy() == g["matches0"][0]).mean() >= 0.97
+    _, ms_cpu, _ = tlg.lightglue_forward(params, *args)
+    torch.testing.assert_close(ms.cpu(), ms_cpu, atol=1e-4, rtol=0)

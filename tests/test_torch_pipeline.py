@@ -132,7 +132,7 @@ def test_runner_normalizes_uint8(tmp_path):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("task_type", "MHA"), ("precision", "bfloat16"), ("resume", True)])
+    ("task_type", "AUC"), ("precision", "bfloat16"), ("resume", True)])
 def test_unported_options_raise(tmp_path, field, value):
     cfg = {**_config(tmp_path, "x"), field: value}
     with pytest.raises(NotImplementedError, match="ROADMAP"):
