@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU: `python3 chip_smoke.py`.
 
 Phases, each fatal on failure:
-  1. the card's name and power limit; build the four CUDA kernels from
+  1. the card's name and power limit; build the six CUDA kernels from
      keypoint_bench_tpu_torch/csrc with nvcc, in parallel;
   2. the ALIKE-t and SuperPoint forwards on the card vs the CPU at 128^2
      (atol 1e-4, f32 with TF32 off on both);
@@ -37,7 +37,30 @@ Phases, each fatal on failure:
      pairs at 512^2 from golden weights staged under output/, equal to the
      plain-twin run;
  11. kernel E timed alone at K = 4096;
- 12. a `kernels` JSON line and, last, the device JSON line.
+ 12. kernel F (one LK level) vs the plain `_lk_level` on 8 pairs of
+     consecutive synthetic-sequence frames at 512^2, K = 1000: per level
+     from the same start at 8 iterations, win 21 and win 3, on ALIKE-t's
+     keypoints and on points within 3 px of the borders and corners (max
+     abs error <= 5e-3 px; at win 3 on the border set, where systems are
+     near-singular, at most 0.5% of the points beyond it); then the full
+     protocol (3 levels x 40
+     iterations, distance 10, same angles): at least 99% of the points
+     within 1e-2 px of the plain run, the rest printed with their det;
+ 13. `lk_fundamental_step` (ALIKE-t -> detection -> LK 21 / 3 / 40 / 10 ->
+     epipolar error) on those 8 pairs, launch counts reset just before it:
+     keypoints equal to the plain-twin step, per-pair error within 1e-3
+     relative, hit count within 0.5% of the valid keypoints; then timed
+     (median of 7 windows) in frames/s with a per-stage breakdown and one
+     step under torch.profiler;
+ 14. kernel C (the per-chunk peel) vs its plain version on ALIKE-t's NMS'd
+     maps [16,512,512], a tie-heavy and a sparse map: bit equality; then
+     `detection_batch_fused` vs `detection_batch` on the same score maps,
+     launch counts reset just before it: keypoints and masks equal, the
+     full-sort guard taken on the tie-heavy maps and not on the real ones;
+ 15. the port's Evaluator: FundamentalMatrix with optical_flow on 5
+     synthetic-sequence frames at 512^2, per pair and pipelined, against
+     the plain-twin runs on the same seed;
+ 16. a `kernels` JSON line and, last, the device JSON line.
 Exits non-zero without CUDA, or without the port's package beside it.
 """
 from __future__ import annotations
@@ -54,6 +77,7 @@ from concurrent.futures import ThreadPoolExecutor
 ROOT = os.path.dirname(os.path.abspath(__file__))
 DEVICE, SIZE, PAIRS, K = "cuda", 512, 16, 1000
 LG_PAIRS, K_LARGE = 8, 4096     # LightGlue pairs; bench.py:314's second K
+LK_PAIRS = 8                    # bench.py:430's batch of the LK step
 # H100 SXM peaks (vendor datasheet): HBM bytes/s, f32 FLOP/s (an FMA
 # counts 2). Compares, max and adds issue at most one per f32 lane and
 # clock, half the FMA-counted rate.
@@ -93,31 +117,39 @@ def cuda_ms(fn, iters=10, warmup=2):
 def plain_twins():
     """Route CUDA tensors through the kernels' plain twins (the reference
     the kernels are held against); restored on exit."""
-    from keypoint_bench_tpu_torch.ops import (cuda_attention, cuda_match,
-                                              cuda_nms, cuda_sample)
+    from keypoint_bench_tpu_torch.ops import (cuda_attention, cuda_lk,
+                                              cuda_match, cuda_nms,
+                                              cuda_sample)
     from keypoint_bench_tpu_torch.ops.attention import fused_attention
-    from keypoint_bench_tpu_torch.ops.detect import fast_nms
+    from keypoint_bench_tpu_torch.ops.detect import fast_nms, peel_topk
+    from keypoint_bench_tpu_torch.ops.lk import _lk_level
     from keypoint_bench_tpu_torch.ops.matching import nn_dists
     from keypoint_bench_tpu_torch.ops.sparse_desc import sample_branches
     saved = (cuda_nms.nms_cuda, cuda_sample.sample_cuda,
-             cuda_match.nn_dists_cuda, cuda_attention.attention_cuda)
+             cuda_match.nn_dists_cuda, cuda_attention.attention_cuda,
+             cuda_lk.lk_level_cuda, cuda_nms.peel_cuda)
     cuda_nms.nms_cuda = fast_nms
     cuda_sample.sample_cuda = sample_branches
     cuda_match.nn_dists_cuda = nn_dists
     cuda_attention.attention_cuda = fused_attention
+    cuda_lk.lk_level_cuda = _lk_level
+    cuda_nms.peel_cuda = peel_topk
     try:
         yield
     finally:
         (cuda_nms.nms_cuda, cuda_sample.sample_cuda,
-         cuda_match.nn_dists_cuda, cuda_attention.attention_cuda) = saved
+         cuda_match.nn_dists_cuda, cuda_attention.attention_cuda,
+         cuda_lk.lk_level_cuda, cuda_nms.peel_cuda) = saved
 
 
 def kernel_handles():
-    """The four kernels' launch counters, by the names in the JSON line."""
-    from keypoint_bench_tpu_torch.ops import (cuda_attention, cuda_match,
-                                              cuda_nms, cuda_sample)
+    """The six kernels' launch counters, by the names in the JSON line."""
+    from keypoint_bench_tpu_torch.ops import (cuda_attention, cuda_lk,
+                                              cuda_match, cuda_nms,
+                                              cuda_sample)
     return {"nms": cuda_nms.KERNEL, "sample": cuda_sample.KERNEL,
-            "nn_match": cuda_match.KERNEL, "attention": cuda_attention.KERNEL}
+            "nn_match": cuda_match.KERNEL, "attention": cuda_attention.KERNEL,
+            "lk": cuda_lk.KERNEL, "peel": cuda_nms.PEEL_KERNEL}
 
 
 def reset_launches():
@@ -291,6 +323,97 @@ def sample_bound(feats, px, py, h, w):
                                        else "operations")
 
 
+def lk_bound(imgs, n, win, levels, iterations):
+    """(ms, bound_by, point-iterations) of kernel F over one
+    optical_flow_batch on imgs [B,H,W,C] with n points per pair: both
+    images of every pyramid level and the points read once, the tracked
+    points written once; per point and iteration, with T = win^2 * C taps
+    and G = (win+1)^2 * C gradient corners:
+      gradients, separable: a 3-tap column (row) sum per corner, one FMA
+        and one add, shared by its neighbours, and one subtraction, for
+        each of dx and dy: 2 FMAs and 4 adds per corner;
+      three bilinear fields: one product and 3 FMAs per tap and field;
+      di and the five sums: one subtraction and 5 FMAs per tap;
+    plus the template patch once per level (one product, 3 FMAs per tap).
+    FMAs at the f32 FMA rate (2 FLOPs each), the rest at the add rate.
+    The iteration count is fixed: no point stops early."""
+    b, h, w, c = imgs.shape
+    t, g = win * win * c, (win + 1) * (win + 1) * c
+    pt_iters = b * n * levels * iterations
+    fma = pt_iters * (2 * g + 14 * t) + b * n * levels * 3 * t
+    single = pt_iters * (4 * g + 4 * t) + b * n * levels * t
+    px = sum((h // 2 ** lv) * (w // 2 ** lv) for lv in range(levels))
+    nbytes = 2 * b * px * c * 4 + levels * 3 * b * n * 2 * 4
+    t_bytes = nbytes / PEAK_BYTES
+    t_ops = 2 * fma / PEAK_F32 + single / PEAK_F32_OPS
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", pt_iters)
+
+
+def peel_bound(maps, per_chunk):
+    """(ms, bound_by) of kernel C on maps [B,H,W]: every value read once,
+    per_chunk values and indices written per 128-column chunk; one compare
+    per value and round at the compare rate."""
+    b, h, w = maps.shape
+    nc = (w // 128) * per_chunk
+    t_bytes = (4 * b * h * w + 8 * b * h * nc) / PEAK_BYTES
+    t_ops = per_chunk * b * h * w / PEAK_F32_OPS
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def border_points(b, n, h, w, gen, dev):
+    """[b,n,2] points within 3 px of a border of an h x w image, inside or
+    outside it; the first eight of every batch sit at the four corners."""
+    import torch
+    u = torch.rand((4, b, n), generator=gen, device=dev)
+    x = u[0] * (w + 5) - 3
+    y = u[1] * (h + 5) - 3
+    near = u[2] * 6 - 3
+    side = (u[3] * 4).long()
+    x = torch.where(side == 0, near, torch.where(side == 1, w - 1 + near, x))
+    y = torch.where(side == 2, near, torch.where(side == 3, h - 1 + near, y))
+    corners = torch.tensor([[0.5, 0.5], [w - 1.5, 0.5], [0.5, h - 1.5],
+                            [w - 1.5, h - 1.5], [-2.0, -2.0], [w + 1.0, -2.0],
+                            [-2.0, h + 1.0], [w + 1.0, h + 1.0]], device=dev)
+    pts = torch.stack([x, y], -1)
+    pts[:, :8] = corners
+    return pts
+
+
+def lk_det(img2, pts, win):
+    """det of the 2x2 Gauss-Newton system of `_lk_level` at pts [B,N,2] of
+    img2 [B,H,W,C] (the quantity its 1e-6 guard tests)."""
+    from keypoint_bench_tpu_torch.ops.lk import (_gradients, _pad_field,
+                                                 _window_bilinear)
+    import torch
+    pad = win + 1
+    dx, dy = _gradients(img2)
+    f = _window_bilinear(_pad_field(torch.cat([dx, dy], -1), pad), pts, win,
+                         pad)
+    c = img2.shape[-1]
+    jx, jy = f[..., :c].flatten(-3), f[..., c:].flatten(-3)
+    return ((jx * jx).sum(-1) * (jy * jy).sum(-1)
+            - (jx * jy).sum(-1) ** 2)
+
+
+def timed_windows(step, windows=7, per_window=3, warmup=2):
+    """Host seconds per step: `windows` windows of `per_window` steps, each
+    ending in a device synchronize, after `warmup` steps."""
+    import torch
+    for _ in range(warmup):
+        step()
+    out = []
+    for _ in range(windows):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(per_window):
+            step()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) / per_window)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -305,13 +428,20 @@ def main() -> int:
 
     from keypoint_bench_tpu_torch.datasets import get_dataset
     from keypoint_bench_tpu_torch.models import get_model
+    from keypoint_bench_tpu_torch.datasets.synthetic import \
+        SyntheticSequenceDataset
     from keypoint_bench_tpu_torch.ops import (_build, cuda_attention,
-                                              cuda_match, cuda_nms,
+                                              cuda_lk, cuda_match, cuda_nms,
                                               cuda_sample)
     from keypoint_bench_tpu_torch.ops.detect import (DetectParams,
                                                      detection_batch,
+                                                     detection_batch_fused,
                                                      fast_nms,
-                                                     fast_nms_rounds)
+                                                     fast_nms_rounds,
+                                                     fused_topk, peel_topk)
+    from keypoint_bench_tpu_torch.ops.lk import (LKParams, _avg_pool_img,
+                                                 _lk_level, draw_angles,
+                                                 optical_flow_batch_from_angles)
     from keypoint_bench_tpu_torch.ops.matching import (mutual_nn_match,
                                                        nn_dists, penalized)
     from keypoint_bench_tpu_torch.ops.sparse_desc import (
@@ -324,9 +454,13 @@ def main() -> int:
     from keypoint_bench_tpu_torch.ops.attention import fused_attention
     from keypoint_bench_tpu_torch.ops.grid_sample import sample_at_points
     from keypoint_bench_tpu_torch.pipeline import (covisible, extract,
-                                                   extract_match, match_pairs,
+                                                   extract_match,
+                                                   lk_fundamental_step,
+                                                   match_pairs,
                                                    superpoint_detect,
                                                    superpoint_mha_step)
+    from keypoint_bench_tpu_torch.tasks.fundamental import \
+        fundamental_metrics
     from keypoint_bench_tpu_torch.runner import EvalConfig, Evaluator
     from keypoint_bench_tpu_torch.tasks.mha import mha_pair
     from keypoint_bench_tpu_torch.weights import (load_golden_params,
@@ -346,13 +480,15 @@ def main() -> int:
         t0 = time.perf_counter()
         with ThreadPoolExecutor() as pool:
             list(pool.map(_build.build,
-                          ["nms", "sample", "match", "attention"]))
+                          ["nms", "sample", "match", "attention", "lk",
+                           "peel"]))
         log(f"build: {time.perf_counter() - t0:.1f} s")
 
     params = load_params("Alike", device=dev)
     model = get_model("Alike")(params).eval()
     dp = DetectParams(nms_dist=6, border_dist=8, top_k=K)
-    errs = {"nms": 0.0, "sample": 0.0, "nn_match": 0.0, "attention": 0.0}
+    errs = {"nms": 0.0, "sample": 0.0, "nn_match": 0.0, "attention": 0.0,
+            "lk": 0.0, "peel": 0.0}
     sp_params = load_golden_params("SuperPoint", dev)
     sp_model = get_model("SuperPoint")(sp_params).eval()
     lg_params = load_golden_params("lightglue", dev)
@@ -494,16 +630,7 @@ def main() -> int:
             return extract_match(model, params, imgs0, imgs1, dp, 5.0,
                                  device=DEVICE)
 
-        for _ in range(2):
-            step()
-        windows = []
-        for _ in range(7):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(3):
-                step()
-            torch.cuda.synchronize()
-            windows.append((time.perf_counter() - t0) / 3)
+        windows = timed_windows(step)
         dt = statistics.median(windows)
         fps_all = [2 * PAIRS / w for w in windows]
         log(f"  extract_match: median {dt * 1e3:.3f} ms per 16-pair batch, "
@@ -693,16 +820,7 @@ def main() -> int:
                                  / sc[9][1][live].norm())
                     log(f"  LightGlue scores vs plain twins: 2 layers "
                         f"{rel2:.3g}, 9 layers {rel9:.3g} (relative norm)")
-            for _ in range(2):
-                step()
-            windows = []
-            for _ in range(7):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                for _ in range(3):
-                    step()
-                torch.cuda.synchronize()
-                windows.append((time.perf_counter() - t0) / 3)
+            windows = timed_windows(step)
             dt = statistics.median(windows)
             pps = [pairs / w for w in windows]
             log(f"  step: median {dt * 1e3:.3f} ms per {pairs}-pair batch, "
@@ -777,6 +895,256 @@ def main() -> int:
             f"{att4_bound_ms:.4f} ms")
         del q4, k4, v4
 
+    lk = LKParams(distance=10.0, win_size=21, levels=3, iterations=40)
+    with phase(f"data: {LK_PAIRS} consecutive-frame pairs of the synthetic "
+               f"sequence at {SIZE}^2"):
+        seq = SyntheticSequenceDataset(LK_PAIRS + 1, SIZE, 0)
+        frames = torch.from_numpy(np.stack(
+            [seq[i]["image0"] for i in range(LK_PAIRS + 1)])).to(dev)
+        lk_imgs0, lk_imgs1 = frames[:-1].contiguous(), frames[1:].contiguous()
+        lk_Fs = torch.from_numpy(seq.Fs[1:]).to(dev)
+        with torch.inference_mode():
+            lk_score, _ = model(lk_imgs0)
+            lk_k0, lk_v0 = detection_batch(lk_score, dp)
+        pyr0 = [lk_imgs0] + [_avg_pool_img(lk_imgs0, k) for k in (2, 4)]
+        pyr1 = [lk_imgs1] + [_avg_pool_img(lk_imgs1, k) for k in (2, 4)]
+        px_full = lk_k0[..., 0:2] * (SIZE - 1.0)
+
+    with phase("kernel F (LK level) vs plain _lk_level"):
+        gen = torch.Generator(device=dev).manual_seed(3)
+        lk_loose_err = 0.0
+        for win in (21, 3):
+            for lvl in range(3):
+                hl = SIZE // 2 ** lvl
+                starts = {"keypoints": px_full / 2 ** lvl,
+                          "border points": border_points(LK_PAIRS, K, hl, hl,
+                                                         gen, dev)}
+                for name, pts1 in starts.items():
+                    pts2 = pts1 + (torch.rand(pts1.shape, generator=gen,
+                                              device=dev) * 4 - 2)
+                    args = (pyr0[lvl], pyr1[lvl], pts1, pts2, win, 8)
+                    got = cuda_lk.lk_level_cuda(*args)
+                    want = _lk_level(*args)
+                    e = (got - want).abs().amax(-1)
+                    n_out = int((e > 5e-3).sum())
+                    err = float(e.max())
+                    # a 3 x 3 window that hangs over the border of the
+                    # smoothed block texture sees next to no gradient: the
+                    # system is near-singular, rounding decides the step,
+                    # and a few such points may end elsewhere
+                    loose = win == 3 and name == "border points"
+                    if loose:
+                        lk_loose_err = max(lk_loose_err, err)
+                    else:
+                        errs["lk"] = max(errs["lk"], err)
+                    log(f"  win {win} level {lvl} ({hl}^2) {name}: max abs "
+                        f"err {err:.3g} px; beyond 5e-3 px: {n_out} of "
+                        f"{e.numel()}")
+                    if n_out:
+                        det = lk_det(pyr1[lvl], want, win)
+                        for bi, ni in (e > 5e-3).nonzero()[:5].tolist():
+                            log(f"    pair {bi} point {ni}: "
+                                f"{float(e[bi, ni]):.3g} px apart, det at "
+                                f"the plain run's end {float(det[bi, ni]):.3g}")
+                    if (n_out > (0.005 * e.numel() if loose else 0)
+                            or not bool(torch.isfinite(got).all())):
+                        raise AssertionError(f"kernel F differs: win {win} "
+                                             f"level {lvl} {name}: {err}")
+        angles = draw_angles((LK_PAIRS, K), gen, dev)
+        flow_args = (lk_imgs0, lk_imgs1, lk_k0, lk_k0, angles, lk)
+        got, _ = optical_flow_batch_from_angles(*flow_args)
+        with plain_twins():
+            want, _ = optical_flow_batch_from_angles(*flow_args)
+        d = (got - want).abs().amax(-1) * (SIZE - 1.0)
+        share = float((d <= 1e-2).float().mean())
+        log(f"  full protocol (3 levels x 40 iterations, distance 10): "
+            f"{share:.4%} of {d.numel()} points within 1e-2 px of the plain "
+            f"run; median {float(d.median()):.3g} px")
+        far = (d > 1e-2).nonzero()[:12]
+        dets = lk_det(lk_imgs1, want * (SIZE - 1.0), lk.win_size)
+        for bi, ni in far.tolist():
+            log(f"    pair {bi} point {ni}: {float(d[bi, ni]):.3g} px apart, "
+                f"det {float(dets[bi, ni]):.3g}, valid "
+                f"{bool(lk_v0[bi, ni])}")
+        if share < 0.99:
+            raise AssertionError(f"kernel F full protocol: {share}")
+        jit = torch.stack([torch.cos(angles), torch.sin(angles)], -1)
+        start = (px_full + jit * lk.distance).clamp(10, SIZE - 10)
+        lk_ms, lk_plain_ms, lk_level_ms = 0.0, 0.0, []
+        for lvl in (2, 1, 0):
+            args = (pyr0[lvl], pyr1[lvl], px_full / 2 ** lvl,
+                    start / 2 ** lvl, lk.win_size, lk.iterations)
+            lk_level_ms.append(cuda_ms(lambda: cuda_lk.lk_level_cuda(*args),
+                                       iters=5))
+            lk_plain_ms += cuda_ms(lambda: _lk_level(*args), iters=1,
+                                   warmup=1)
+        lk_ms = sum(lk_level_ms)
+        lk_bound_ms, lk_bound_by, pt_iters = lk_bound(
+            lk_imgs0, K, lk.win_size, lk.levels, lk.iterations)
+        log(f"  [{LK_PAIRS} pairs, K={K}, win {lk.win_size}, "
+            f"{lk.iterations} iterations] levels /4, /2, /1: "
+            f"kernel {[round(t, 4) for t in lk_level_ms]} ms, sum "
+            f"{lk_ms:.4f} ms ({lk_ms * 1e6 / pt_iters:.2f} ns per "
+            f"point-iteration), plain {lk_plain_ms:.4f} ms, bound "
+            f"{lk_bound_ms:.4f} ms ({lk_bound_by})")
+
+    with phase(f"lk_fundamental_step: {LK_PAIRS} pairs at {SIZE}^2"):
+        def lk_step(seed=0):
+            return lk_fundamental_step(
+                model, params, lk_imgs0, lk_imgs1, lk_Fs,
+                torch.Generator(device=dev).manual_seed(seed), dp, lk,
+                device=DEVICE)
+
+        reset_launches()
+        out, k0, v0, tracked = lk_step()
+        torch.cuda.synchronize()
+        got = read_launches()
+        log(f"  launches in one lk_fundamental_step run: {got}")
+        if got["nms"] <= 0 or got["lk"] != lk.levels:
+            raise AssertionError(f"a kernel was not launched: {got}")
+        launches["lk"] = got["lk"]
+        with plain_twins():
+            out_p, k0_p, v0_p, tracked_p = lk_step()
+        n_valid = v0.sum(-1)
+        err, err_p = out["fundamental_error"], out_p["fundamental_error"]
+        num, num_p = out["fundamental_num"], out_p["fundamental_num"]
+        log(f"  fundamental_error per pair {[round(x, 5) for x in err.tolist()]}"
+            f" (plain {[round(x, 5) for x in err_p.tolist()]}); "
+            f"fundamental_num {num.tolist()} (plain {num_p.tolist()}) of "
+            f"{n_valid.tolist()} valid keypoints; radio "
+            f"{[round(x, 4) for x in out['fundamental_radio'].tolist()]}")
+        if not (torch.equal(k0, k0_p) and torch.equal(v0, v0_p)
+                and torch.equal(k0, lk_k0)):
+            raise AssertionError("keypoints differ from the plain-twin step")
+        if not (bool(torch.isfinite(tracked).all())
+                and tracked.shape == (LK_PAIRS, K, 2)
+                and bool(torch.isfinite(err).all()) and int(num.min()) > 0):
+            raise AssertionError("lk_fundamental_step outputs malformed")
+        if not bool(((err - err_p).abs() <= 1e-3 * err_p.abs()).all()):
+            raise AssertionError("fundamental_error differs from plain by "
+                                 "more than 1e-3 relative")
+        if not bool(((num - num_p).abs() <= 0.005 * n_valid).all()):
+            raise AssertionError("fundamental_num differs from plain")
+
+        windows = timed_windows(lk_step)
+        dt = statistics.median(windows)
+        lk_fps = LK_PAIRS / dt
+        fps_all = [LK_PAIRS / w for w in windows]
+        log(f"  lk_fundamental_step: median {dt * 1e3:.3f} ms per "
+            f"{LK_PAIRS}-pair batch, {lk_fps:.2f} frames/s (min "
+            f"{min(fps_all):.2f}, max {max(fps_all):.2f}) on {card}")
+        scale = torch.tensor([SIZE - 1.0, SIZE - 1.0], device=dev)
+        with torch.inference_mode():
+            st = {f"forward, ALIKE-t on {LK_PAIRS} images":
+                  cuda_ms(lambda: model(lk_imgs0), iters=5),
+                  f"detection_batch, {LK_PAIRS} maps":
+                  cuda_ms(lambda: detection_batch(lk_score, dp), iters=5),
+                  "pyramids (avg pool /2 and /4 of 16 images)":
+                  cuda_ms(lambda: [_avg_pool_img(im, k) for im in
+                                   (lk_imgs0, lk_imgs1) for k in (2, 4)],
+                          iters=5),
+                  "LK level /4 (kernel F)": lk_level_ms[0],
+                  "LK level /2 (kernel F)": lk_level_ms[1],
+                  "LK level /1 (kernel F)": lk_level_ms[2],
+                  "fundamental_metrics":
+                  cuda_ms(lambda: fundamental_metrics(
+                      k0[..., 0:2] * scale, tracked * scale, v0, lk_Fs),
+                      iters=5)}
+        for name, ms in st.items():
+            log(f"  stage {name}: {ms:.4f} ms")
+        busy, window, top = profile_step(lk_step)
+        log(f"  profiled step: device busy {busy:.3f} ms of a "
+            f"{window:.3f} ms window, idle share "
+            f"{1.0 - busy / window:.4f}" if window > 0 else
+            "  profiled step: no events recorded")
+        for name, ms in top:
+            log(f"    device time {ms:.4f} ms: {name[:90]}")
+
+    with phase("kernel C (peel) vs plain peel_topk; fused detection"):
+        nms16 = cuda_nms.nms_cuda(maps0, dp.nms_dist, 30)
+        # three distinct bf16 values: far more than top_k maxima tie at the
+        # top, so some chunk's eighth candidate still reaches the cutoff
+        ties = (torch.round(torch.rand((2, SIZE, SIZE), device=dev,
+                                       generator=gen) * 2) / 2).to(
+            torch.bfloat16)
+        cases = [("NMS'd score maps x16", nms16),
+                 ("tie-heavy", cuda_nms.nms_cuda(ties, 2, 30).float()),
+                 ("sparse", torch.where(nms16[:2] > 0.6, nms16[:2], 0.0))]
+        for name, m in cases:
+            v, i = cuda_nms.peel_cuda(m, dp.border_dist, 8)
+            pv, pi = peel_topk(m, dp.border_dist, 8)
+            diff = float((v - pv).abs().nan_to_num(0.0).max())
+            errs["peel"] = max(errs["peel"], diff)
+            short = int(((m != 0).reshape(*m.shape[:2], -1, 128).sum(-1)
+                         < 8).sum())
+            log(f"  {name}: values equal={torch.equal(v, pv)} indices "
+                f"equal={torch.equal(i, pi)}; chunks with fewer than 8 "
+                f"non-zero entries: {short}")
+            if not (torch.equal(v, pv) and torch.equal(i, pi)):
+                raise AssertionError(f"kernel C differs on {name}")
+        reset_launches()
+        with torch.inference_mode():
+            fk, fv = detection_batch_fused(score0, dp)
+        torch.cuda.synchronize()
+        got = read_launches()
+        log(f"  launches in one detection_batch_fused run: {got}")
+        if got["nms"] <= 0 or got["peel"] != 1:
+            raise AssertionError(f"a kernel was not launched: {got}")
+        launches["peel"] = got["peel"]
+        tie_dp = DetectParams(nms_dist=2, border_dist=8, top_k=K)
+        with torch.inference_mode():
+            for name, maps, p_, want_unsafe in (
+                    ("score maps x16", maps0, dp, False),
+                    ("tie-heavy", ties, tie_dp, True)):
+                fk, fv = detection_batch_fused(maps, p_)
+                pk, pv = detection_batch(maps, p_)
+                unsafe = fused_topk(maps, p_, K)[2]
+                log(f"  detection_batch_fused on {name}: keypoints equal="
+                    f"{torch.equal(fk, pk)} masks equal="
+                    f"{torch.equal(fv, pv)} full-sort guard taken={unsafe}")
+                if not (torch.equal(fk, pk) and torch.equal(fv, pv)
+                        and unsafe == want_unsafe):
+                    raise AssertionError(f"fused detection on {name}")
+            peel_ms = cuda_ms(lambda: cuda_nms.peel_cuda(nms16, 8, 8))
+            peel_plain_ms = cuda_ms(lambda: peel_topk(nms16, 8, 8), iters=5)
+            det_ms = cuda_ms(lambda: detection_batch(score0, dp), iters=5)
+            det_fused_ms = cuda_ms(lambda: detection_batch_fused(score0, dp),
+                                   iters=5)
+        peel_bound_ms, peel_bound_by = peel_bound(nms16, 8)
+        log(f"  {list(nms16.shape)} per_chunk 8: kernel {peel_ms:.4f} ms, plain "
+            f"{peel_plain_ms:.4f} ms, bound {peel_bound_ms:.4f} ms "
+            f"({peel_bound_by}); detection_batch {det_ms:.4f} ms, "
+            f"detection_batch_fused {det_fused_ms:.4f} ms")
+
+    with phase("FundamentalMatrix runner: optical_flow, 5 frames at 512^2"):
+        for pipelined in (False, True):
+            cfg = EvalConfig.from_yaml(os.path.join(
+                ROOT, "configs", "fund_synthetic.yaml"))
+            cfg.data_params = {**cfg.data_params, "num_frames": 5,
+                               "image_size": SIZE}
+            cfg.task_params = {**cfg.task_params, "pipelined": pipelined}
+            cfg.output_dir = os.path.join(ROOT, "output", "chip_smoke_fund")
+            reset_launches()
+            res = Evaluator(cfg, DEVICE).run()
+            got = read_launches()
+            with plain_twins():
+                res_p = Evaluator(cfg, DEVICE).run()
+            e, e_p = (np.asarray(r["per_frame_error"]) for r in (res, res_p))
+            log(f"  pipelined={pipelined}: per_frame_error "
+                f"{np.round(e, 5).tolist()} (plain "
+                f"{np.round(e_p, 5).tolist()}); fundamental_num "
+                f"{res['fundamental_num']} (plain {res_p['fundamental_num']})"
+                f"; launches {got}")
+            want_lk = lk.levels * (1 if pipelined else 5)
+            if got["lk"] != want_lk or got["nms"] <= 0:
+                raise AssertionError(f"the runner missed kernel F: {got}")
+            if not (np.isfinite(e).all() and len(e) == 5
+                    and (np.abs(e - e_p) <= 1e-3 * np.abs(e_p) + 1e-5).all()
+                    and abs(res["fundamental_num"] - res_p["fundamental_num"])
+                    <= 0.005 * K):
+                raise AssertionError("FundamentalMatrix runner differs from "
+                                     "the plain twins")
+
     kernels = [
         {"name": "nms_fixpoint", "route": "cuda",
          "source": "keypoint_bench_tpu_torch/csrc/nms.cu",
@@ -807,6 +1175,22 @@ def main() -> int:
          f"ms_k{K_LARGE}": att4_ms, f"plain_ms_k{K_LARGE}": att4_plain_ms,
          f"library_ms_k{K_LARGE}": att4_lib_ms,
          f"bound_ms_k{K_LARGE}": att4_bound_ms},
+        {"name": "lk_level", "route": "cuda",
+         "source": "keypoint_bench_tpu_torch/csrc/lk.cu",
+         "replaces": "keypoint_bench_tpu/ops/pallas_lk.py:78",
+         "launches": launches["lk"], "max_abs_err": errs["lk"],
+         "ms": lk_ms, "plain_ms": lk_plain_ms, "bound_ms": lk_bound_ms,
+         "bound_by": lk_bound_by, "library_ms": None,
+         "max_abs_err_win3_border": lk_loose_err,
+         "ms_per_level": lk_level_ms, "step_frames_per_s": lk_fps},
+        {"name": "peel_topk", "route": "cuda",
+         "source": "keypoint_bench_tpu_torch/csrc/peel.cu",
+         "replaces": "keypoint_bench_tpu/ops/pallas_nms.py:127",
+         "launches": launches["peel"], "max_abs_err": errs["peel"],
+         "ms": peel_ms, "plain_ms": peel_plain_ms, "bound_ms": peel_bound_ms,
+         "bound_by": peel_bound_by, "library_ms": None,
+         "detection_batch_ms": det_ms,
+         "detection_batch_fused_ms": det_fused_ms},
     ]
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -1,10 +1,15 @@
-"""Synthetic homography pairs for data-free runs: the port's own copy of
+"""Synthetic datasets for data-free runs: the port's own copy of
 keypoint_bench_tpu/datasets/synthetic.py (_texture, _warp_image,
-SyntheticHomographyDataset), numpy only, same draws from the same seed.
+SyntheticHomographyDataset, SyntheticSequenceDataset,
+SyntheticSplatSequenceDataset with the splat renderer it borrows), numpy
+(and cv2.Rodrigues) only, same draws from the same seed.
 """
 from __future__ import annotations
 
 import numpy as np
+
+from keypoint_bench_tpu_torch.datasets.sequences import \
+    _fundamentals_from_poses
 
 
 def _texture(h, w, rng, blocks=8):
@@ -71,4 +76,191 @@ class SyntheticHomographyDataset:
                                   np.linalg.inv(H).astype("float32"),
                               "resize": s},
             "dataset": "HPatches",
+        }
+
+
+class _SplatScene:
+    """The 3D gaussian-splat renderer of the JAX package's
+    SyntheticSE3Dataset (its intrinsics, `_plane`, `_background` and
+    `_render`): random blobs z-buffer-splatted over two textured planes at
+    different depths, which break the single-plane degeneracy."""
+
+    _BG_DEPTHS = (30.0, 14.0)
+
+    def __init__(self, image_size: int):
+        self.s = image_size
+        f = image_size * 0.9
+        self.K = np.array([[f, 0, image_size / 2],
+                           [0, f, image_size / 2], [0, 0, 1]], np.float32)
+
+    def _plane(self, tex, R, t, d):
+        """One textured fronto-parallel plane at depth d (cam0 frame)
+        rendered into camera (R, t): (image, exact depth, cam0-visibility
+        mask)."""
+        s = self.s
+        n = np.array([0.0, 0.0, 1.0])
+        H = self.K @ (R + np.outer(t, n) / d) @ np.linalg.inv(self.K)
+        img = _warp_image(tex, np.linalg.inv(H))
+        ys, xs = np.mgrid[0:s, 0:s]
+        p1 = np.stack([xs.ravel(), ys.ravel(), np.ones(s * s)], axis=1)
+        p0 = p1 @ np.linalg.inv(H).T
+        p0 = p0 / p0[:, 2:]
+        inb = ((p0[:, 0] >= 0) & (p0[:, 0] <= s - 1)
+               & (p0[:, 1] >= 0) & (p0[:, 1] <= s - 1)).reshape(s, s)
+        ray0 = p0 @ np.linalg.inv(self.K).T
+        X0 = ray0 * (d / ray0[:, 2:])
+        X1 = X0 @ R.T + t
+        depth = X1[:, 2].reshape(s, s).astype(np.float32)
+        return img, depth, inb & (p0[:, 0].reshape(s, s) < s / 2)
+
+    def _background(self, tex, R, t):
+        s = self.s
+        d_far, d_near = self._BG_DEPTHS
+        img, depth, _ = self._plane(tex, R, t, d_far)
+        # the nearer plane takes the left half of the cam0 view, with
+        # another crop of the texture
+        tex2 = np.roll(tex, (s // 3, s // 3), axis=(0, 1))
+        img2, depth2, mask2 = self._plane(tex2, R, t, d_near)
+        m = mask2[..., None]
+        img = np.where(m, img2, img)
+        depth = np.where(mask2, depth2, depth)
+        return img, depth
+
+    def _render(self, X, colors, R, t, tex):
+        """Splat 3D points X [N,3] over the textured planes with a
+        z-buffer. Returns (image [S,S,3], depth [S,S])."""
+        s = self.s
+        img, depth = self._background(tex, R, t)
+        zbuf = depth.copy()
+        Xc = X @ R.T + t
+        z = Xc[:, 2]
+        front = z > 0.5
+        uv = (Xc / np.maximum(z[:, None], 1e-6)) @ self.K.T
+        order = np.argsort(-z)  # far to near; near overwrites
+        rad = 4
+        for i in order:
+            if not front[i]:
+                continue
+            u, v = uv[i, 0], uv[i, 1]
+            if not (rad <= u < s - rad and rad <= v < s - rad):
+                continue
+            ui, vi = int(u), int(v)
+            ys, xs = np.mgrid[vi - rad: vi + rad + 1, ui - rad: ui + rad + 1]
+            g = np.exp(-((ys - v) ** 2 + (xs - u) ** 2) / (2 * 1.8 ** 2))
+            img[ys, xs] = (1 - g[..., None]) * img[ys, xs] \
+                + g[..., None] * colors[i]
+            closer = z[i] < zbuf[ys, xs]
+            sel = (g > 0.1) & closer
+            depth[ys, xs] = np.where(sel, z[i], depth[ys, xs])
+            zbuf[ys, xs] = np.where(sel, z[i], zbuf[ys, xs])
+        return img, depth
+
+
+class SyntheticSplatSequenceDataset:
+    """KITTI-contract mono sequence rendered from the 3D gaussian-splat
+    scene (true parallax, unlike SyntheticSequenceDataset's single plane)."""
+
+    def __init__(self, num_frames: int = 6, image_size: int = 256,
+                 seed: int = 0, n_blobs: int = 900):
+        import cv2
+        self.n = num_frames
+        self.base = _SplatScene(image_size)
+        rng = np.random.default_rng(seed)
+        self.X = np.concatenate([rng.uniform(-4, 4, (n_blobs, 2)),
+                                 rng.uniform(4, 20, (n_blobs, 1))], axis=1)
+        self.colors = rng.uniform(0.3, 1.0, (n_blobs, 3)).astype(np.float32)
+        self.tex = _texture(image_size, image_size, rng) * 0.15
+        self.poses_cam = []   # cam-from-world per frame
+        for i in range(num_frames):
+            aa = np.array([0.0, 0.002 * i, 0.0])
+            R, _ = cv2.Rodrigues(aa)
+            t = np.array([0.35 * i, 0.05 * i, 0.0])
+            T = np.eye(4)
+            T[:3, :3] = R
+            T[:3, 3] = t
+            self.poses_cam.append(T)
+        # world-from-cam for the ground-truth contract
+        self.poses = [np.linalg.inv(T) for T in self.poses_cam]
+        K = self.base.K
+        self.Fs = _fundamentals_from_poses(self.poses, K[0, 0], K[1, 1],
+                                           K[0, 2], K[1, 2])
+
+    def __len__(self):
+        return self.n
+
+    def __getitem__(self, i):
+        T = self.poses_cam[i]
+        img, _ = self.base._render(self.X, self.colors, T[:3, :3], T[:3, 3],
+                                   self.tex)
+        last = max(0, i - 1)
+        K = self.base.K
+        return {
+            "image0": img, "image1": img,
+            "fx": K[0, 0], "fy": K[1, 1], "cx": K[0, 2], "cy": K[1, 2],
+            "ground_truth": self.poses[i].astype("float32"),
+            "last_ground_truth": self.poses[last].astype("float32"),
+            "fundamental": self.Fs[i],
+            "dataset": "Kitti",
+        }
+
+
+class SyntheticSequenceDataset:
+    """KITTI-contract mono sequence: a camera translating over a textured
+    fronto-parallel plane at depth z0 (the image motion is the homography
+    the plane induces), with ground-truth poses and fundamental matrices."""
+
+    fx = 256.0
+    fy = 256.0
+
+    def __init__(self, num_frames: int = 10, image_size: int = 256,
+                 seed: int = 0):
+        self.n = num_frames
+        self.s = image_size
+        self.cx = image_size / 2.0
+        self.cy = image_size / 2.0
+        rng = np.random.default_rng(seed)
+        self.base = _texture(image_size * 2, image_size * 2, rng)
+        z0 = 8.0
+        self.z0 = z0
+        # the plane-induced pixel drift must stay inside the double-size
+        # base texture's margin (off = image_size // 2)
+        max_drift = max(self.fx * 0.08, self.fy * 0.02) * (num_frames - 1) \
+            / z0
+        if max_drift >= image_size // 2:
+            raise ValueError(
+                f"SyntheticSequenceDataset: {num_frames} frames drift "
+                f"{max_drift:.0f} px past the base-texture margin "
+                f"({image_size // 2} px): use fewer frames or a larger "
+                f"image_size")
+        self.poses = []
+        for i in range(num_frames):
+            T = np.eye(4)
+            T[0, 3] = 0.08 * i           # x drift (world-from-cam)
+            T[1, 3] = 0.02 * i
+            self.poses.append(T)
+        self.Fs = _fundamentals_from_poses(self.poses, self.fx, self.fy,
+                                           self.cx, self.cy)
+
+    def __len__(self):
+        return self.n
+
+    def _frame(self, i):
+        # plane at depth z0: pixel shift = fx * t / z0; a window of the
+        # double-size base texture
+        dx = int(round(self.fx * self.poses[i][0, 3] / self.z0))
+        dy = int(round(self.fy * self.poses[i][1, 3] / self.z0))
+        s = self.s
+        off = s // 2
+        return self.base[off - dy:off - dy + s, off - dx:off - dx + s]
+
+    def __getitem__(self, i):
+        last = max(0, i - 1)
+        return {
+            "image0": self._frame(i),
+            "image1": self._frame(i),
+            "fx": self.fx, "fy": self.fy, "cx": self.cx, "cy": self.cy,
+            "ground_truth": self.poses[i].astype("float32"),
+            "last_ground_truth": self.poses[last].astype("float32"),
+            "fundamental": self.Fs[i],
+            "dataset": "Kitti",
         }

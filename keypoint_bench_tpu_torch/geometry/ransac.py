@@ -1,14 +1,15 @@
-"""Fixed-hypothesis RANSAC for homographies (counterpart of the homography
-part of keypoint_bench_tpu/geometry/ransac.py, on the exact path that the
-JAX package takes on the CPU: stacked DLT rows, the SVD of A^T A).
+"""Fixed-hypothesis RANSAC for homographies and fundamental matrices
+(counterpart of those parts of keypoint_bench_tpu/geometry/ransac.py, on
+the exact path that the JAX package takes on the CPU: stacked DLT rows,
+the SVD of A^T A, the SVD rank-2 projection).
 
-A static batch of minimal samples (Gumbel top-4 over the validity mask,
+A static batch of minimal samples (Gumbel top-k over the validity mask,
 drawn from an explicit torch.Generator), one batched SVD for every
 hypothesis, one [n_hyp, K] residual matrix, the best hypothesis by inlier
 count, then a Hartley-normalized weighted refit on its inliers. Every
 function takes leading batch dimensions. The JAX package's TPU-only
-list-form and fixed-iteration solves are not ported: they are numerics
-workarounds for the TPU, not semantics.
+list-form, fixed-iteration and deflation solves are not ported: they are
+numerics workarounds for the TPU, not semantics.
 """
 from __future__ import annotations
 
@@ -128,3 +129,77 @@ def ransac_homography(p0: torch.Tensor, p1: torch.Tensor, mask: torch.Tensor,
     inliers [..., K], ok [...])."""
     idx = _sample_minimal(mask, n_hyp, 4, generator)
     return ransac_homography_from_samples(p0, p1, mask, idx, thresh)
+
+
+def _solve_eightpoint(p0: torch.Tensor, p1: torch.Tensor,
+                      w: torch.Tensor) -> torch.Tensor:
+    """Weighted 8-point DLT for x1^T F x0 = 0: p0, p1 [..., N, 2], w
+    [..., N] -> [..., 3, 3], the right singular vector of the smallest
+    singular value of A^T A; not rank-reduced."""
+    x0, y0 = p0[..., 0], p0[..., 1]
+    x1, y1 = p1[..., 0], p1[..., 1]
+    o = torch.ones_like(x0)
+    a = torch.stack([x1 * x0, x1 * y0, x1, y1 * x0, y1 * y0, y1, x0, y0, o],
+                    dim=-1) * w[..., None]
+    _, _, vh = torch.linalg.svd(a.transpose(-1, -2) @ a)
+    return vh[..., -1, :].unflatten(-1, (3, 3))
+
+
+def _rank2(F: torch.Tensor) -> torch.Tensor:
+    """The nearest rank-2 matrix: the smallest singular value set to 0."""
+    u, s, vh = torch.linalg.svd(F)
+    keep = torch.tensor([1.0, 1.0, 0.0], dtype=s.dtype, device=s.device)
+    return (u * (s * keep)[..., None, :]) @ vh
+
+
+def _sampson(F: torch.Tensor, p0: torch.Tensor,
+             p1: torch.Tensor) -> torch.Tensor:
+    """Sampson distance for x1^T F x0 = 0: F [..., 3, 3], p0/p1
+    [..., N, 2] -> [..., N]."""
+    ph0 = torch.cat([p0, torch.ones_like(p0[..., :1])], dim=-1)
+    ph1 = torch.cat([p1, torch.ones_like(p1[..., :1])], dim=-1)
+    fx0 = ph0 @ F.transpose(-1, -2)      # lines in image 1
+    ftx1 = ph1 @ F                       # lines in image 0
+    num = (ph1 * fx0).sum(-1)
+    den = (fx0[..., 0] ** 2 + fx0[..., 1] ** 2 + ftx1[..., 0] ** 2
+           + ftx1[..., 1] ** 2)
+    return num.abs() / torch.sqrt(den.clamp_min(1e-18))
+
+
+def ransac_fundamental_from_samples(p0: torch.Tensor, p1: torch.Tensor,
+                                    mask: torch.Tensor, idx: torch.Tensor,
+                                    thresh: float = 3.0):
+    """8-point RANSAC for F (x1^T F x0 = 0) over given minimal samples idx
+    [..., n_hyp, 8]; p0, p1 [..., K, 2] pixel coordinates, mask [..., K].
+    Every hypothesis is solved on Hartley-normalized points and projected
+    to rank 2. Returns (F [..., 3, 3], inliers [..., K], ok [...])."""
+    q0, q1 = _take(p0, idx), _take(p1, idx)
+    ones = torch.ones_like(q0[..., 0])
+    t0 = _normalize_pts(q0, ones)
+    t1 = _normalize_pts(q1, ones)
+    fn = _rank2(_solve_eightpoint(_apply_T(t0, q0), _apply_T(t1, q1), ones))
+    fs = t1.transpose(-1, -2) @ (fn @ t0)                 # [..., n_hyp, 3, 3]
+    res = _sampson(fs, p0[..., None, :, :], p1[..., None, :, :])
+    inl = (res < thresh) & mask[..., None, :]
+    counts = inl.sum(-1)
+    best = counts.argmax(-1, keepdim=True)
+    w = inl.gather(-2, best[..., None].expand(*best.shape,
+                                              inl.shape[-1]))[..., 0, :]
+    w = w.float()
+    t0 = _normalize_pts(p0, w)
+    t1 = _normalize_pts(p1, w)
+    fn = _rank2(_solve_eightpoint(_apply_T(t0, p0), _apply_T(t1, p1), w))
+    F = t1.transpose(-1, -2) @ (fn @ t0)
+    final = (_sampson(F, p0, p1) < thresh) & mask
+    ok = (mask.sum(-1) >= 8) & (counts.gather(-1, best)[..., 0] >= 8)
+    return F, final, ok
+
+
+def ransac_fundamental(p0: torch.Tensor, p1: torch.Tensor, mask: torch.Tensor,
+                       generator: torch.Generator, n_hyp: int = 512,
+                       thresh: float = 3.0):
+    """p0, p1 [..., K, 2] pixel coordinates, mask [..., K]; minimal samples
+    drawn from `generator` (on the tensors' device). Returns (F [..., 3, 3],
+    inliers [..., K], ok [...])."""
+    idx = _sample_minimal(mask, n_hyp, 8, generator)
+    return ransac_fundamental_from_samples(p0, p1, mask, idx, thresh)

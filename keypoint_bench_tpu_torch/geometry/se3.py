@@ -1,0 +1,28 @@
+"""SE3 helpers the sequence datasets need: the port's own copy of
+`inv_T`, `skew` and `pose_to_fundamental` of keypoint_bench_tpu/geometry/
+se3.py. Numpy only, float64 like the original."""
+from __future__ import annotations
+
+import numpy as np
+
+
+def inv_T(T):
+    R = T[:3, :3]
+    t = T[:3, 3]
+    Ti = np.eye(4)
+    Ti[:3, :3] = R.T
+    Ti[:3, 3] = -R.T @ t
+    return Ti
+
+
+def skew(v):
+    return np.array([[0, -v[2], v[1]], [v[2], 0, -v[0]], [-v[1], v[0], 0.0]])
+
+
+def pose_to_fundamental(T_01, K0, K1):
+    """GT fundamental matrix from a relative pose (reference
+    datasets/kitti.py:10-22): F = K1^-T [t]_x R K0^-1 for x1^T F x0 = 0."""
+    R = T_01[:3, :3]
+    t = T_01[:3, 3]
+    E = skew(t) @ R
+    return np.linalg.inv(K1).T @ E @ np.linalg.inv(K0)

@@ -1,8 +1,13 @@
-"""Kernel A: the iterative-NMS fixpoint on CUDA (csrc/nms.cu).
+"""Kernel A: the iterative-NMS fixpoint on CUDA (csrc/nms.cu), and kernel
+C: the border mask + per-chunk top-candidate peel (csrc/peel.cu).
 
-Replaces keypoint_bench_tpu/ops/pallas_nms.py `_nms_kernel`. The plain
-twin is ops/detect.py `fast_nms`; `nms_fixpoint` takes it for CPU tensors
-only. For a CUDA tensor it launches the kernel or raises.
+Kernel A replaces keypoint_bench_tpu/ops/pallas_nms.py `_nms_kernel`; its
+plain twin is ops/detect.py `fast_nms`, and `nms_fixpoint` takes it for CPU
+tensors only. Kernel C replaces `_peel_kernel` of the same file; its plain
+version is ops/detect.py `peel_topk`, and `peel_candidates` takes it for
+CPU tensors only. For a CUDA tensor both launch their kernel or raise.
+`fast_nms_topk` is kernel A followed by kernel C (the counterpart of
+`fast_nms_topk_pallas`, which also keeps the two apart).
 """
 from __future__ import annotations
 
@@ -18,6 +23,8 @@ MAX_NMS_DIST = 16
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 KERNEL = Kernel("nms", "kbt_nms_fixpoint",
                 [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P])
+PEEL_KERNEL = Kernel("peel", "kbt_peel", [_P, _P, _P, _I, _I, _I, _I, _I, _P])
+PEEL_CHUNK = 128
 
 
 def nms_fixpoint(maps: torch.Tensor, nms_dist: int, max_iter: int = 30,
@@ -59,3 +66,66 @@ def nms_cuda(maps: torch.Tensor, nms_dist: int, max_iter: int = 30,
                       counts.data_ptr(), done.data_ptr(), b, h, w, nms_dist,
                       max_iter, mv, torch.cuda.current_stream().cuda_stream)
     return p.to(maps.dtype)
+
+
+def check_peel_shape(w: int, per_chunk: int):
+    """The peel's shape rules (the JAX package's): w a multiple of 128 and
+    at most 128 candidates per row."""
+    if w % PEEL_CHUNK != 0 or w == 0 or per_chunk < 1 \
+            or (w // PEEL_CHUNK) * per_chunk > PEEL_CHUNK:
+        raise ValueError(
+            f"the fused top-k needs w % 128 == 0 and 1 <= (w // 128) * "
+            f"per_chunk <= 128; got w={w}, per_chunk={per_chunk}")
+
+
+def peel_candidates(nms: torch.Tensor, border: int, per_chunk: int = 8):
+    """nms [B,H,W] f32 -> (vals [B,H,(W/128)*per_chunk] f32, idx the same
+    shape int32, global columns), as detect.peel_topk computes them."""
+    if not nms.is_cuda:
+        from keypoint_bench_tpu_torch.ops.detect import peel_topk
+        return peel_topk(nms, border, per_chunk)
+    return peel_cuda(nms, border, per_chunk)
+
+
+def peel_cuda(nms: torch.Tensor, border: int, per_chunk: int = 8):
+    """Launch kernel C once (one warp per row and 128-column chunk)."""
+    PEEL_KERNEL.function()   # builds, or raises, before any launch
+    if not nms.is_cuda:
+        raise ValueError("peel_cuda takes a CUDA tensor")
+    if nms.dim() != 3 or nms.dtype != torch.float32:
+        raise ValueError(f"expected [B,H,W] float32 maps, got "
+                         f"{tuple(nms.shape)} {nms.dtype}")
+    b, h, w = nms.shape
+    check_peel_shape(w, per_chunk)
+    if border < 0:
+        raise ValueError(f"border must be >= 0, got {border}")
+    nc = (w // PEEL_CHUNK) * per_chunk
+    vals = torch.empty((b, h, nc), dtype=torch.float32, device=nms.device)
+    idx = torch.empty((b, h, nc), dtype=torch.int32, device=nms.device)
+    if b * h == 0:
+        return vals, idx
+    maps = nms.contiguous()
+    with torch.cuda.device(nms.device):
+        PEEL_KERNEL.launch(1, maps.data_ptr(), vals.data_ptr(),
+                           idx.data_ptr(), b, h, w, border, per_chunk,
+                           torch.cuda.current_stream().cuda_stream)
+    return vals, idx
+
+
+def fast_nms_topk(maps: torch.Tensor, nms_dist: int = 4, max_iter: int = 30,
+                  border_dist: int = 8, per_chunk: int = 8,
+                  min_value: float = 0.0):
+    """NMS fixpoint, then border mask + per-chunk candidate peel, for
+    [B,H,W] maps. Returns (nms maps in the maps' dtype WITHOUT the border
+    applied, vals [B,H,n_blk*per_chunk] f32, idx int32 global columns).
+    Candidates are the border-masked map's per-chunk top values, value
+    descending with the lowest column first on ties; the flat (row, blk, j)
+    order is index-ordered within equal values of a chunk."""
+    if nms_dist == 0:
+        raise ValueError("the fused top-k needs nms_dist > 0")
+    if maps.dim() != 3:
+        raise ValueError(f"expected [B,H,W] maps, got {tuple(maps.shape)}")
+    check_peel_shape(maps.shape[-1], per_chunk)
+    nms = nms_fixpoint(maps, nms_dist, max_iter, min_value)
+    vals, idx = peel_candidates(nms.float(), border_dist, per_chunk)
+    return nms, vals, idx

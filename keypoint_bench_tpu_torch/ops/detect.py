@@ -5,7 +5,11 @@
 tensors `detection_batch` runs it through kernel A (ops/cuda_nms.py).
 `topk_select` is one stable sort (value descending, index ascending), the
 exact result the JAX package's chunked candidate peel plus its fallback
-guarantee; the peel itself is a TPU device and is not carried over.
+guarantee. `detection_batch_fused` is the counterpart of the JAX package's
+`_detection_batch_fused`: kernel A, then the per-chunk candidate peel
+(kernel C on CUDA tensors, `peel_topk` here as its plain version), a stable
+merge of the candidates and the chunk-cutoff safety test; it returns the
+same keypoints as `detection_batch` by contract.
 """
 from __future__ import annotations
 
@@ -134,6 +138,75 @@ def detection_batch(score_maps: torch.Tensor,
     flat = remove_border(nms, params.border_dist).reshape(b, h * w).float()
     scores, idx = topk_select(flat, min(params.top_k, h * w))
     return _kpts_from_topk(scores, idx, h, w, params)
+
+
+def peel_topk(nms: torch.Tensor, border: int, per_chunk: int = 8):
+    """Plain version of kernel C: the border-masked [B,H,W] map's top
+    `per_chunk` values of every 128-column chunk of every row, by repeated
+    (max, lowest column holding it, mask to -inf) rounds. Returns (vals
+    [B,H,n_blk*per_chunk] f32, idx int32 global columns); candidate lane
+    blk * per_chunk + j is round j of column block blk."""
+    b, h, w = nms.shape
+    n_blk = w // 128
+    cur = remove_border(nms.float(), border).reshape(b, h, n_blk, 128)
+    li = torch.arange(w, device=nms.device).reshape(n_blk, 128)
+    vals, idxs = [], []
+    for _ in range(per_chunk):
+        m = cur.amax(-1, keepdim=True)
+        idx = torch.where(cur == m, li, w).amin(-1, keepdim=True)
+        vals.append(m)
+        idxs.append(idx)
+        cur = torch.where(li == idx, -torch.inf, cur)
+    return (torch.cat(vals, -1).reshape(b, h, n_blk * per_chunk),
+            torch.cat(idxs, -1).reshape(b, h, n_blk * per_chunk).int())
+
+
+def detection_batch_fused(score_maps: torch.Tensor,
+                          params: DetectParams = DetectParams(),
+                          per_chunk: int = 8):
+    """`detection_batch` through the fused candidate path: NMS fixpoint
+    (kernel A) and border mask + per-chunk peel (kernel C), a stable merge
+    of the H * n_blk * per_chunk candidates, and the exactness guard: if a
+    chunk's last peeled value still reaches the merged cutoff (it may have
+    held further top-k members or lower-index ties), every map takes the
+    full stable sort instead. One host read per batch decides that.
+
+    `top_k` above the number of candidates hands over to `detection_batch`
+    (the JAX package's shape rule); w % 128 != 0, more than 128 candidates
+    per row and nms_dist == 0 raise."""
+    if score_maps.dim() == 4:
+        score_maps = score_maps[..., 0]
+    b, h, w = score_maps.shape
+    k = min(params.top_k, h * w)
+    if k > h * (w // 128) * per_chunk:
+        return detection_batch(score_maps, params)
+    vk, ik, _ = fused_topk(score_maps, params, k, per_chunk)
+    return _kpts_from_topk(vk, ik, h, w, params)
+
+
+def fused_topk(score_maps: torch.Tensor, params: DetectParams, k: int,
+               per_chunk: int = 8):
+    """The fused path's exact top-k of [B,H,W] maps: (values [B,k], flat
+    indices [B,k], unsafe: whether the guard sent the batch to the full
+    sort)."""
+    from keypoint_bench_tpu_torch.ops import cuda_nms
+    b, h, w = score_maps.shape
+    nc = (w // 128) * per_chunk
+    nms, v, i = cuda_nms.fast_nms_topk(score_maps, params.nms_dist,
+                                       params.max_nms_iter,
+                                       params.border_dist, per_chunk)
+    vals = v.reshape(b, h * nc)
+    gidx = (torch.arange(h, device=v.device)[None, :, None] * w
+            + i.long()).reshape(b, h * nc)
+    vk, pos = topk_select(vals, k)
+    ik = gidx.gather(1, pos)
+    cutoff = vk[:, k - 1]
+    last = v[:, :, per_chunk - 1::per_chunk]              # [B, H, n_blk]
+    unsafe = bool((last >= cutoff[:, None, None]).any())
+    if unsafe:
+        flat = remove_border(nms.float(), params.border_dist)
+        vk, ik = topk_select(flat.reshape(b, h * w), k)
+    return vk, ik, unsafe
 
 
 def detection(score_map: torch.Tensor, params: DetectParams = DetectParams()):

@@ -10,6 +10,13 @@ RANSAC-H MHA (counterpart of bench.py:98-218 `bench_superpoint_mha`, at
 float32): SuperPoint x2 -> detection_batch (kernel A) -> covisibility warp
 -> mutual_nn_match on descriptors sampled from the 1/8 map (kernel D) or
 LightGlue (kernel E) -> mha_pair.
+
+`lk_fundamental_step`: ALIKE-t -> detection -> pyramidal Lucas-Kanade
+tracking into the next frame -> epipolar error against the ground-truth
+fundamental matrix (counterpart of bench.py:434-446, the step of
+`bench_lk_fund`, at float32): forward of imgs0 only -> detection_batch
+(kernel A) -> optical_flow_batch (kernel F, one launch per level) ->
+fundamental_metrics.
 """
 from __future__ import annotations
 
@@ -17,12 +24,15 @@ import torch
 
 from keypoint_bench_tpu_torch.device import resolve_device
 from keypoint_bench_tpu_torch.geometry.warp import warp_homography
+from keypoint_bench_tpu_torch.models.common import to_float_image
 from keypoint_bench_tpu_torch.models.lightglue import lightglue_match
 from keypoint_bench_tpu_torch.ops.detect import DetectParams, detection_batch
+from keypoint_bench_tpu_torch.ops.lk import LKParams, optical_flow_batch
 from keypoint_bench_tpu_torch.ops.matching import (brute_force_match,
                                                    mutual_nn_match, take_rows)
 from keypoint_bench_tpu_torch.ops.sparse_desc import \
     alike_sparse_descriptors_cm_batch_yorder
+from keypoint_bench_tpu_torch.tasks.fundamental import fundamental_metrics
 from keypoint_bench_tpu_torch.tasks.mha import mha_pair
 
 MATCHERS = ("brute_force", "light_glue")
@@ -127,3 +137,32 @@ def superpoint_mha_step(model, imgs0, imgs1, Hs, Hinvs,
     hits = mha_pair(m0, m1, ok, Hs, w, h, h, w, generator,
                     thresholds=thresholds, n_hyp=n_hyp)
     return hits, m0, m1, ok
+
+
+@torch.inference_mode()
+def lk_fundamental_step(model, params: dict, imgs0, imgs1, Fs,
+                        generator: torch.Generator,
+                        detect_params: DetectParams, lk: LKParams,
+                        th: float = 3.0,
+                        device: str | torch.device = "cuda"):
+    """B consecutive-frame pairs imgs0/imgs1 [B,H,W,3] (float in [0,1] or
+    uint8) with ground-truth Fs [B,3,3] (x1^T F x0 = 0) -> (metrics: dict
+    of fundamental_error, fundamental_radio, fundamental_num, each [B];
+    k0 [B,K,3]; valid [B,K]; tracked [B,K,2]). The keypoints of imgs0 are
+    tracked into imgs1 from their own positions; the start jitter's angles
+    come from `generator` (on `device`). The model and params must already
+    be on `device`."""
+    dev = resolve_device(device)
+    _check_weights(params, dev)
+    imgs0 = to_float_image(torch.as_tensor(imgs0, device=dev))
+    imgs1 = to_float_image(torch.as_tensor(imgs1, device=dev))
+    Fs = torch.as_tensor(Fs, dtype=torch.float32, device=dev)
+    h, w = imgs0.shape[1], imgs0.shape[2]
+    score, _ = model(imgs0)
+    k0, v0 = detection_batch(score, detect_params)
+    tracked, _ = optical_flow_batch(imgs0, imgs1, k0[:, :, 0:2],
+                                    k0[:, :, 0:2], generator, lk)
+    scale = torch.tensor([w - 1.0, h - 1.0], device=dev)
+    out = fundamental_metrics(k0[:, :, 0:2] * scale, tracked * scale, v0,
+                              Fs, th)
+    return out, k0, v0, tracked

@@ -1,10 +1,13 @@
 """Evaluation orchestrator (counterpart of keypoint_bench_tpu/runner.py).
 
 Ported so far: the per-pair repeatability and MHA loops on homography
-pairs (`_run_repeatability`, `_run_mha` and their per-pair records), with
-the brute-force and LightGlue matchers (`_match`, deterministic LightGlue
-only). Other tasks and matchers, adaptive LightGlue, the resume journal,
-bf16 and the sharded batch paths raise NotImplementedError (ROADMAP.md).
+pairs (`_run_repeatability`, `_run_mha` and their per-pair records), and
+the sequence tasks FundamentalMatrix (per pair and `task_params.pipelined`)
+and FundamentalMatrixRansac, with the brute-force, LightGlue (deterministic
+only), optical_flow and optical_flow_cv matchers (`_match`). Other tasks,
+adaptive LightGlue, the LETNet / GoodPoint flow sources, save_images, the
+resume journal, bf16 and the sharded batch paths raise NotImplementedError
+(ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -20,9 +23,20 @@ from keypoint_bench_tpu_torch.datasets import get_dataset
 from keypoint_bench_tpu_torch.device import resolve_device
 from keypoint_bench_tpu_torch.geometry.warp import warp_points
 from keypoint_bench_tpu_torch.models import get_model
+from keypoint_bench_tpu_torch.models.common import to_float_image
 from keypoint_bench_tpu_torch.models.lightglue import lightglue_match
-from keypoint_bench_tpu_torch.ops.detect import DetectParams, detection
-from keypoint_bench_tpu_torch.ops.matching import brute_force_match
+from keypoint_bench_tpu_torch.ops.detect import (DetectParams, detection,
+                                                 detection_batch)
+from keypoint_bench_tpu_torch.ops.grid_sample import sample_at_points
+from keypoint_bench_tpu_torch.ops.lk import (LKParams, optical_flow,
+                                             optical_flow_batch,
+                                             optical_flow_cv)
+from keypoint_bench_tpu_torch.ops.matching import (brute_force_match,
+                                                   mutual_nn_match, take_rows)
+from keypoint_bench_tpu_torch.ops.sparse_desc import \
+    alike_sparse_descriptors_cm_batch
+from keypoint_bench_tpu_torch.tasks.fundamental import (
+    fundamental_metrics, fundamental_ransac_ratio)
 from keypoint_bench_tpu_torch.tasks.mha import mha_pair
 from keypoint_bench_tpu_torch.tasks.repeatability import repeatability_pair
 from keypoint_bench_tpu_torch.weights import load_params
@@ -69,6 +83,11 @@ _LIGHTGLUE_WEIGHTS = {"SuperPoint": "lightglue_superpoint",
                       "Alike_s2d": "lightglue_aliked"}
 
 
+_MATCHERS = ("brute_force", "light_glue", "optical_flow", "optical_flow_cv")
+# models that track on their 3-channel local descriptor maps
+_DESC_FLOW_MODELS = ("LETNet", "GoodPoint")
+
+
 def _not_ported(what: str):
     return NotImplementedError(
         f"{what} is not ported to keypoint_bench_tpu_torch yet (ROADMAP.md, "
@@ -97,6 +116,7 @@ class Evaluator:
         self.desc_scale = 8 if cfg.model_type == "SuperPoint" else 1
         self.generator = torch.Generator(device=self.device).manual_seed(
             cfg.seed)
+        self._seq_cache = None      # (batch, (frame, detections)) of _seq_maps
 
     def _init_matcher(self, cfg: EvalConfig):
         """The JAX runner's matcher set-up: light_glue without weights or
@@ -104,10 +124,17 @@ class Evaluator:
         asks for brute force (and results are tagged matcher_fallback)."""
         mp = cfg.matcher_params
         self.matcher_type = mp.get("type", "brute_force")
-        if self.matcher_type not in ("brute_force", "light_glue"):
+        if self.matcher_type not in _MATCHERS:
             raise _not_ported(f"matcher {self.matcher_type!r}")
         self.bf_max_distance = float(mp.get("brute_force_params", {}).get(
             "max_distance", 5.0))
+        of = mp.get("optical_flow_params", {})
+        # `interation` is the reference config's own spelling
+        self.lk_params = LKParams(
+            distance=float(of.get("distance", 3)),
+            win_size=int(of.get("win_size", 3)),
+            levels=int(of.get("levels", 1)),
+            iterations=int(of.get("interation", of.get("iterations", 40))))
         self.lightglue_params = None
         self.matcher_fallback = None
         if self.matcher_type != "light_glue":
@@ -140,14 +167,42 @@ class Evaluator:
         self.matcher_fallback = "brute_force"
 
     @torch.inference_mode()
-    def detect(self, image: np.ndarray):
-        """One HWC image (float in [0,1] or uint8) -> (score [H,W,1],
-        desc map [H/s,W/s,D], kpts [K,3], valid [K])."""
-        img = torch.as_tensor(np.ascontiguousarray(image),
-                              device=self.device)
+    def detect(self, image):
+        """One HWC image (float in [0,1] or uint8; numpy, or a tensor on
+        the device) -> (score [H,W,1], desc map [H/s,W/s,D], kpts [K,3],
+        valid [K])."""
+        img = image if isinstance(image, torch.Tensor) else torch.as_tensor(
+            np.ascontiguousarray(image), device=self.device)
         score, desc = self.model(img[None])
         kpts, valid = detection(score[0], self.detect_params)
         return score[0], desc[0], kpts, valid
+
+    @torch.inference_mode()
+    def detect_many(self, images: list, chunk: int = 8,
+                    sparse: bool = False):
+        """Batched detection over equal-shape images (the pipelined
+        runners' detect phase): one batched forward + detection_batch per
+        chunk. uint8 frames go to the device as they are and are normalized
+        there. Returns stacked (scores [n,H,W,1], descs, kpts [n,K,3],
+        valids [n,K]), equal to per-frame `detect`. descs is the dense map
+        [n,H/s,W/s,D], or with sparse=True (Alike_s2d) the per-keypoint
+        vectors [n,K,64] from the sparse sampler (kernel B on CUDA), with
+        no dense descriptor map ever built."""
+        parts = []
+        for i0 in range(0, len(images), chunk):
+            imgs = torch.as_tensor(np.stack(images[i0:i0 + chunk]),
+                                   device=self.device)
+            if sparse:
+                h, w = imgs.shape[1], imgs.shape[2]
+                score, feats = self.model.feats(imgs)
+                kpts, valid = detection_batch(score, self.detect_params)
+                desc = alike_sparse_descriptors_cm_batch(
+                    self.params, feats, kpts, h, w)
+            else:
+                score, desc = self.model(imgs)
+                kpts, valid = detection_batch(score, self.detect_params)
+            parts.append((score, desc, kpts, valid))
+        return tuple(torch.cat([p[j] for p in parts]) for j in range(4))
 
     def _warp(self, kpts, valid, wp):
         if wp["mode"] != "homo":
@@ -155,12 +210,29 @@ class Evaluator:
         return warp_points(kpts, valid, wp)
 
     @torch.inference_mode()
-    def _match(self, kpts0, valid0, kpts1, valid1, desc0, desc1, w, h):
-        """(m_pts0 [K,3], m_pts1 [K,3], mask [K]) in normalized coords."""
+    def _match(self, kpts0, valid0, kpts1, valid1, desc0, desc1, w, h,
+               imgs=None):
+        """(m_pts0 [K,3], m_pts1 [K,>=2], mask [K]) in normalized coords.
+        The optical-flow matchers track kpts0 from imgs[0] into imgs[1]
+        (float [H,W,C] tensors)."""
         if self.lightglue_params is not None:
             return lightglue_match(self.lightglue_params, kpts0, valid0,
                                    kpts1, valid1, desc0, desc1, w, h,
                                    self.desc_scale)
+        src0, src1 = imgs if imgs is not None else (desc0, desc1)
+        if self.matcher_type == "optical_flow":
+            tracked, _ = optical_flow(src0, src1, kpts0[:, 0:2],
+                                      kpts0[:, 0:2], self.generator,
+                                      self.lk_params)
+            return kpts0, tracked, valid0
+        if self.matcher_type == "optical_flow_cv":
+            # cv2's LK on the host with its status filter
+            tracked, status = optical_flow_cv(
+                src0.cpu().numpy(), src1.cpu().numpy(), kpts0.cpu().numpy(),
+                kpts0.cpu().numpy(), win_size=self.lk_params.win_size,
+                levels=self.lk_params.levels)
+            return kpts0, torch.as_tensor(tracked, device=self.device), \
+                valid0 & torch.as_tensor(status == 1, device=self.device)
         return brute_force_match(kpts0, valid0, kpts1, valid1, desc0, desc1,
                                  self.bf_max_distance)
 
@@ -168,7 +240,10 @@ class Evaluator:
         ds = get_dataset(self.cfg.data_params)
         task = self.cfg.task_type
         fn = {"repeatability": self._run_repeatability,
-              "MHA": self._run_mha}.get(task)
+              "MHA": self._run_mha,
+              "FundamentalMatrix": self._run_fundamental,
+              "FundamentalMatrixRansac": self._run_fundamental_ransac,
+              }.get(task)
         if fn is None:
             raise _not_ported(f"task_type {task!r}")
         results = fn(ds)
@@ -250,6 +325,157 @@ class Evaluator:
             print("MHA ", v)
         result["per_pair"] = [list(map(float, h)) for h in hits]
         return result
+
+    def _iter_sequence(self, ds):
+        """Frame-delay pairing for sequence datasets: yields (prev_batch,
+        batch), starting with (b0, b0)."""
+        last = None
+        for batch in _iter(ds):
+            if last is None:
+                last = batch
+            yield last, batch
+            last = batch
+
+    def _frame(self, batch) -> torch.Tensor:
+        """A sequence frame on the device as float [H,W,C]; uint8 frames
+        are normalized (the JAX per-pair path's missing /255 is not
+        copied)."""
+        return to_float_image(torch.as_tensor(
+            np.ascontiguousarray(batch["image0"]), device=self.device))
+
+    def _seq_maps(self, last, cur):
+        """Detections of (prev, cur); the prev frame's come from a one-frame
+        cache filled by the previous step."""
+        if self._seq_cache is not None and self._seq_cache[0] is last:
+            img0, maps0 = self._seq_cache[1]
+        else:
+            img0 = self._frame(last)
+            maps0 = self.detect(img0)
+        img1 = self._frame(cur)
+        maps1 = self.detect(img1)
+        self._seq_cache = (cur, (img1, maps1))
+        return (img0, img1, *maps0, *maps1)
+
+    def _flow_sources(self, img0, img1, d0, d1):
+        """LK tracks on the raw images, except for the models that track
+        on their 3-channel local descriptor maps."""
+        if self.cfg.model_type in _DESC_FLOW_MODELS:
+            raise _not_ported(f"optical flow on {self.cfg.model_type} "
+                              f"descriptor maps")
+        return img0, img1
+
+    def _fundamental_result(self, errs, radios, nums):
+        result = {
+            "fundamental_error": float(np.mean(errs)),
+            "fundamental_radio": float(np.mean(radios)),
+            "fundamental_num": float(np.mean(nums)),
+            "per_frame_error": [float(e) for e in errs],
+        }
+        print("fundamental_error", result["fundamental_error"],
+              " fundamental_radio", result["fundamental_radio"],
+              " fundamental_num", result["fundamental_num"])
+        return result
+
+    @torch.inference_mode()
+    def _run_fundamental_pipelined(self, ds):
+        """Batched FundamentalMatrix (task_params.pipelined): one detection
+        pass over all frames, then every consecutive pair's track or match
+        and its epipolar metric as one batch on the device. Serves
+        optical_flow (kernel F) and brute_force (kernel D)."""
+        if self.matcher_type not in ("optical_flow", "brute_force"):
+            raise ValueError(f"the pipelined FundamentalMatrix run serves "
+                             f"optical_flow and brute_force, not "
+                             f"{self.matcher_type!r}")
+        th = float(self.cfg.task_params.get("th", 3.0))
+        items = list(_iter(ds))
+        raw = [np.asarray(b["image0"]) for b in items]
+        Fs = torch.as_tensor(np.stack([np.asarray(b["fundamental"])
+                                       for b in items]),
+                             dtype=torch.float32, device=self.device)
+        sparse = (self.cfg.model_type == "Alike_s2d"
+                  and self.matcher_type != "optical_flow"
+                  and bool(self.cfg.task_params.get("sparse_desc", True)))
+        _, descs, kpts, valids = self.detect_many(raw, sparse=sparse)
+        h, w = raw[0].shape[:2]
+        scale = torch.tensor([w - 1.0, h - 1.0], device=self.device)
+
+        def shift1(x):
+            """The previous frame's operand of every frame (frame 0 pairs
+            with itself)."""
+            return torch.cat([x[:1], x[:-1]])
+
+        k0 = shift1(kpts)[:, :, 0:2]
+        if self.matcher_type == "optical_flow":
+            frames = to_float_image(torch.as_tensor(np.stack(raw),
+                                                    device=self.device))
+            src0, src1 = self._flow_sources(shift1(frames), frames,
+                                            shift1(descs), descs)
+            tracked, _ = optical_flow_batch(src0, src1, k0, k0,
+                                            self.generator, self.lk_params)
+            out = fundamental_metrics(k0 * scale, tracked * scale,
+                                      shift1(valids), Fs, th)
+        else:
+            d0, d1 = shift1(descs), descs
+            if not sparse:
+                d0 = sample_at_points(d0, shift1(kpts))
+                d1 = sample_at_points(d1, kpts)
+            nn01, ok = mutual_nn_match(d0, d1, shift1(valids), valids,
+                                       self.bf_max_distance)
+            k1 = take_rows(kpts, nn01)[:, :, 0:2]
+            out = fundamental_metrics(k0 * scale, k1 * scale, ok, Fs, th)
+        return self._fundamental_result(
+            out["fundamental_error"].cpu().numpy(),
+            out["fundamental_radio"].cpu().numpy(),
+            out["fundamental_num"].cpu().numpy())
+
+    @torch.inference_mode()
+    def _run_fundamental(self, ds):
+        if self.cfg.task_params.get("save_images"):
+            raise _not_ported("task_params.save_images")
+        if self.cfg.task_params.get("pipelined"):
+            return self._run_fundamental_pipelined(ds)
+        th = float(self.cfg.task_params.get("th", 3.0))
+        errs, radios, nums = [], [], []
+        for last, batch in self._iter_sequence(ds):
+            img0, img1, s0, d0, k0, v0, s1, d1, k1, v1 = \
+                self._seq_maps(last, batch)
+            h, w = img1.shape[0], img1.shape[1]
+            if self.matcher_type in ("optical_flow", "optical_flow_cv"):
+                m0, m1, ok = self._match(
+                    k0, v0, k1, v1, d0, d1, w, h,
+                    imgs=self._flow_sources(img0, img1, d0, d1))
+            else:
+                m0, m1, ok = self._match(k0, v0, k1, v1, d0, d1, w, h)
+            scale = torch.tensor([w - 1.0, h - 1.0], device=self.device)
+            F = torch.as_tensor(np.asarray(batch["fundamental"]),
+                                dtype=torch.float32, device=self.device)
+            out = fundamental_metrics(m0[:, 0:2] * scale, m1[:, 0:2] * scale,
+                                      ok, F, th)
+            errs.append(float(out["fundamental_error"]))
+            radios.append(float(out["fundamental_radio"]))
+            nums.append(int(out["fundamental_num"]))
+        return self._fundamental_result(errs, radios, nums)
+
+    @torch.inference_mode()
+    def _run_fundamental_ransac(self, ds):
+        radios = []
+        for batch in _iter(ds):
+            img0, _, _, d0, k0, v0, _, d1, k1, v1 = self._pair_maps(batch)
+            h, w = img0.shape[0], img0.shape[1]
+            m0, m1, ok = self._match(k0, v0, k1, v1, d0, d1, w, h)
+            scale = torch.tensor([w - 1.0, h - 1.0], device=self.device)
+            out = fundamental_ransac_ratio(m0[:, 0:2] * scale,
+                                           m1[:, 0:2] * scale, ok,
+                                           self.generator)
+            radios.append(float(out["fundamental_radio"]))
+        result = {"fundamental_radio": float(np.mean(radios))}
+        print("fundamental_radio", result["fundamental_radio"])
+        return result
+
+
+def _iter(ds):
+    for i in range(len(ds)):
+        yield ds[i]
 
 
 def run_eval(config: dict | EvalConfig,

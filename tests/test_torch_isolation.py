@@ -11,9 +11,10 @@ import numpy as np
 import pytest
 import torch
 
-from keypoint_bench_tpu_torch.ops import (_build, cuda_attention, cuda_match,
-                                          cuda_nms, cuda_sample)
-from keypoint_bench_tpu_torch.ops.detect import fast_nms
+from keypoint_bench_tpu_torch.ops import (_build, cuda_attention, cuda_lk,
+                                          cuda_match, cuda_nms, cuda_sample)
+from keypoint_bench_tpu_torch.ops.detect import fast_nms, peel_topk
+from keypoint_bench_tpu_torch.ops.lk import _lk_level
 from keypoint_bench_tpu_torch.ops.sparse_desc import sample_branches
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -80,7 +81,9 @@ def _default_device_calls(tmp_path):
     from keypoint_bench_tpu_torch.device import resolve_device
     from keypoint_bench_tpu_torch.models import get_model
     from keypoint_bench_tpu_torch.ops.detect import DetectParams
-    from keypoint_bench_tpu_torch.pipeline import extract_match
+    from keypoint_bench_tpu_torch.ops.lk import LKParams
+    from keypoint_bench_tpu_torch.pipeline import (extract_match,
+                                                   lk_fundamental_step)
     from keypoint_bench_tpu_torch.runner import EvalConfig, Evaluator
     from keypoint_bench_tpu_torch.weights import load_params
     cfg = {"model_type": "Alike", "task_type": "repeatability",
@@ -95,13 +98,18 @@ def _default_device_calls(tmp_path):
         "resolve_device": lambda: resolve_device(),
         "extract_match": lambda: extract_match(
             get_model("Alike")(params), params, imgs, imgs, DetectParams()),
+        "lk_fundamental_step": lambda: lk_fundamental_step(
+            get_model("Alike")(params), params, imgs, imgs,
+            np.zeros((1, 3, 3), np.float32), torch.Generator(),
+            DetectParams(), LKParams()),
         "Evaluator": lambda: Evaluator(EvalConfig.from_dict(cfg)),
         "cli": lambda: cli.main(["-c", str(cfg_path)]),
     }
 
 
 @pytest.mark.parametrize("entry", ["resolve_device", "extract_match",
-                                   "Evaluator", "cli"])
+                                   "lk_fundamental_step", "Evaluator",
+                                   "cli"])
 def test_default_device_raises_without_cuda(tmp_path, entry):
     if torch.cuda.is_available():
         pytest.skip("this host has CUDA")
@@ -132,29 +140,55 @@ def _attention_args():
             torch.rand(8, 20, 64), torch.rand(8, 20) > 0.5)
 
 
+def _peel_args():
+    return (torch.rand(2, 16, 256), 4, 8)
+
+
+def _lk_args():
+    return (torch.rand(2, 32, 40, 3), torch.rand(2, 32, 40, 3),
+            torch.rand(2, 6, 2) * 30, torch.rand(2, 6, 2) * 30, 5, 3)
+
+
+def _kernel_of(mod, launch):
+    return mod.PEEL_KERNEL if launch is cuda_nms.peel_cuda else mod.KERNEL
+
+
 @pytest.mark.parametrize("mod,launch,args", [
     (cuda_nms, cuda_nms.nms_cuda, _nms_args),
+    (cuda_nms, cuda_nms.peel_cuda, _peel_args),
+    (cuda_lk, cuda_lk.lk_level_cuda, _lk_args),
     (cuda_sample, cuda_sample.sample_cuda, _sample_args),
     (cuda_match, cuda_match.nn_dists_cuda, _match_args),
     (cuda_attention, cuda_attention.attention_cuda, _attention_args)])
 def test_failed_build_raises_on_the_kernel_path(monkeypatch, mod, launch,
                                                 args):
+    kernel = _kernel_of(mod, launch)
     monkeypatch.setattr(_build, "build", _failing_build)
-    monkeypatch.setattr(mod.KERNEL, "_fn", None)
-    before = mod.KERNEL.launches
+    monkeypatch.setattr(kernel, "_fn", None)
+    before = kernel.launches
     with pytest.raises(RuntimeError, match="failed"):
         launch(*args())
-    assert mod.KERNEL.launches == before
+    assert kernel.launches == before
 
 
 def test_cpu_tensors_take_the_plain_twin_without_building(monkeypatch):
     monkeypatch.setattr(_build, "build", _failing_build)
     monkeypatch.setattr(cuda_nms.KERNEL, "_fn", None)
     monkeypatch.setattr(cuda_sample.KERNEL, "_fn", None)
-    before = (cuda_nms.KERNEL.launches, cuda_sample.KERNEL.launches)
+    monkeypatch.setattr(cuda_nms.PEEL_KERNEL, "_fn", None)
+    monkeypatch.setattr(cuda_lk.KERNEL, "_fn", None)
+    kernels = (cuda_nms.KERNEL, cuda_sample.KERNEL, cuda_nms.PEEL_KERNEL,
+               cuda_lk.KERNEL)
+    before = [k.launches for k in kernels]
     maps, d = _nms_args()
     assert torch.equal(cuda_nms.nms_fixpoint(maps, d), fast_nms(maps, d))
     args = _sample_args()
     assert torch.equal(cuda_sample.fused_samples_batch(*args),
                        sample_branches(*args))
-    assert (cuda_nms.KERNEL.launches, cuda_sample.KERNEL.launches) == before
+    peel = _peel_args()
+    got = cuda_nms.peel_candidates(*peel)
+    want = peel_topk(*peel)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    lk = _lk_args()
+    assert torch.equal(cuda_lk.lk_level(*lk), _lk_level(*lk))
+    assert [k.launches for k in kernels] == before

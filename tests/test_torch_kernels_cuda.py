@@ -12,6 +12,11 @@ float descriptors indices are equal except at near ties (the two
 candidates' distances within 1e-5 of |a|^2 + |b|^2) and distances agree
 within 1e-5 of that scale. Kernel E (attention) within 1e-5 absolute and
 relative of the plain twin (online softmax, another summation order).
+Kernel F (one LK level) within 5e-3 px of the plain `_lk_level` after 8
+iterations (another summation order of the five sums, amplified by the
+Gauss-Newton steps; the JAX package's tolerance between its kernel and
+`_lk_level`). Kernel C (the peel) only compares and selects: bit-equal
+values, equal indices.
 """
 import numpy as np
 import pytest
@@ -19,11 +24,15 @@ import scipy.ndimage as ndi
 import torch
 
 from keypoint_bench_tpu_torch.models import lightglue as tlg
-from keypoint_bench_tpu_torch.ops import (cuda_attention, cuda_match,
-                                          cuda_nms, cuda_sample)
+from keypoint_bench_tpu_torch.ops import (cuda_attention, cuda_lk,
+                                          cuda_match, cuda_nms, cuda_sample)
+from keypoint_bench_tpu_torch.ops import lk as tlk
 from keypoint_bench_tpu_torch.ops.attention import fused_attention
 from keypoint_bench_tpu_torch.ops.detect import (DetectParams,
-                                                 detection_batch, fast_nms)
+                                                 detection_batch,
+                                                 detection_batch_fused,
+                                                 fast_nms, fused_topk,
+                                                 peel_topk)
 from keypoint_bench_tpu_torch.ops.matching import (mutual_nn_fused,
                                                    mutual_nn_match, nn_dists)
 from keypoint_bench_tpu_torch.ops.sparse_desc import sample_branches
@@ -262,3 +271,146 @@ def test_lightglue_on_card_matches_golden_and_cpu(dev):
     assert (m0.cpu().numpy() == g["matches0"][0]).mean() >= 0.97
     _, ms_cpu, _ = tlg.lightglue_forward(params, *args)
     torch.testing.assert_close(ms.cpu(), ms_cpu, atol=1e-4, rtol=0)
+
+
+def _lk_images(b, h, w, c, seed):
+    rng = np.random.default_rng(seed)
+    base = rng.random((b, h // 4, w // 4, c)).astype(np.float32)
+    img1 = ndi.gaussian_filter(np.kron(base, np.ones((1, 4, 4, 1),
+                                                     np.float32)),
+                               (0, 1.0, 1.0, 0))
+    return torch.from_numpy(img1), torch.from_numpy(
+        np.roll(img1, (1, -2), axis=(1, 2)))
+
+
+def _lk_points(kind, b, n, h, w, seed):
+    rng = np.random.default_rng(seed)
+    if kind == "interior":
+        p = rng.uniform(12, min(h, w) - 12, (b, n, 2))
+    elif kind == "border":
+        # within 3 px of a border or a corner, inside and outside
+        p = np.stack([rng.uniform(-3, w + 2, (b, n)),
+                      rng.uniform(-3, h + 2, (b, n))], -1)
+        side = rng.integers(0, 4, (b, n))
+        near = rng.uniform(-3, 3, (b, n))
+        p[..., 0] = np.where(side == 0, near, np.where(side == 1,
+                                                       w - 1 + near,
+                                                       p[..., 0]))
+        p[..., 1] = np.where(side == 2, near, np.where(side == 3,
+                                                       h - 1 + near,
+                                                       p[..., 1]))
+    else:   # far off the image: the window-start clamp
+        p = np.stack([rng.uniform(-60, w + 60, (b, n)),
+                      rng.uniform(-60, h + 60, (b, n))], -1)
+    return torch.from_numpy(p.astype(np.float32))
+
+
+@pytest.mark.parametrize("c", [1, 3])
+@pytest.mark.parametrize("win", [3, 5, 11, 21])
+@pytest.mark.parametrize("kind", ["interior", "border", "off"])
+def test_lk_kernel_matches_plain_level(dev, kind, win, c):
+    b, n, h, w = 2, 200, 64, 80
+    img1, img2 = _lk_images(b, h, w, c, win)
+    pts1 = _lk_points(kind, b, n, h, w, 3)
+    pts2 = pts1 + torch.from_numpy(np.random.default_rng(4).uniform(
+        -2, 2, pts1.shape).astype(np.float32))
+    args = [t.to(dev) for t in (img1, img2, pts1, pts2)]
+    before = cuda_lk.KERNEL.launches
+    got = cuda_lk.lk_level(*args, win, 8)
+    assert cuda_lk.KERNEL.launches == before + 1
+    want = tlk._lk_level(*args, win, 8)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    err = (got - want).abs()
+    if kind == "interior":
+        assert float(err.max()) <= 5e-3, float(err.max())
+    else:
+        # a window that is mostly off the image leaves a near-singular
+        # system, where rounding decides the step: hold all but 1%
+        assert float((err <= 5e-3).float().mean()) >= 0.99
+    # zero iterations give the start back
+    assert torch.equal(cuda_lk.lk_level(*args, win, 0), args[3])
+
+
+def test_lk_kernel_shape_rules(dev):
+    img = torch.zeros(1, 32, 32, 3, device=dev)
+    pts = torch.zeros(1, 4, 2, device=dev)
+    for bad in (4, 1):                      # even, below 3
+        with pytest.raises(ValueError):
+            cuda_lk.lk_level_cuda(img, img, pts, pts, bad, 2)
+    with pytest.raises(ValueError):         # shared memory: 31^2 * 16 taps
+        cuda_lk.lk_level_cuda(torch.zeros(1, 64, 64, 16, device=dev),
+                              torch.zeros(1, 64, 64, 16, device=dev), pts,
+                              pts, 31, 2)
+    with pytest.raises(ValueError):
+        cuda_lk.lk_level_cuda(img, img.double(), pts, pts, 3, 2)
+    assert cuda_lk.lk_level_cuda(img, img, pts[:, :0], pts[:, :0], 3,
+                                 2).shape == (1, 0, 2)
+
+
+def test_optical_flow_batch_on_card_matches_plain(dev):
+    """Three levels through kernel F against the plain levels, same
+    angles: 99% of the points within 1e-2 px."""
+    b, n, s = 2, 300, 256
+    img1, img2 = _lk_images(b, s, s, 3, 9)
+    pts = torch.from_numpy(np.random.default_rng(5).uniform(
+        0.05, 0.95, (b, n, 2)).astype(np.float32))
+    ang = torch.from_numpy(np.random.default_rng(6).normal(
+        0, 6.28, (b, n)).astype(np.float32))
+    p = tlk.LKParams(distance=10.0, win_size=21, levels=3, iterations=20)
+    args = [t.to(dev) for t in (img1, img2, pts, pts, ang)]
+    got, err = tlk.optical_flow_batch_from_angles(*args, p)
+    want, _ = tlk.optical_flow_batch_from_angles(
+        *[t.cpu() for t in args], p)
+    d = (got.cpu() - want).abs().amax(-1) * (s - 1)
+    assert float((d <= 1e-2).float().mean()) >= 0.99
+    assert float(err.max()) <= 8.0
+
+
+def _peel_maps(kind, shape, seed):
+    if kind == "ties":
+        return _maps("ties_bf16", shape, seed).float()
+    m = _maps("smooth" if kind != "random" else "random", shape, seed)
+    if kind == "sparse":
+        return torch.where(m > m.flatten().quantile(0.97), m,
+                           torch.zeros_like(m))
+    return m
+
+
+@pytest.mark.parametrize("per_chunk", [1, 8, 32])
+@pytest.mark.parametrize("kind", ["smooth", "random", "ties", "sparse"])
+def test_peel_kernel_equals_plain(dev, kind, per_chunk):
+    maps = _peel_maps(kind, (3, 37, 384), per_chunk).to(dev)
+    before = cuda_nms.PEEL_KERNEL.launches
+    v, i = cuda_nms.peel_candidates(maps, 4, per_chunk)
+    assert cuda_nms.PEEL_KERNEL.launches == before + 1
+    pv, pi = peel_topk(maps, 4, per_chunk)
+    assert v.dtype == torch.float32 and i.dtype == torch.int32
+    assert torch.equal(v, pv) and torch.equal(i, pi)
+    cv, ci = peel_topk(maps.cpu(), 4, per_chunk)
+    assert torch.equal(v.cpu(), cv) and torch.equal(i.cpu(), ci)
+
+
+def test_peel_kernel_minus_inf_and_rules(dev):
+    m = torch.full((1, 8, 128), -torch.inf, device=dev)
+    m[0, :, 40] = 0.25
+    m[0, 3, 7] = 0.5
+    v, i = cuda_nms.peel_cuda(m, 0, 4)
+    pv, pi = peel_topk(m, 0, 4)
+    assert torch.equal(v, pv) and torch.equal(i, pi)
+    assert i[0, 3].tolist() == [7, 40, 0, 0]      # -inf stays the lowest
+    for shape, pc in (((1, 8, 100), 8), ((1, 8, 2176), 8), ((1, 8, 128), 0)):
+        with pytest.raises(ValueError):
+            cuda_nms.peel_cuda(torch.zeros(shape, device=dev), 2, pc)
+    with pytest.raises(ValueError):
+        cuda_nms.peel_cuda(torch.zeros(1, 8, 128, device=dev).double(), 2, 8)
+
+
+@pytest.mark.parametrize("kind,unsafe", [("smooth", False), ("ties", True)])
+def test_fused_detection_on_card_equals_unfused(dev, kind, unsafe):
+    maps = _peel_maps(kind, (4, 128, 256), 21).to(dev)
+    dp = DetectParams(nms_dist=2 if unsafe else 4, border_dist=8, top_k=300)
+    fk, fv = detection_batch_fused(maps, dp)
+    pk, pv = detection_batch(maps, dp)
+    assert torch.equal(fk, pk) and torch.equal(fv, pv)
+    assert fused_topk(maps, dp, 300)[2] == unsafe

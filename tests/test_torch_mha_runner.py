@@ -162,7 +162,7 @@ def test_lightglue_without_weights_raises_or_falls_back(tmp_path):
     ({"matcher_params": {"type": "light_glue",
                          "light_glue_params": {"adaptive": True}}},
      "adaptive"),
-    ({"matcher_params": {"type": "optical_flow"}}, "optical_flow"),
+    ({"task_type": "visual_odometer"}, "visual_odometer"),
     ({"data_params": {"type": "synthetic_homography", "num_pairs": 2,
                       "image_size": S, "batch_size": 2}}, "sharded"),
     ({"task_type": "AUC"}, "AUC")])
