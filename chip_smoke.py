@@ -3,7 +3,8 @@
 
 Phases, each fatal on failure:
   1. the card's name and power limit; build the six CUDA kernels from
-     keypoint_bench_tpu_torch/csrc with nvcc, in parallel;
+     keypoint_bench_tpu_torch/csrc with nvcc, in parallel, and print what
+     `-Xptxas -v` says of kernels E and F (registers, shared memory, spills);
   2. the ALIKE-t and SuperPoint forwards on the card vs the CPU at 128^2
      (atol 1e-4, f32 with TF32 off on both);
   3. kernel A (NMS fixpoint) vs its plain twin on real ALIKE-t score maps
@@ -24,7 +25,9 @@ Phases, each fatal on failure:
      distances within 1e-5 of |a|^2 + |b|^2), distances within 1e-4 of it;
   8. kernel E (masked attention) vs its plain twin within 1e-5 absolute
      and relative: 8 pairs x 2 sides x 4 heads at K = 1000 for both scales,
-     all keys invalid (finite and uniform), n != m off the tile size;
+     all keys invalid (finite and uniform), n != m off the tile size; timed
+     in turns with scaled_dot_product_attention (kernel, library, library,
+     kernel);
   9. `superpoint_mha_step` at 512^2, nms 6, border 8, top_k 1000,
      max_distance 5, n_hyp 512 with brute force (16 pairs) and with
      LightGlue (8 pairs), launch counts reset just before each: matches
@@ -36,7 +39,8 @@ Phases, each fatal on failure:
  10. the port's Evaluator: MHA with SuperPoint + light_glue on 4 synthetic
      pairs at 512^2 from golden weights staged under output/, equal to the
      plain-twin run;
- 11. kernel E timed alone at K = 4096;
+ 11. kernel E timed alone at K = 4096, in turns with the library call,
+     whose device kernels are named from a profiled call;
  12. kernel F (one LK level) vs the plain `_lk_level` on 8 pairs of
      consecutive synthetic-sequence frames at 512^2, K = 1000: per level
      from the same start at 8 iterations, win 21 and win 3, on ALIKE-t's
@@ -46,6 +50,9 @@ Phases, each fatal on failure:
      protocol (3 levels x 40
      iterations, distance 10, same angles): at least 99% of the points
      within 1e-2 px of the plain run, the rest printed with their det;
+     then each level timed from the starts the protocol gives it, in turns
+     with the plain version, with the share of iterations that loaded a
+     window;
  13. `lk_fundamental_step` (ALIKE-t -> detection -> LK 21 / 3 / 40 / 10 ->
      epipolar error) on those 8 pairs, launch counts reset just before it:
      keypoints equal to the plain-twin step, per-pair error within 1e-3
@@ -66,6 +73,7 @@ Exits non-zero without CUDA, or without the port's package beside it.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import json
 import os
 import statistics
@@ -111,6 +119,37 @@ def cuda_ms(fn, iters=10, warmup=2):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def in_turns(fn, other, iters=10, other_iters=5):
+    """(ms of fn, ms of other, the four readings): fn, other, other, fn
+    timed one after the other on one card, each the mean of its two."""
+    a1 = cuda_ms(fn, iters=iters)
+    b1 = cuda_ms(other, iters=other_iters, warmup=1)
+    b2 = cuda_ms(other, iters=other_iters, warmup=1)
+    a2 = cuda_ms(fn, iters=iters)
+    return (a1 + a2) / 2, (b1 + b2) / 2, [a1, b1, b2, a2]
+
+
+def ptxas_info(name):
+    """What `nvcc -Xptxas -v` reports for csrc/<name>.cu: the lines that
+    name registers, shared memory, barriers and spills. Compiles to a
+    throw-away cubin next to the built libraries."""
+    from keypoint_bench_tpu_torch.ops import _build
+    os.makedirs(_build.BUILD_DIR, exist_ok=True)
+    out = os.path.join(_build.BUILD_DIR, f"{name}.{os.getpid()}.cubin")
+    flags = [f for f in _build.NVCC_FLAGS
+             if f not in ("-shared", "-Xcompiler", "-fPIC")]
+    proc = subprocess.run(
+        [_build._nvcc(), *flags, "-Xptxas", "-v", "-cubin", "-o", out,
+         os.path.join(_build.CSRC_DIR, f"{name}.cu")],
+        capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc -Xptxas -v failed for {name}.cu:\n"
+                           f"{proc.stdout}{proc.stderr}")
+    os.remove(out)
+    return [ln.strip() for ln in (proc.stdout + proc.stderr).splitlines()
+            if "registers" in ln or "spill" in ln]
 
 
 @contextlib.contextmanager
@@ -324,30 +363,41 @@ def sample_bound(feats, px, py, h, w):
 
 
 def lk_bound(imgs, n, win, levels, iterations):
-    """(ms, bound_by, point-iterations) of kernel F over one
-    optical_flow_batch on imgs [B,H,W,C] with n points per pair: both
-    images of every pyramid level and the points read once, the tracked
-    points written once; per point and iteration, with T = win^2 * C taps
-    and G = (win+1)^2 * C gradient corners:
-      gradients, separable: a 3-tap column (row) sum per corner, one FMA
-        and one add, shared by its neighbours, and one subtraction, for
-        each of dx and dy: 2 FMAs and 4 adds per corner;
-      three bilinear fields: one product and 3 FMAs per tap and field;
-      di and the five sums: one subtraction and 5 FMAs per tap;
-    plus the template patch once per level (one product, 3 FMAs per tap).
+    """(ms, bound_by, point-iterations, ms with the gradients counted in
+    every iteration) of kernel F over one optical_flow_batch on imgs
+    [B,H,W,C] with n points per pair: both images of every pyramid level
+    and the points read once, the tracked points written once; with T =
+    win^2 * C taps and G = (win+1)^2 * C gradient corners:
+      per point and iteration: three bilinear fields, one product and 3
+        FMAs per tap and field; di and the five sums, one subtraction and
+        5 FMAs per tap;
+      per point and level, once: the template patch (one product, 3 FMAs
+        per tap) and the gradients, separable: a 3-tap column (row) sum per
+        corner, one FMA and one add, shared by its neighbours, and one
+        subtraction, for each of dx and dy: 2 FMAs and 4 adds per corner.
+    The gradients depend on the window's integer start alone, and the
+    least an implementation needs is one window per point and level (a
+    start that never moves), so the bound counts them once. The fourth
+    value counts them in every iteration, as this bound did before the
+    kernel cached its windows, so that earlier readings stay comparable.
     FMAs at the f32 FMA rate (2 FLOPs each), the rest at the add rate.
     The iteration count is fixed: no point stops early."""
     b, h, w, c = imgs.shape
     t, g = win * win * c, (win + 1) * (win + 1) * c
-    pt_iters = b * n * levels * iterations
-    fma = pt_iters * (2 * g + 14 * t) + b * n * levels * 3 * t
-    single = pt_iters * (4 * g + 4 * t) + b * n * levels * t
+    pt_levels = b * n * levels
+    pt_iters = pt_levels * iterations
     px = sum((h // 2 ** lv) * (w // 2 ** lv) for lv in range(levels))
-    nbytes = 2 * b * px * c * 4 + levels * 3 * b * n * 2 * 4
-    t_bytes = nbytes / PEAK_BYTES
-    t_ops = 2 * fma / PEAK_F32 + single / PEAK_F32_OPS
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations", pt_iters)
+    t_bytes = (2 * b * px * c * 4 + levels * 3 * b * n * 2 * 4) / PEAK_BYTES
+
+    def t_ops(grad_times):
+        fma = pt_iters * 14 * t + pt_levels * 3 * t + grad_times * 2 * g
+        single = pt_iters * 4 * t + pt_levels * t + grad_times * 4 * g
+        return 2 * fma / PEAK_F32 + single / PEAK_F32_OPS
+
+    once, every = t_ops(pt_levels), t_ops(pt_iters)
+    return (max(t_bytes, once) * 1e3,
+            "bytes" if t_bytes >= once else "operations", pt_iters,
+            max(t_bytes, every) * 1e3)
 
 
 def peel_bound(maps, per_chunk):
@@ -479,10 +529,27 @@ def main() -> int:
     with phase("build kernels (nvcc, parallel)"):
         t0 = time.perf_counter()
         with ThreadPoolExecutor() as pool:
+            info = {n: pool.submit(ptxas_info, n) for n in ("attention",
+                                                            "lk")}
             list(pool.map(_build.build,
                           ["nms", "sample", "match", "attention", "lk",
                            "peel"]))
+            ptxas = {n: f.result() for n, f in info.items()}
         log(f"build: {time.perf_counter() - t0:.1f} s")
+        for name, lines in ptxas.items():
+            for ln in lines:
+                log(f"  ptxas {name}.cu: {ln}")
+        tiles = [ctypes.c_int() for _ in range(3)]
+        ctypes.CDLL(_build.build("attention")).kbt_attention_tiles(
+            *map(ctypes.byref, tiles))
+        bq, bk, att_smem = (t.value for t in tiles)
+        log(f"  kernel E tiles: {bq} query rows x {bk} keys, {att_smem} bytes "
+            f"of dynamic shared memory a block; kernel F: "
+            f"{cuda_lk.smem_bytes(21, 3)} bytes a block at win 21, C 3, "
+            f"{cuda_lk.block_threads(21, 3)} threads")
+        if (bq, bk) != (cuda_attention.BQ, cuda_attention.BK):
+            raise AssertionError("ops/cuda_attention.py BQ, BK differ from "
+                                 "the built kernel's tiles")
 
     params = load_params("Alike", device=dev)
     model = get_model("Alike")(params).eval()
@@ -742,18 +809,27 @@ def main() -> int:
         check_e("n=333, m=517", q2, k2, v2,
                 torch.rand((3, 1, 517), device=dev, generator=gen) > 0.2)
 
-        def sdpa_ms(q, k, v, kv, iters):
+        def sdpa(q, k, v, kv):
+            """The library call timed beside kernel E: one
+            scaled_dot_product_attention with the additive mask."""
             mask = torch.where(kv, 0.0, -1e9)[..., None, :]
-            return cuda_ms(lambda: F.scaled_dot_product_attention(
-                q, k, v, attn_mask=mask), iters=iters)
+            return lambda: F.scaled_dot_product_attention(q, k, v,
+                                                          attn_mask=mask)
 
-        att_ms = cuda_ms(lambda: cuda_attention.attention_cuda(q, k, v, kv))
+        att_ms, att_lib_ms, turns = in_turns(
+            lambda: cuda_attention.attention_cuda(q, k, v, kv),
+            sdpa(q, k, v, kv), iters=20, other_iters=10)
         att_plain_ms = cuda_ms(lambda: fused_attention(q, k, v, kv), iters=5)
-        att_lib_ms = sdpa_ms(q, k, v, kv, 5)
         att_bound_ms, att_bound_by, exps = attention_bound(q, K)
         log(f"  [16,4,{K},64]: kernel {att_ms:.4f} ms, plain "
             f"{att_plain_ms:.4f} ms, sdpa {att_lib_ms:.4f} ms, bound "
-            f"{att_bound_ms:.4f} ms ({att_bound_by}), {exps} exps")
+            f"{att_bound_ms:.4f} ms ({att_bound_by}), {exps} exps; in turns "
+            f"kernel, sdpa, sdpa, kernel: {[round(t, 4) for t in turns]}")
+        got = cuda_attention.attention_cuda(q, k, v,
+                                            cuda_attention.head_mask(kv[:, 0],
+                                                                     4))
+        if not torch.equal(got, cuda_attention.attention_cuda(q, k, v, kv)):
+            raise AssertionError("head_mask changes kernel E's result")
 
     for matcher, pairs in (("brute_force", PAIRS), ("light_glue", LG_PAIRS)):
         with phase(f"superpoint_mha_step: {matcher}, {pairs} pairs at "
@@ -884,15 +960,27 @@ def main() -> int:
         kv4 = torch.rand((2 * LG_PAIRS, 1, K_LARGE), device=dev,
                          generator=gen) > 0.1
         check_e(f"[16,4,{K_LARGE},64]", q4, k4, v4, kv4)
-        att4_ms = cuda_ms(lambda: cuda_attention.attention_cuda(
-            q4, k4, v4, kv4), iters=3, warmup=1)
+        att4_ms, att4_lib_ms, turns = in_turns(
+            lambda: cuda_attention.attention_cuda(q4, k4, v4, kv4),
+            sdpa(q4, k4, v4, kv4), iters=3, other_iters=3)
         att4_plain_ms = cuda_ms(lambda: fused_attention(q4, k4, v4, kv4),
                                 iters=2, warmup=1)
-        att4_lib_ms = sdpa_ms(q4, k4, v4, kv4, 3)
         att4_bound_ms, _, _ = attention_bound(q4, K_LARGE)
         log(f"  [16,4,{K_LARGE},64]: kernel {att4_ms:.4f} ms, plain "
             f"{att4_plain_ms:.4f} ms, sdpa {att4_lib_ms:.4f} ms, bound "
-            f"{att4_bound_ms:.4f} ms")
+            f"{att4_bound_ms:.4f} ms; in turns kernel, sdpa, sdpa, kernel: "
+            f"{[round(t, 4) for t in turns]}")
+        # named here and not beside the first timing: the first profiled
+        # call attaches the tracer, and every launch after it costs the
+        # host more, which the brute-force step above should not pay
+        call = sdpa(q, k, v, kv)
+        _, _, top = profile_step(lambda: [call() for _ in range(5)], top=3)
+        for name, ms in top:
+            log(f"  sdpa's device kernels at K={K}, {ms / 5:.4f} ms a call: "
+                f"{name[:110]}")
+        if not top:
+            raise AssertionError("the profiler named no device kernel of "
+                                 "scaled_dot_product_attention")
         del q4, k4, v4
 
     lk = LKParams(distance=10.0, win_size=21, levels=3, iterations=40)
@@ -970,23 +1058,46 @@ def main() -> int:
             raise AssertionError(f"kernel F full protocol: {share}")
         jit = torch.stack([torch.cos(angles), torch.sin(angles)], -1)
         start = (px_full + jit * lk.distance).clamp(10, SIZE - 10)
-        lk_ms, lk_plain_ms, lk_level_ms = 0.0, 0.0, []
+        # each level from the start the protocol gives it (the level
+        # above's result): the kernel's time depends on how far a point
+        # still has to go, since it loads a window only when its start moves
+        lk_plain_ms, lk_level_ms, lk_turns, lk_loads = 0.0, [], [], []
         for lvl in (2, 1, 0):
             args = (pyr0[lvl], pyr1[lvl], px_full / 2 ** lvl,
                     start / 2 ** lvl, lk.win_size, lk.iterations)
-            lk_level_ms.append(cuda_ms(lambda: cuda_lk.lk_level_cuda(*args),
-                                       iters=5))
-            lk_plain_ms += cuda_ms(lambda: _lk_level(*args), iters=1,
-                                   warmup=1)
+            moves = torch.zeros(1, dtype=torch.int32, device=dev)
+            start = cuda_lk.lk_level_cuda(*args, moves=moves) * 2 ** lvl
+            lk_loads.append(int(moves.item()))
+            ms, plain, turns = in_turns(
+                lambda: cuda_lk.lk_level_cuda(*args),
+                lambda: _lk_level(*args), iters=5, other_iters=1)
+            lk_level_ms.append(ms)
+            lk_turns.append([round(t, 4) for t in turns])
+            lk_plain_ms += plain
         lk_ms = sum(lk_level_ms)
-        lk_bound_ms, lk_bound_by, pt_iters = lk_bound(
+        lk_bound_ms, lk_bound_by, pt_iters, lk_bound_every_ms = lk_bound(
             lk_imgs0, K, lk.win_size, lk.levels, lk.iterations)
+        per_level = LK_PAIRS * K * lk.iterations
+        # the first iteration of a point always loads; the rest only when
+        # the window's integer start moved
+        moved = [(n_ - LK_PAIRS * K) / (per_level - LK_PAIRS * K)
+                 for n_ in lk_loads]
+        lk_moved_share = (sum(lk_loads) - lk.levels * LK_PAIRS * K) / (
+            lk.levels * (per_level - LK_PAIRS * K))
         log(f"  [{LK_PAIRS} pairs, K={K}, win {lk.win_size}, "
             f"{lk.iterations} iterations] levels /4, /2, /1: "
             f"kernel {[round(t, 4) for t in lk_level_ms]} ms, sum "
             f"{lk_ms:.4f} ms ({lk_ms * 1e6 / pt_iters:.2f} ns per "
             f"point-iteration), plain {lk_plain_ms:.4f} ms, bound "
-            f"{lk_bound_ms:.4f} ms ({lk_bound_by})")
+            f"{lk_bound_ms:.4f} ms ({lk_bound_by}; "
+            f"{lk_bound_every_ms:.4f} ms with the gradients counted in "
+            f"every iteration)")
+        log(f"  in turns kernel, plain, plain, kernel per level: {lk_turns}")
+        log(f"  window loads per level {lk_loads} of {per_level} "
+            f"point-iterations; share of the iterations after a point's "
+            f"first whose window start moved: "
+            f"{[round(m_, 5) for m_ in moved]}, all levels "
+            f"{lk_moved_share:.5f}")
 
     with phase(f"lk_fundamental_step: {LK_PAIRS} pairs at {SIZE}^2"):
         def lk_step(seed=0):
@@ -1181,6 +1292,9 @@ def main() -> int:
          "launches": launches["lk"], "max_abs_err": errs["lk"],
          "ms": lk_ms, "plain_ms": lk_plain_ms, "bound_ms": lk_bound_ms,
          "bound_by": lk_bound_by, "library_ms": None,
+         "bound_ms_gradients_every_iteration": lk_bound_every_ms,
+         "window_loads_per_level": lk_loads,
+         "moved_start_share": lk_moved_share,
          "max_abs_err_win3_border": lk_loose_err,
          "ms_per_level": lk_level_ms, "step_frames_per_s": lk_fps},
         {"name": "peel_topk", "route": "cuda",

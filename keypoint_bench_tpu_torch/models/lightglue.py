@@ -22,7 +22,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from keypoint_bench_tpu_torch.ops.cuda_attention import masked_attention
+from keypoint_bench_tpu_torch.ops.cuda_attention import (head_mask,
+                                                         masked_attention)
 from keypoint_bench_tpu_torch.ops.grid_sample import sample_bilinear_pixels
 
 NEG = -1e9
@@ -75,12 +76,14 @@ def _merge(x: torch.Tensor) -> torch.Tensor:
 
 
 def _attention(q, k, v, mask_kv, attn: str, scale: float | None = None):
-    """q [..., h, N, dh], k/v [..., h, M, dh], mask_kv [..., M] bool ->
-    [..., h, N, dh]."""
+    """q [..., h, N, dh], k/v [..., h, M, dh] -> [..., h, N, dh]. mask_kv
+    is [..., M] bool for "dense" and the per-head [..., h, M] of
+    `head_mask` for "fused" (made once per call of the matcher, not once
+    per attention)."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if attn == "fused":
-        return masked_attention(q, k, v, mask_kv[..., None, :], scale)
+        return masked_attention(q, k, v, mask_kv, scale)
     sim = (q @ k.transpose(-1, -2)) * scale
     sim = torch.where(mask_kv[..., None, None, :], sim,
                       torch.full_like(sim, NEG))
@@ -98,7 +101,11 @@ def _self_block(p, prefix, x, enc, valid, num_heads, attn):
     return x + _ffn(p, f"{prefix}.ffn", torch.cat([x, msg], dim=-1))
 
 
-def _cross_block(p, prefix, x0, x1, valid0, valid1, num_heads, attn):
+def _cross_block(p, prefix, x0, x1, valid0, valid1, num_heads, attn,
+                 valid10=None):
+    """valid0 / valid1 as `_attention` takes them; valid10 is the "fused"
+    mask of the stacked pass, `head_mask` of [valid1, valid0], when both
+    sides hold as many keypoints."""
     qk0 = _heads(_linear(p, f"{prefix}.to_qk", x0), num_heads)
     qk1 = _heads(_linear(p, f"{prefix}.to_qk", x1), num_heads)
     v0 = _heads(_linear(p, f"{prefix}.to_v", x0), num_heads)
@@ -111,8 +118,7 @@ def _cross_block(p, prefix, x0, x1, valid0, valid1, num_heads, attn):
         # both sides hold K keypoints, one launch serves both directions
         if qk0.shape == qk1.shape:
             m = _attention(torch.stack([qk0, qk1]), torch.stack([qk1, qk0]),
-                           torch.stack([v1, v0]),
-                           torch.stack([valid1, valid0]), attn, 1.0)
+                           torch.stack([v1, v0]), valid10, attn, 1.0)
             m0, m1 = m[0], m[1]
         else:
             m0 = _attention(qk0, qk1, v1, valid1, attn, 1.0)
@@ -206,24 +212,34 @@ def lightglue_scores(params: dict, kpts0_px, valid0, desc0, kpts1_px, valid1,
     enc1 = _posenc(p, normalize_keypoints_masked(kpts1_px, valid1))
 
     same = desc0.shape == desc1.shape
+    # every layer attends with the same masks, so the "fused" form's
+    # per-head masks are made here, once: m0 / m1 for one side at a time,
+    # m01 / m10 for both sides stacked on a new leading dim
+    fused = attn == "fused"
+    m0, m1, m01, m10 = valid0, valid1, None, None
     if same:
-        # both sides through one self block: stacked on a new leading dim
+        # both sides through one self block
         enc01 = torch.stack([enc0, enc1], dim=1)
-        v01 = torch.stack([valid0, valid1])
+        m01 = torch.stack([valid0, valid1])
+        if fused:
+            m01 = head_mask(m01, num_heads)
+            m10 = head_mask(torch.stack([valid1, valid0]), num_heads)
+    elif fused:
+        m0, m1 = head_mask(valid0, num_heads), head_mask(valid1, num_heads)
     d0, d1 = desc0, desc1
     for i in range(n_layers):
         pre = f"transformers.{i}"
         if same:
             d01 = _self_block(p, f"{pre}.self_attn", torch.stack([d0, d1]),
-                              enc01, v01, num_heads, attn)
+                              enc01, m01, num_heads, attn)
             d0, d1 = d01[0], d01[1]
         else:
-            d0 = _self_block(p, f"{pre}.self_attn", d0, enc0, valid0,
-                             num_heads, attn)
-            d1 = _self_block(p, f"{pre}.self_attn", d1, enc1, valid1,
-                             num_heads, attn)
-        d0, d1 = _cross_block(p, f"{pre}.cross_attn", d0, d1, valid0, valid1,
-                              num_heads, attn)
+            d0 = _self_block(p, f"{pre}.self_attn", d0, enc0, m0, num_heads,
+                             attn)
+            d1 = _self_block(p, f"{pre}.self_attn", d1, enc1, m1, num_heads,
+                             attn)
+        d0, d1 = _cross_block(p, f"{pre}.cross_attn", d0, d1, m0, m1,
+                              num_heads, attn, m10)
     return _assignment_scores(p, f"log_assignment.{n_layers - 1}", d0, d1,
                               valid0, valid1)
 

@@ -14,6 +14,9 @@ import torch
 from keypoint_bench_tpu_torch.ops._build import Kernel
 
 HEAD_DIM = 64   # the kernel's feature width (LightGlue: 256 / 4 heads)
+# csrc/attention.cu's tile: query rows of a block, keys of one ring stage
+# (kbt_attention_tiles reports the built kernel's own)
+BQ, BK = 256, 64
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 KERNEL = Kernel("attention", "kbt_attention",
                 [_P, _P, _P, _P, _P, _I, _I, _I, _F, _P])
@@ -23,11 +26,22 @@ def masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      kv_valid: torch.Tensor,
                      scale: float | None = None) -> torch.Tensor:
     """q [..., n, dh], k/v [..., m, dh], kv_valid [..., m] -> [..., n, dh],
-    as attention.fused_attention computes it."""
+    as attention.fused_attention computes it. A caller that attends with
+    one mask many times hands it over already expanded to q's leading dims
+    and contiguous (`head_mask`): the kernel then reads it where it lies."""
     if not q.is_cuda:
         from keypoint_bench_tpu_torch.ops.attention import fused_attention
         return fused_attention(q, k, v, kv_valid, scale)
     return attention_cuda(q, k, v, kv_valid, scale)
+
+
+def head_mask(valid: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """valid [..., m] bool -> contiguous [..., num_heads, m] bool: the mask
+    of every (batch, head) slice, made once for all the calls that use it.
+    Kernel E reads a bool tensor's bytes as they are, so a mask of this
+    shape costs a call no launch of its own."""
+    return valid[..., None, :].expand(*valid.shape[:-1], num_heads,
+                                      valid.shape[-1]).contiguous()
 
 
 def attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -58,7 +72,12 @@ def attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q3 = q.reshape(-1, n, dh).contiguous()
     k3 = k.reshape(-1, m, dh).contiguous()
     v3 = v.reshape(-1, m, dh).contiguous()
-    mask = kv_valid.expand(*lead, m).reshape(-1, m).to(torch.uint8)
+    # a bool tensor stores one byte, 0 or 1, per element: no conversion; a
+    # mask already of q's leading dims (head_mask) is not copied either
+    mask = kv_valid.expand(*lead, m).reshape(-1, m).contiguous().view(
+        torch.uint8)
+    if any(t.data_ptr() % 16 for t in (q3, k3, v3)):
+        raise ValueError("q, k and v must be 16-byte aligned")
     out = torch.empty_like(q3)
     with torch.cuda.device(dev):
         KERNEL.launch(1, q3.data_ptr(), k3.data_ptr(), v3.data_ptr(),

@@ -15,16 +15,23 @@ from keypoint_bench_tpu_torch.ops._build import Kernel
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 KERNEL = Kernel("lk", "kbt_lk_level",
-                [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P])
-# a block's window, gradient corners, template and offsets live in the
-# default 48 KB of shared memory
-MAX_SMEM_BYTES = 48 * 1024
+                [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P])
+# a block's window, gradient corners and template live in shared memory;
+# above the default 48 KB the kernel asks for it, up to the card's 227 KB
+MAX_SMEM_BYTES = 227 * 1024
 
 
 def smem_bytes(win: int, c: int) -> int:
     """Dynamic shared memory of one block (csrc/lk.cu lk_smem_bytes)."""
     s, g = win + 3, win + 1
-    return 4 * (s * s * c + 2 * g * g * c + 2 * win * win * c)
+    return 4 * (s * s * c + 2 * g * g * c + win * win * c)
+
+
+def block_threads(win: int, c: int) -> int:
+    """Threads of a point's block: a lane per element (x, channel) of a
+    patch row, a warp per band of rows."""
+    row = win * c
+    return 32 if row <= 32 else 64
 
 
 def lk_level(imgs1: torch.Tensor, imgs2: torch.Tensor, pts1: torch.Tensor,
@@ -39,8 +46,12 @@ def lk_level(imgs1: torch.Tensor, imgs2: torch.Tensor, pts1: torch.Tensor,
 
 def lk_level_cuda(imgs1: torch.Tensor, imgs2: torch.Tensor,
                   pts1: torch.Tensor, pts2: torch.Tensor, win: int,
-                  iterations: int) -> torch.Tensor:
-    """Launch kernel F once (one block per point, no host sync)."""
+                  iterations: int,
+                  moves: torch.Tensor | None = None) -> torch.Tensor:
+    """Launch kernel F once (one block per point, no host sync). `moves`,
+    one int32 on the card, gains the number of iterations, over all
+    points, that loaded a window (a measurement; the result is the same
+    with and without it)."""
     KERNEL.function()   # builds, or raises, before any launch
     tensors = (imgs1, imgs2, pts1, pts2)
     if not all(t.is_cuda and t.device == imgs1.device for t in tensors):
@@ -63,16 +74,21 @@ def lk_level_cuda(imgs1: torch.Tensor, imgs2: torch.Tensor,
         raise ValueError(f"win={win} with C={c} needs {smem_bytes(win, c)} "
                          f"bytes of shared memory per block, above "
                          f"{MAX_SMEM_BYTES}")
+    if moves is not None and (moves.dtype != torch.int32
+                              or moves.device != imgs1.device
+                              or moves.numel() != 1):
+        raise ValueError("moves must be one int32 on the images' device")
     n = pts1.shape[1]
     out = torch.empty((b, n, 2), dtype=torch.float32, device=imgs1.device)
     if b * n == 0:
         return out
-    taps = win * win * c
-    threads = 32 if taps <= 128 else 64 if taps <= 512 else 128
+    threads = block_threads(win, c)
     i1, i2, p1, p2 = (t.contiguous() for t in tensors)
     with torch.cuda.device(imgs1.device):
         KERNEL.launch(1, i1.data_ptr(), i2.data_ptr(), p1.data_ptr(),
-                      p2.data_ptr(), out.data_ptr(), b, n, h, w, c, win,
+                      p2.data_ptr(), out.data_ptr(),
+                      None if moves is None else moves.data_ptr(), b, n, h,
+                      w, c, win,
                       iterations, threads,
                       torch.cuda.current_stream().cuda_stream)
     return out

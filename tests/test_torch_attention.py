@@ -66,3 +66,88 @@ def test_cpu_tensors_take_the_plain_twin(monkeypatch):
     assert torch.equal(cuda_attention.masked_attention(*args, 1.0),
                        fused_attention(*args, 1.0))
     assert cuda_attention.KERNEL.launches == before
+
+
+# --- the kernel's tiling, rehearsed in plain torch -------------------------
+
+LOG2E = 1.4426950408889634
+
+
+def tiled_online_softmax(q, k, v, kv, scale, bq, bk, tx):
+    """csrc/attention.cu step by step for one slice, in f32: query tiles of
+    bq rows, key tiles of bk whose rows past m repeat the last real key and
+    score -inf, scores in base 2 (one factor scale * log2 e), masked keys at
+    -1e9 * log2 e, a running row maximum that starts at -inf, the row sum
+    kept apart for each of the tx lanes (lane t holds keys t, t + tx, ...)
+    and added up at the end, the output rescaled by exp2(old max - new)."""
+    n, m = q.shape[0], k.shape[0]
+    scale2 = torch.tensor(scale * LOG2E, dtype=torch.float32)
+    neg2 = torch.tensor(-1e9, dtype=torch.float32) * torch.tensor(
+        LOG2E, dtype=torch.float32)
+    out = torch.empty_like(q)
+    for q0 in range(0, n, bq):
+        rows = torch.arange(q0, q0 + bq).clamp_max(n - 1)
+        qt = q[rows]
+        mrow = torch.full((bq,), -torch.inf)
+        lrow = torch.zeros((bq, tx))
+        o = torch.zeros((bq, q.shape[1]))
+        for j0 in range(0, m, bk):
+            cols = torch.arange(j0, j0 + bk)
+            real = cols < m
+            cols = cols.clamp_max(m - 1)
+            s = (qt @ k[cols].T) * scale2
+            s = torch.where(kv[cols], s, neg2)
+            s = torch.where(real, s, torch.tensor(-torch.inf))
+            mnew = torch.maximum(mrow, s.amax(-1))
+            alpha = torch.exp2(mrow - mnew)
+            p = torch.exp2(s - mnew[:, None])
+            # lane t of a row adds its own keys t, t + tx, ... in order
+            lrow = lrow * alpha[:, None] + p.reshape(bq, bk // tx, tx).sum(1)
+            o = o * alpha[:, None] + p @ v[cols]
+            mrow = mnew
+        res = o / lrow.sum(-1, keepdim=True)
+        out[q0:min(q0 + bq, n)] = res[:min(bq, n - q0)]
+    return out
+
+
+@pytest.mark.parametrize("n,m,valid,scale", [
+    (300, 420, "mixed", None),      # ragged in both, several key tiles
+    (300, 420, "mixed", 1.0),
+    (257, 33, "mixed", None),       # m below one key tile, n one past a tile
+    (40, 64, "mixed", 1.0),         # exactly one key tile
+    (70, 65, "none", None),         # all keys invalid: uniform over m
+    (1, 1, "all", None),
+])
+def test_tiled_online_softmax_matches_plain_and_pallas(n, m, valid, scale):
+    """The kernel's tiling at its tile sizes, against the plain twin and the
+    JAX Pallas kernel (interpret mode): 1e-5 absolute and relative, f32
+    sums in another order."""
+    q, k, v, kv = _case(2, n, m, 64, n + m, valid)
+    tq, tk, tv = (torch.from_numpy(x) for x in (q, k, v))
+    tkv = torch.from_numpy(kv)
+    sc = 64 ** -0.5 if scale is None else scale
+    got = torch.stack([tiled_online_softmax(
+        tq[h], tk[h], tv[h], tkv, sc, cuda_attention.BQ, cuda_attention.BK, 8)
+        for h in range(2)])
+    assert bool(torch.isfinite(got).all())
+    _close(got.numpy(), fused_attention(tq, tk, tv, tkv, scale).numpy())
+    ref = jax_fused(*map(jnp.asarray, (q, k, v, kv)), scale=scale,
+                    interpret=True)
+    _close(got.numpy(), np.asarray(ref))
+    if valid == "none":
+        _close(got.numpy(), np.broadcast_to(v.mean(1, keepdims=True),
+                                            got.shape))
+
+
+def test_head_mask_is_the_broadcast_mask_made_once():
+    """`head_mask` is what `masked_attention` would broadcast for itself:
+    same result, contiguous, one byte per key."""
+    q, k, v, _ = _case(8, 20, 30, 64, 5)
+    q, k, v = (torch.from_numpy(x.reshape(2, 4, *x.shape[1:]))
+               for x in (q, k, v))
+    kv = torch.from_numpy(np.random.default_rng(6).random((2, 30)) > 0.5)
+    hm = cuda_attention.head_mask(kv, 4)
+    assert hm.shape == (2, 4, 30) and hm.is_contiguous()
+    assert hm.dtype == torch.bool and hm.element_size() == 1
+    assert torch.equal(cuda_attention.masked_attention(q, k, v, hm),
+                       fused_attention(q, k, v, kv[:, None]))

@@ -241,6 +241,44 @@ def test_attention_kernel_matches_plain(dev, lead, n, m, scale, valid):
             got), atol=1e-5, rtol=1e-5)
 
 
+def _tile_edges():
+    """n, m around kernel E's query and key tiles, and the main path's."""
+    bq, bk = cuda_attention.BQ, cuda_attention.BK
+    return [(1, bk - 1), (bq - 1, bk), (bq, bk + 1), (bq + 1, 1),
+            (bk, bq - 1), (1000, 4096), (4096, 1000)]
+
+
+@pytest.mark.parametrize("n,m", _tile_edges())
+def test_attention_kernel_at_tile_edges(dev, n, m):
+    """One row or key short of a tile, a full tile, one over; masks both
+    per slice and shared; all keys of one slice invalid."""
+    q, k, v = _qkv((3,), n, m, n * 7 + m, dev)
+    kv = torch.rand((3, m), device=dev) > 0.2
+    kv[1] = False
+    got = cuda_attention.attention_cuda(q, k, v, kv)
+    want = fused_attention(q, k, v, kv)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(got[1], v[1].mean(-2, keepdim=True).expand_as(
+        got[1]), atol=1e-5, rtol=1e-5)
+
+
+def test_attention_kernel_many_slices_and_head_mask(dev):
+    """More blocks than the card runs at once (600 slices x 2 query
+    tiles), and the mask handed over per head as LightGlue makes it."""
+    n = cuda_attention.BQ + 3
+    q, k, v = _qkv((150, 4), n, 70, 11, dev)
+    kv = torch.rand((150, 70), device=dev) > 0.3
+    before = cuda_attention.KERNEL.launches
+    got = cuda_attention.masked_attention(q, k, v,
+                                          cuda_attention.head_mask(kv, 4))
+    assert cuda_attention.KERNEL.launches == before + 1
+    torch.testing.assert_close(got, fused_attention(q, k, v, kv[:, None]),
+                               atol=1e-5, rtol=1e-5)
+    assert torch.equal(got, cuda_attention.attention_cuda(q, k, v,
+                                                          kv[:, None]))
+
+
 def test_attention_kernel_broadcasts_mask_and_rejects_bad_input(dev):
     q, k, v = _qkv((2, 4), 50, 70, 0, dev)
     kv = torch.rand((2, 1, 70), device=dev) > 0.5
@@ -332,6 +370,46 @@ def test_lk_kernel_matches_plain_level(dev, kind, win, c):
     assert torch.equal(cuda_lk.lk_level(*args, win, 0), args[3])
 
 
+@pytest.mark.parametrize("c", [1, 3])
+@pytest.mark.parametrize("win", [3, 5, 11, 21])
+def test_lk_kernel_start_moves_every_iteration(dev, win, c):
+    """A flow of about half a window to catch up with (more loses the
+    track, and a lost track is decided by rounding): the window's integer
+    start moves again and again, so the cached windows are rebuilt. N = 37
+    points a pair (no multiple of anything), two pairs."""
+    b, n, h, w = 2, 37, 96, 128
+    img1, _ = _lk_images(b, h, w, c, win + c)
+    img2 = torch.roll(img1, (0, {3: 2, 5: 3, 11: 6, 21: 12}[win]),
+                      dims=(1, 2))
+    pts1 = _lk_points("interior", b, n, h, w, 8) + 10
+    # the search starts just left of a pixel border and is drawn to +x
+    pts2 = pts1.clone()
+    pts2[..., 0] = pts2[..., 0].floor() + 0.98
+    args = [t.to(dev) for t in (img1, img2, pts1, pts2)]
+    moves = torch.zeros(1, dtype=torch.int32, device=dev)
+    got = cuda_lk.lk_level_cuda(*args, win, 12, moves=moves)
+    want = tlk._lk_level(*args, win, 12)
+    assert bool(torch.isfinite(got).all())
+    # every point loads once, and most cross the border and load again
+    assert int(moves.item()) >= b * n + b * n // 2
+    err = (got - want).abs().amax(-1)
+    assert float((err <= 5e-3).float().mean()) >= 0.97, float(err.max())
+    assert torch.equal(got, cuda_lk.lk_level_cuda(*args, win, 12))
+
+
+def test_lk_kernel_takes_windows_above_48_kb(dev):
+    """win 31 with 4 channels needs 77 KB of shared memory a block: the
+    kernel asks for it."""
+    assert cuda_lk.smem_bytes(31, 4) > 48 * 1024
+    img1, img2 = _lk_images(1, 96, 96, 4, 2)
+    pts1 = _lk_points("interior", 1, 50, 96, 96, 3)
+    pts2 = pts1 + 0.7
+    args = [t.to(dev) for t in (img1, img2, pts1, pts2)]
+    got = cuda_lk.lk_level_cuda(*args, 31, 6)
+    want = tlk._lk_level(*args, 31, 6)
+    assert float((got - want).abs().max()) <= 5e-3
+
+
 def test_lk_kernel_shape_rules(dev):
     img = torch.zeros(1, 32, 32, 3, device=dev)
     pts = torch.zeros(1, 4, 2, device=dev)
@@ -344,6 +422,9 @@ def test_lk_kernel_shape_rules(dev):
                               pts, 31, 2)
     with pytest.raises(ValueError):
         cuda_lk.lk_level_cuda(img, img.double(), pts, pts, 3, 2)
+    with pytest.raises(ValueError):         # the counter: one int32
+        cuda_lk.lk_level_cuda(img, img, pts, pts, 3, 2,
+                              moves=torch.zeros(2, device=dev))
     assert cuda_lk.lk_level_cuda(img, img, pts[:, :0], pts[:, :0], 3,
                                  2).shape == (1, 0, 2)
 

@@ -244,3 +244,156 @@ def test_optical_flow_cv_equals_jax_package():
     want = jlk.optical_flow_cv(img0, img1, pts, pts, 15, 3)
     np.testing.assert_array_equal(got[0], want[0])
     np.testing.assert_array_equal(got[1], want[1])
+
+
+# --- kernel F's per-point loop, rehearsed in numpy float32 -----------------
+
+def _mirror_window(img, sy, sx, s):
+    """The s x s x C window whose top-left pixel is (sy, sx); 0 outside."""
+    h, w, c = img.shape
+    out = np.zeros((s, s, c), np.float32)
+    r0, r1 = max(0, -sy), min(s, h - sy)
+    c0, c1 = max(0, -sx), min(s, w - sx)
+    if r1 > r0 and c1 > c0:
+        out[r0:r1, c0:c1] = img[sy + r0:sy + r1, sx + c0:sx + c1]
+    return out.reshape(s, s * c)
+
+
+def _mirror_start(p0, half, win, n):
+    f = min(max(float(p0), -1.0e8), 1.0e8)
+    return min(max(int(f) - half, -(win + 1)), n)
+
+
+def _mirror_gradients(wnd, sy, sx, h, w, c, g):
+    """Separable, as the kernel forms them: 3-tap row sums shared by the
+    corner above and below, 3-tap column sums left and right; 0 at corners
+    outside the image."""
+    gc = g * c
+    two = np.float32(2.0)
+    left, mid, right = wnd[:, 0:gc], wnd[:, c:c + gc], wnd[:, 2 * c:2 * c + gc]
+    hs = (left + two * mid) + right
+    gx = ((left[0:g] + two * left[1:g + 1]) + left[2:g + 2]) - (
+        (right[0:g] + two * right[1:g + 1]) + right[2:g + 2])
+    gy = hs[0:g] - hs[2:g + 2]
+    rows_in = (sy + np.arange(g) >= 0) & (sy + np.arange(g) < h)
+    j = np.arange(gc)
+    cols_in = (j >= max(0, -sx) * c) & (j < min(g, w - sx) * c)
+    keep = rows_in[:, None] & cols_in[None, :]
+    return (np.where(keep, gx, 0).astype(np.float32),
+            np.where(keep, gy, 0).astype(np.float32))
+
+
+def lk_point_mirror(img1, img2, p1, p2, win, iterations, nwarps):
+    """One point through csrc/lk.cu's loop: windows cached on the integer
+    start, a warp per band of patch rows, a lane per row element walking
+    down its band, xor-tree sums within a warp, warps added in order, the
+    2x2 solve in f32. Returns (point, number of window loads)."""
+    f32 = np.float32
+    h, w, c = img1.shape
+    half, s, g, rl = win // 2, win + 3, win + 1, win * c
+    sc, gc = s * c, g * c
+    one = f32(1.0)
+
+    def split(p):
+        x0, y0 = np.floor(p[0]), np.floor(p[1])
+        return (p[0] - x0, p[1] - y0, _mirror_start(x0, half, win, w),
+                _mirror_start(y0, half, win, h))
+
+    def weights(fx, fy):
+        return ((one - fy) * (one - fx), (one - fy) * fx, fy * (one - fx),
+                fy * fx)
+
+    fx, fy, sx, sy = split(p1.astype(f32))
+    w00, w01, w10, w11 = weights(fx, fy)
+    w1 = _mirror_window(img1, sy - 1, sx - 1, s)
+    c0 = w1[1:, c:]
+    tmpl = (w00 * c0[0:win, 0:rl] + w01 * c0[0:win, c:c + rl]
+            + w10 * c0[1:win + 1, 0:rl] + w11 * c0[1:win + 1, c:c + rl])
+    p = p2.astype(f32).copy()
+    cached, loads = None, 0
+    for _ in range(iterations):
+        fx, fy, sx, sy = split(p)
+        if cached != (sx, sy):
+            w2 = _mirror_window(img2, sy - 1, sx - 1, s)
+            gx, gy = _mirror_gradients(w2, sy, sx, h, w, c, g)
+            p2c = w2[1:, c:]                  # corner (y, e) of image 2
+            cached, loads = (sx, sy), loads + 1
+        w00, w01, w10, w11 = weights(fx, fy)
+        warp_sums = []
+        for wi in range(nwarps):
+            y0, y1 = wi * win // nwarps, (wi + 1) * win // nwarps
+            acc = np.zeros((5, 32), f32)      # one column per lane
+            for e0 in range(0, rl, 32):
+                e = np.arange(e0, min(e0 + 32, rl))
+                ln = e - e0
+                for y in range(y0, y1):
+                    def tap(fld):
+                        return (w00 * fld[y, e] + w01 * fld[y, e + c]
+                                + w10 * fld[y + 1, e] + w11 * fld[y + 1, e + c])
+                    jx, jy = tap(gx), tap(gy)
+                    di = tmpl[y, e] - tap(p2c)
+                    for r, term in enumerate((jx * jx, jx * jy, jy * jy,
+                                              di * jx, di * jy)):
+                        acc[r, ln] += term
+            o = 16
+            while o:
+                acc = acc + acc[:, np.arange(32) ^ o]
+                o >>= 1
+            warp_sums.append(acc[:, 0])
+        g00, g01, g11, bx, by = _add_in_order(warp_sums)
+        det = g00 * g11 - g01 * g01
+        if det > f32(1e-6):
+            inv = one / det
+            p = np.array([p[0] - (g11 * bx - g01 * by) * inv,
+                          p[1] - (-g01 * bx + g00 * by) * inv], f32)
+    return p, loads
+
+
+def _add_in_order(parts):
+    tot = np.zeros(5, np.float32)
+    for part in parts:
+        tot = tot + part
+    return tot
+
+
+@pytest.mark.parametrize("win,nwarps", [(5, 1), (21, 2), (21, 1), (5, 4)])
+def test_lk_point_mirror_matches_plain_level_and_jax(win, nwarps):
+    """The kernel's loop (window cache, separable gradients, its order of
+    sums) against the plain `_lk_level` (1e-4 px: the same products in
+    another order) and the JAX `_lk_level` (5e-3 px, as above), on eight
+    points: interior ones, one whose window start moves while it is
+    tracked, one on the border and one off the image."""
+    h, w = 64, 80
+    img1 = _textured(h, w, 4)
+    img2 = np.roll(img1, (1, -2), axis=(0, 1))
+    rng = np.random.default_rng(8)
+    pts1 = rng.uniform(14, 50, (8, 2)).astype(np.float32)
+    pts2 = pts1 + rng.uniform(-1.5, 1.5, pts1.shape).astype(np.float32)
+    # tracked towards -x from just right of a pixel border: it crosses it
+    pts2[0] = [np.floor(pts1[0, 0]) + 3.02, pts1[0, 1] - 2.4]
+    pts1[6] = pts2[6] = [1.3, 30.6]                 # on the border
+    pts1[7] = pts2[7] = [-6.5, h + 4.2]             # off the image
+    want = tlk._lk_level(_t(img1), _t(img2), _t(pts1), _t(pts2), win,
+                         8).numpy()
+    got, loads = zip(*(lk_point_mirror(img1, img2, pts1[i], pts2[i], win, 8,
+                                       nwarps) for i in range(8)))
+    got = np.stack(got)
+    assert loads[0] > 1, "the first point's window start should move"
+    assert min(loads) >= 1 and loads[7] == 1
+    np.testing.assert_allclose(got, want, atol=1e-4)
+    ref = np.asarray(jlk._lk_level(jnp.asarray(img1), jnp.asarray(img2),
+                                   jnp.asarray(pts1), jnp.asarray(pts2),
+                                   win, 8))
+    np.testing.assert_allclose(got, ref, atol=5e-3)
+
+
+def test_lk_wrapper_shared_memory_and_threads():
+    """`smem_bytes` mirrors the kernel's layout (window with its ring, two
+    gradient windows, template) and the block has a lane per row element."""
+    from keypoint_bench_tpu_torch.ops import cuda_lk
+    assert cuda_lk.smem_bytes(21, 3) == 4 * 3 * (24 * 24 + 2 * 22 * 22
+                                                 + 21 * 21)
+    assert cuda_lk.smem_bytes(21, 3) < 48 * 1024 < cuda_lk.smem_bytes(31, 16)
+    assert cuda_lk.smem_bytes(31, 16) > cuda_lk.MAX_SMEM_BYTES
+    assert cuda_lk.block_threads(3, 3) == 32
+    assert cuda_lk.block_threads(21, 3) == 64
