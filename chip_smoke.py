@@ -8,14 +8,18 @@ Phases, each fatal on failure:
   2. the ALIKE-t and SuperPoint forwards on the card vs the CPU at 128^2
      (atol 1e-4, f32 with TF32 off on both);
   3. kernel A (NMS fixpoint) vs its plain twin on real ALIKE-t score maps
-     at 512^2, a tie-heavy bf16 map and a signed map: bit equality;
+     at 512^2, a tie-heavy bf16 map and a signed map: bit equality, one
+     launch a call, the rounds each map ran; its cooperative grid, and the
+     tiles it recomputed per round against the plain run's changed tile
+     neighbourhoods; timed beside two bounds (full rounds, changed tiles);
   4. kernel B (sparse sampler) vs its plain twin on real branch features
      at 512^2, K=1000, original and y-sorted keypoint order, and on random
      features whose last branch is 3 x 3 or 2 x 2: max abs error <= 1e-5;
   5. the ALIKE-t path, `extract_match` at 512^2, 16 pairs, nms 6, border
      8, top_k 1000, max_distance 5, with the launch counts reset just
-     before it: keypoints and masks equal to the same pipeline through the
-     plain twins, match count within 0.5% of the valid keypoints; then
+     before it (kernel A exactly twice, one launch a detection batch):
+     keypoints and masks equal to the same pipeline through the plain
+     twins, match count within 0.5% of the valid keypoints; then
      timed (median of 7 windows) with a per-stage breakdown;
   6. synthetic repeatability (configs/repeatability_synthetic.yaml, 4
      pairs at 512^2) through the port's runner, equal to the plain-twin run;
@@ -64,6 +68,7 @@ Phases, each fatal on failure:
      `detection_batch_fused` vs `detection_batch` on the same score maps,
      launch counts reset just before it: keypoints and masks equal, the
      full-sort guard taken on the tie-heavy maps and not on the real ones;
+     the two detection paths timed in turns;
  15. the port's Evaluator: FundamentalMatrix with optical_flow on 5
      synthetic-sequence frames at 512^2, per pair and pipelined, against
      the plain-twin runs on the same seed;
@@ -329,6 +334,76 @@ def nms_bound(maps, rounds):
                                        else "operations")
 
 
+def nms_tile_work(maps, d, max_iter=30, min_value=0.0, tile=32):
+    """The plain fixpoint's changes round by round, for kernel A's check and
+    its recounted bound: (tiles whose mask, tiles whose suppression, need
+    recomputing per round, summed over the batch; pixels whose mask,
+    pixels whose suppression, need recomputing, over all rounds). A pixel's
+    mask depends only on p within d of it, and its suppression only on the
+    mask within d: a pixel needs its mask again where bits of p changed
+    within d of it in that round's suppression, and its suppression where
+    the mask changed within d of it in the round before, on maps still
+    running. A tile needs them where such a change lies in its 3 x 3 tile
+    neighbourhood (kernel A's granularity). Round 0's mask and round 1's
+    suppression take every pixel. Built from ops/detect.py's plain phases,
+    not from the kernel."""
+    import torch
+    import torch.nn.functional as F
+    from keypoint_bench_tpu_torch.ops.detect import (_local_max_mask,
+                                                     _others_in_window)
+    p = maps.float()
+    b, h, w = p.shape
+    ty, tx = -(-h // tile), -(-w // tile)
+
+    def near_tile(changed):
+        pad = F.pad(changed.float(), (0, tx * tile - w, 0, ty * tile - h))
+        per_tile = F.max_pool2d(pad[:, None], tile)
+        return F.max_pool2d(per_tile, 3, 1, 1)[:, 0] > 0
+
+    def near_px(changed):
+        pooled = F.max_pool2d(changed.float()[:, None], 2 * d + 1, 1, d)
+        return pooled[:, 0] > 0
+
+    mv = torch.tensor(min_value, dtype=maps.dtype).float().item()
+    mask = _local_max_mask(p, d)
+    count = mask.sum((1, 2))
+    prev = torch.full_like(count, -1)
+    mask_changed = torch.ones_like(mask)
+    mask_tiles, supp_tiles = [b * ty * tx], [0]
+    mask_px, supp_px = b * h * w, 0
+    for _ in range(max_iter):
+        active = count != prev
+        if not bool(active.any()):
+            break
+        live = active[:, None, None]
+        supp_tiles.append(int((near_tile(mask_changed) & live).sum()))
+        supp_px += int((near_px(mask_changed) & live).sum())
+        supp = _others_in_window(mask, d) & live
+        new_p = torch.where(supp, torch.full_like(p, mv), p)
+        p_changed = new_p.view(torch.int32) != p.view(torch.int32)
+        mask_tiles.append(int(near_tile(p_changed).sum()))
+        mask_px += int(near_px(p_changed).sum())
+        p = new_p
+        new_mask = _local_max_mask(p, d)
+        mask_changed = (new_mask != mask) & active[:, None, None]
+        mask = torch.where(active[:, None, None], new_mask, mask)
+        prev = torch.where(active, count, prev)
+        count = torch.where(active, new_mask.sum((1, 2)), count)
+    return mask_tiles, supp_tiles, mask_px, supp_px
+
+
+def nms_change_bound(maps, mask_px, supp_px):
+    """(ms, bound_by) of kernel A for the work this run's maps need, on the
+    pixels nms_tile_work says need it: nms_bound's 14 operations a pixel
+    for the mask (compares of floats); its 7 for the suppression at the
+    word rate, 32 pixels an operation (the suppression of a bit mask works
+    on 32 columns at once); each f32 map read and written once."""
+    t_bytes = 2 * maps.numel() * 4 / PEAK_BYTES
+    t_ops = (14 * mask_px + 7 * supp_px / 32) / PEAK_F32_OPS
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
 def sample_bound(feats, px, py, h, w):
     """(ms, bound_by): the feature values this run's keypoints need (taps
     with non-zero weight, distinct per map, all channels), the coordinates
@@ -587,27 +662,67 @@ def main() -> int:
         maps0 = score0[..., 0].contiguous()
 
     with phase("kernel A (NMS fixpoint) vs plain fast_nms"):
+        blocks, per_sm, threads, smem = cuda_nms.nms_grid(6)
+        tiles = PAIRS * (SIZE // 32) ** 2
+        log(f"  grid at d=6: {blocks} blocks resident ({per_sm} per SM) of "
+            f"{threads} threads, {smem} bytes of dynamic shared memory a "
+            f"block; [16,512,512] launches min(blocks, {tiles} tiles) = "
+            f"{min(blocks, tiles)}")
         bf = maps0[:1].to(torch.bfloat16)
         cases = [("score maps x8", maps0[:8], 6), ("bf16 ties", bf, 6),
                  ("signed", maps0[-2:] - 0.5, 6),
                  ("score d=2", maps0[:2], 2), ("score d=4", maps0[:2], 4)]
         for name, maps, d in cases:
-            got = cuda_nms.nms_cuda(maps, d, 30)
-            want = fast_nms(maps, d, 30)
+            stats = torch.zeros(maps.shape[0] + 62, dtype=torch.int32,
+                                device=dev)
+            before = cuda_nms.KERNEL.launches
+            got = cuda_nms.nms_cuda(maps, d, 30, stats=stats)
+            n_launch = cuda_nms.KERNEL.launches - before
+            want, want_rounds = fast_nms_rounds(maps, d, 30)
             diff = float((got.float() - want.float()).abs().max())
             errs["nms"] = max(errs["nms"], diff)
+            ran = stats[:maps.shape[0]]
             log(f"  {name}: equal={torch.equal(got, want)} "
-                f"max_abs_err={diff}")
-            if not torch.equal(got, want):
+                f"max_abs_err={diff}; launches {n_launch}; rounds per map "
+                f"{ran.tolist()} (plain {want_rounds.tolist()})")
+            if not (torch.equal(got, want) and n_launch == 1
+                    and torch.equal(ran, want_rounds)):
                 raise AssertionError(f"kernel A differs on {name}")
+        stats = torch.zeros(PAIRS + 62, dtype=torch.int32, device=dev)
+        before = cuda_nms.KERNEL.launches
+        cuda_nms.nms_cuda(maps0, 6, 30, stats=stats)
+        nms_per_call = cuda_nms.KERNEL.launches - before
+        _, rounds = fast_nms_rounds(maps0, 6, 30)
+        n_r = int(rounds.max()) + 1
+        k_mask = stats[PAIRS:PAIRS + n_r].tolist()
+        k_supp = stats[PAIRS + 31:PAIRS + 31 + n_r].tolist()
+        mask_tiles, supp_tiles, mask_px, supp_px = nms_tile_work(maps0, 6)
+        log(f"  [16,512,512] d=6: rounds per map {rounds.tolist()} (kernel "
+            f"{stats[:PAIRS].tolist()}); tiles recomputed per round, summed "
+            f"over the batch: mask {k_mask}, suppression {k_supp[1:]} "
+            f"(the plain run's changed neighbourhoods: {mask_tiles}, "
+            f"{supp_tiles[1:]})")
+        if not (torch.equal(stats[:PAIRS], rounds) and k_mask == mask_tiles
+                and k_supp == supp_tiles and nms_per_call == 1):
+            raise AssertionError("kernel A's rounds, recomputed tiles or "
+                                 "launches differ from the plain run's")
         nms_ms = cuda_ms(lambda: cuda_nms.nms_cuda(maps0, 6, 30))
+        # the rounds a call may run: 0 is round 0 alone; the most any map
+        # needs runs all the work of max_iter 30, with nothing after it
+        split = {it: cuda_ms(lambda: cuda_nms.nms_cuda(maps0, 6, it))
+                 for it in (0, 1, n_r - 1)}
         nms_plain_ms = cuda_ms(lambda: fast_nms(maps0, 6, 30), iters=3,
                                warmup=1)
-        _, rounds = fast_nms_rounds(maps0, 6, 30)
-        nms_bound_ms, nms_bound_by = nms_bound(maps0, rounds)
-        log(f"  [16,512,512] d=6: kernel {nms_ms:.4f} ms, plain "
-            f"{nms_plain_ms:.4f} ms, bound {nms_bound_ms:.4f} ms "
-            f"({nms_bound_by}); rounds per map {rounds.tolist()}")
+        nms_full_ms, nms_full_by = nms_bound(maps0, rounds)
+        nms_bound_ms, nms_bound_by = nms_change_bound(maps0, mask_px,
+                                                      supp_px)
+        log(f"  [16,512,512] d=6: kernel {nms_ms:.4f} ms ({nms_per_call} "
+            f"launch), by max_iter "
+            + ", ".join(f"{it}: {ms:.4f}" for it, ms in split.items())
+            + f" ms; plain {nms_plain_ms:.4f} ms, bound {nms_bound_ms:.4f} "
+            f"ms ({nms_bound_by}; pixels within d of a change: {mask_px} "
+            f"mask, {supp_px} suppression), full-round bound "
+            f"{nms_full_ms:.4f} ms ({nms_full_by})")
 
     with phase("kernel B (sparse sampler) vs plain sampler"):
         with torch.inference_mode():
@@ -672,6 +787,9 @@ def main() -> int:
         launches = {k: got[k] for k in ("nms", "sample")}
         if min(got["nms"], got["sample"], got["nn_match"]) <= 0:
             raise AssertionError(f"a kernel was not launched: {got}")
+        if got["nms"] != 2:
+            raise AssertionError(f"kernel A: one launch per detection "
+                                 f"batch, 2 a step; got {got['nms']}")
         with torch.inference_mode():
             ext_k = [extract(model, params, im, dp) for im in (imgs0, imgs1)]
             with plain_twins():
@@ -1218,14 +1336,15 @@ def main() -> int:
                     raise AssertionError(f"fused detection on {name}")
             peel_ms = cuda_ms(lambda: cuda_nms.peel_cuda(nms16, 8, 8))
             peel_plain_ms = cuda_ms(lambda: peel_topk(nms16, 8, 8), iters=5)
-            det_ms = cuda_ms(lambda: detection_batch(score0, dp), iters=5)
-            det_fused_ms = cuda_ms(lambda: detection_batch_fused(score0, dp),
-                                   iters=5)
+            det_fused_ms, det_ms, det_turns = in_turns(
+                lambda: detection_batch_fused(score0, dp),
+                lambda: detection_batch(score0, dp), iters=5, other_iters=5)
         peel_bound_ms, peel_bound_by = peel_bound(nms16, 8)
         log(f"  {list(nms16.shape)} per_chunk 8: kernel {peel_ms:.4f} ms, plain "
             f"{peel_plain_ms:.4f} ms, bound {peel_bound_ms:.4f} ms "
             f"({peel_bound_by}); detection_batch {det_ms:.4f} ms, "
-            f"detection_batch_fused {det_fused_ms:.4f} ms")
+            f"detection_batch_fused {det_fused_ms:.4f} ms; in turns fused, "
+            f"unfused, unfused, fused: {[round(t, 4) for t in det_turns]}")
 
     with phase("FundamentalMatrix runner: optical_flow, 5 frames at 512^2"):
         for pipelined in (False, True):
@@ -1262,7 +1381,12 @@ def main() -> int:
          "replaces": "keypoint_bench_tpu/ops/pallas_nms.py:87",
          "launches": launches["nms"], "max_abs_err": errs["nms"],
          "ms": nms_ms, "plain_ms": nms_plain_ms, "bound_ms": nms_bound_ms,
-         "bound_by": nms_bound_by, "library_ms": None},
+         "bound_by": nms_bound_by, "library_ms": None,
+         "bound_ms_full_rounds": nms_full_ms,
+         "launches_per_call": nms_per_call,
+         "ms_by_max_iter": {str(it): ms for it, ms in split.items()},
+         "grid_blocks": min(blocks, tiles), "tiles_mask_per_round": k_mask,
+         "tiles_suppression_per_round": k_supp[1:]},
         {"name": "sparse_sample", "route": "cuda",
          "source": "keypoint_bench_tpu_torch/csrc/sample.cu",
          "replaces": "keypoint_bench_tpu/ops/pallas_sample.py:107",

@@ -15,14 +15,16 @@ import ctypes
 
 import torch
 
+from keypoint_bench_tpu_torch.ops import _build
 from keypoint_bench_tpu_torch.ops._build import Kernel
 
-# the tile's halo lives in shared memory: d <= 16 keeps both launches under
-# 48 KB of dynamic shared memory per block
+# the tile's d-pixel halo stays inside its 3x3 tile neighbourhood (d < 32,
+# which the changed-tile test needs) and in 48 KB of shared memory
 MAX_NMS_DIST = 16
+NMS_TILE = 32
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 KERNEL = Kernel("nms", "kbt_nms_fixpoint",
-                [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P])
+                [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P])
 PEEL_KERNEL = Kernel("peel", "kbt_peel", [_P, _P, _P, _I, _I, _I, _I, _I, _P])
 PEEL_CHUNK = 128
 
@@ -38,8 +40,14 @@ def nms_fixpoint(maps: torch.Tensor, nms_dist: int, max_iter: int = 30,
 
 
 def nms_cuda(maps: torch.Tensor, nms_dist: int, max_iter: int = 30,
-             min_value: float = 0.0) -> torch.Tensor:
-    """Launch kernel A (1 + 2*max_iter launches, no host sync)."""
+             min_value: float = 0.0,
+             stats: torch.Tensor | None = None) -> torch.Tensor:
+    """Launch kernel A: one cooperative launch for the batch, no host sync.
+
+    `stats`, if given, is an int32 tensor of B + 2 * (max_iter + 1) zeros
+    on the card; the kernel adds the rounds each map ran, then per round
+    the tiles whose mask, and the tiles whose suppression, it recomputed,
+    summed over the batch (round 0 has no suppression)."""
     fn = KERNEL.function()
     if not maps.is_cuda:
         raise ValueError("nms_cuda takes a CUDA tensor")
@@ -51,21 +59,55 @@ def nms_cuda(maps: torch.Tensor, nms_dist: int, max_iter: int = 30,
         raise ValueError(f"nms_dist must lie in [0, {MAX_NMS_DIST}] and "
                          f"max_iter >= 0; got {nms_dist}, {max_iter}")
     b, h, w = maps.shape
+    if stats is not None and (
+            stats.device != maps.device or stats.dtype != torch.int32
+            or stats.numel() != b + 2 * (max_iter + 1)
+            or not stats.is_contiguous()):
+        raise ValueError("stats must be a contiguous int32 tensor of "
+                         "B + 2 * (max_iter + 1) on the maps' device")
     if nms_dist == 0 or maps.numel() == 0:
         return maps
-    # the kernel updates its own f32 copy in place (value-exact for 16-bit
-    # maps); min_value is rounded to the map dtype as the plain path does
-    p = maps.to(torch.float32, copy=True).contiguous()
+    # f32 maps are read where they lie and copied into the output by the
+    # kernel's first phase; 16-bit maps are widened (value-exact) into the
+    # buffer the kernel then updates in place. min_value is rounded to the
+    # map dtype as the plain path does.
+    if maps.dtype == torch.float32:
+        src = maps.contiguous()
+        p = torch.empty_like(src)
+    else:
+        src = p = maps.float().contiguous()
     mv = torch.tensor(min_value, dtype=maps.dtype).float().item()
     dev = maps.device
-    mask = torch.empty((b, h, w), dtype=torch.uint8, device=dev)
-    counts = torch.zeros((max_iter + 1) * b, dtype=torch.int32, device=dev)
-    done = torch.zeros(b, dtype=torch.int32, device=dev)
+    words = -(-w // NMS_TILE)
+    tiles = b * -(-h // NMS_TILE) * words
+    # the local-max mask and the "holds min_value" mask, a bit a pixel
+    mask = torch.empty((2, b, h, words), dtype=torch.int32, device=dev)
+    # per-map counts of every round, then per tile: count, two stamps
+    scratch = torch.zeros((max_iter + 1) * b + 3 * tiles, dtype=torch.int32,
+                          device=dev)
     with torch.cuda.device(dev):
-        KERNEL.launch(1 + 2 * max_iter, p.data_ptr(), mask.data_ptr(),
-                      counts.data_ptr(), done.data_ptr(), b, h, w, nms_dist,
-                      max_iter, mv, torch.cuda.current_stream().cuda_stream)
+        KERNEL.launch(1, src.data_ptr(), p.data_ptr(), mask.data_ptr(),
+                      scratch.data_ptr(),
+                      0 if stats is None else stats.data_ptr(), b, h, w,
+                      nms_dist, max_iter, mv,
+                      torch.cuda.current_stream().cuda_stream)
     return p.to(maps.dtype)
+
+
+def nms_grid(nms_dist: int) -> tuple[int, int, int, int]:
+    """Kernel A's resident grid on the current device at nms_dist: (blocks
+    that fit at once, blocks per SM, threads a block, bytes of dynamic
+    shared memory a block). A launch takes min(blocks, tiles of the
+    batch)."""
+    KERNEL.function()
+    fn = ctypes.CDLL(_build.build("nms")).kbt_nms_grid
+    fn.argtypes = [ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)] * 4
+    fn.restype = ctypes.c_int
+    out = [ctypes.c_int() for _ in range(4)]
+    code = fn(nms_dist, *map(ctypes.byref, out))
+    if code != 0:
+        raise RuntimeError(f"kbt_nms_grid failed: CUDA error {code}")
+    return tuple(o.value for o in out)
 
 
 def check_peel_shape(w: int, per_chunk: int):

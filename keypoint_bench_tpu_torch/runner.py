@@ -6,8 +6,8 @@ the sequence tasks FundamentalMatrix (per pair and `task_params.pipelined`)
 and FundamentalMatrixRansac, with the brute-force, LightGlue (deterministic
 only), optical_flow and optical_flow_cv matchers (`_match`). Other tasks,
 adaptive LightGlue, the LETNet / GoodPoint flow sources, save_images, the
-resume journal, bf16 and the sharded batch paths raise NotImplementedError
-(ROADMAP.md).
+resume journal, bf16, debug_nans and the sharded batch paths (brute-force
+MHA, repeatability) raise NotImplementedError (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -102,6 +102,8 @@ class Evaluator:
             raise _not_ported(f"precision {cfg.precision!r}")
         if cfg.resume:
             raise _not_ported("resume")
+        if cfg.debug_nans:
+            raise _not_ported("debug_nans")
         self.params = load_params(cfg.model_type, cfg.weights_dir,
                                   self.device)
         self.model = get_model(cfg.model_type)(self.params).eval()
@@ -312,7 +314,10 @@ class Evaluator:
         return {f"h{t:g}": float(out[k]) for k, t in enumerate(ths)}
 
     def _run_mha(self, ds):
-        if int(self.cfg.data_params.get("batch_size", 1)) > 1:
+        # the JAX runner shards brute force alone; every other matcher runs
+        # the per-pair loop whatever the batch size
+        if int(self.cfg.data_params.get("batch_size", 1)) > 1 and \
+                self.matcher_type == "brute_force":
             raise _not_ported("the sharded batch MHA path")
         if self.cfg.task_params.get("save_images"):
             raise _not_ported("task_params.save_images")

@@ -4,7 +4,8 @@ Marked `cuda`: they skip on a host without a GPU. On the card run
 `python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py`. This file
 imports torch only (the card's machine has no JAX).
 
-Tolerances: kernel A (NMS) is bit-exact; kernel B (sampler) within 1e-5
+Tolerances: kernel A (NMS) is bit-exact, and runs each map for as many
+rounds as the plain fixpoint, in one launch; kernel B (sampler) within 1e-5
 absolute of the plain gather (f32 sums of the same products, another
 order). Kernel D (nearest neighbours): on integer descriptors every
 distance is exact, so indices and distances are equal, ties included; on
@@ -31,8 +32,8 @@ from keypoint_bench_tpu_torch.ops.attention import fused_attention
 from keypoint_bench_tpu_torch.ops.detect import (DetectParams,
                                                  detection_batch,
                                                  detection_batch_fused,
-                                                 fast_nms, fused_topk,
-                                                 peel_topk)
+                                                 fast_nms, fast_nms_rounds,
+                                                 fused_topk, peel_topk)
 from keypoint_bench_tpu_torch.ops.matching import (mutual_nn_fused,
                                                    mutual_nn_match, nn_dists)
 from keypoint_bench_tpu_torch.ops.sparse_desc import sample_branches
@@ -78,6 +79,67 @@ def test_nms_kernel_respects_max_iter(dev, max_iter):
     maps = _maps("smooth", (2, 64, 96), 7).to(dev)
     assert torch.equal(cuda_nms.nms_cuda(maps, 4, max_iter),
                        fast_nms(maps, 4, max_iter))
+
+
+def _blurred(shape, sigma, seed):
+    """Noise blurred by a Gaussian of `sigma` px: at d = 2, sigma 4 takes
+    20-30 rounds, each map its own number."""
+    m = np.random.default_rng(seed).random(shape).astype(np.float32)
+    return torch.from_numpy(ndi.gaussian_filter(m, (0, sigma, sigma)).astype(
+        np.float32))
+
+
+def _bits(t):
+    return t.view(torch.int32 if t.dtype == torch.float32 else torch.int16)
+
+
+def _nms_cases():
+    ties = (torch.round(torch.from_numpy(np.random.default_rng(9).random(
+        (2, 160, 224)).astype(np.float32)) * 2) / 2).to(torch.bfloat16)
+    return {
+        "100x130": (_blurred((3, 100, 130), 2, 1), 6, 30),
+        "352x1216": (_blurred((2, 352, 1216), 2, 2), 4, 30),
+        "d1": (_blurred((2, 96, 128), 2, 3), 1, 30),
+        "d16": (_blurred((2, 160, 200), 2, 4), 16, 30),
+        "max_iter0": (_blurred((2, 96, 160), 4, 5), 2, 0),
+        "max_iter1": (_blurred((2, 96, 160), 4, 5), 2, 1),
+        "max_iter2": (_blurred((2, 96, 160), 4, 5), 2, 2),
+        "rounds_differ": (_blurred((6, 256, 256), 4, 6), 2, 30),
+        "beyond_grid": (_blurred((24, 512, 512), 4, 7), 2, 30),
+        "constant": (torch.full((2, 200, 200), 0.25), 6, 30),
+        "ties_bf16": (ties, 2, 30)}
+
+
+@pytest.mark.parametrize("case", sorted(_nms_cases()))
+def test_nms_kernel_bit_equal_per_map_rounds(dev, case):
+    """Bit equality with fast_nms, one launch, and the rounds the kernel
+    ran for each map equal to fast_nms_rounds': maps off the 32-pixel
+    tiles, d = 1 and 16, max_iter cutting maps that still change, maps
+    stopping in different rounds, more tiles (24 x 256) than the resident
+    grid holds blocks, on maps that need 20-30 rounds (values other blocks
+    wrote before a grid barrier must be read fresh), a constant map and a
+    tie-heavy bf16 map."""
+    maps, d, max_iter = _nms_cases()[case]
+    maps = maps.to(dev)
+    b = maps.shape[0]
+    stats = torch.zeros(b + 2 * (max_iter + 1), dtype=torch.int32,
+                        device=dev)
+    before = cuda_nms.KERNEL.launches
+    got = cuda_nms.nms_cuda(maps, d, max_iter, stats=stats)
+    assert cuda_nms.KERNEL.launches == before + 1
+    want, rounds = fast_nms_rounds(maps, d, max_iter)
+    assert got.dtype == maps.dtype
+    assert torch.equal(_bits(got), _bits(want))
+    assert torch.equal(stats[:b], rounds)
+    if case == "rounds_differ":
+        assert len(set(rounds.tolist())) > 1
+    if case == "beyond_grid":
+        blocks = cuda_nms.nms_grid(d)[0]
+        assert b * 16 * 16 > blocks and int(rounds.min()) >= 15
+    if max_iter:
+        # round 0's mask and round 1's suppression take every tile
+        tiles = b * -(-maps.shape[1] // 32) * -(-maps.shape[2] // 32)
+        assert stats[b] == tiles and stats[b + max_iter + 2] == tiles
 
 
 def _sample_case(dev, b, k, seed,
@@ -134,7 +196,7 @@ def test_detection_on_card_matches_cpu_and_counts_launches(dev):
     dp = DetectParams(nms_dist=6, border_dist=8, top_k=300)
     before = cuda_nms.KERNEL.launches
     k, v = detection_batch(maps.to(dev), dp)
-    assert cuda_nms.KERNEL.launches == before + 1 + 2 * dp.max_nms_iter
+    assert cuda_nms.KERNEL.launches == before + 1
     k_cpu, v_cpu = detection_batch(maps, dp)
     assert torch.equal(k.cpu(), k_cpu) and torch.equal(v.cpu(), v_cpu)
 

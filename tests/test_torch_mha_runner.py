@@ -8,7 +8,9 @@ different random streams on the two sides, so the MHA hits are compared
 in tests/test_torch_ransac_mha.py on shared samples; here they must be
 well-formed. The batched `superpoint_mha_step` must give the runner's
 per-pair matches. Also the JAX runner's error semantics for LightGlue
-without weights, and the parts that raise NotImplementedError.
+without weights, and the parts that raise NotImplementedError; LightGlue
+with data_params.batch_size > 1 runs the per-pair loop, as in the JAX
+runner.
 """
 import json
 
@@ -165,8 +167,22 @@ def test_lightglue_without_weights_raises_or_falls_back(tmp_path):
     ({"task_type": "visual_odometer"}, "visual_odometer"),
     ({"data_params": {"type": "synthetic_homography", "num_pairs": 2,
                       "image_size": S, "batch_size": 2}}, "sharded"),
-    ({"task_type": "AUC"}, "AUC")])
+    ({"task_type": "AUC"}, "AUC"),
+    ({"debug_nans": True}, "debug_nans")])
 def test_unported_parts_raise(weights, tmp_path, change, what):
     cfg = {**_cfg(weights, tmp_path), **change}
     with pytest.raises(NotImplementedError, match=what):
         Evaluator(EvalConfig(**cfg), "cpu").run()
+
+
+def test_light_glue_batch_size_runs_per_pair_loop(weights, tmp_path):
+    """Only brute force has a sharded MHA path: LightGlue at batch_size 2
+    runs the per-pair loop and equals the batch_size 1 run."""
+    runs = []
+    for bs in (1, 2):
+        cfg = _cfg(weights, tmp_path / f"bs{bs}", "light_glue",
+                   task_params={"th": [3, 5, 7]})
+        cfg["data_params"] = {**cfg["data_params"], "batch_size": bs}
+        runs.append(Evaluator(EvalConfig(**cfg), "cpu").run())
+    assert len(runs[1]["per_pair"]) == 2
+    assert runs[1] == runs[0]
