@@ -4,7 +4,8 @@
 Phases, each fatal on failure:
   1. the card's name and power limit; build the six CUDA kernels from
      keypoint_bench_tpu_torch/csrc with nvcc, in parallel, and print what
-     `-Xptxas -v` says of kernels E and F (registers, shared memory, spills);
+     `-Xptxas -v` says of kernels D, E and F (registers, shared memory,
+     spills);
   2. the ALIKE-t and SuperPoint forwards on the card vs the CPU at 128^2
      (atol 1e-4, f32 with TF32 off on both);
   3. kernel A (NMS fixpoint) vs its plain twin on real ALIKE-t score maps
@@ -24,9 +25,15 @@ Phases, each fatal on failure:
   6. synthetic repeatability (configs/repeatability_synthetic.yaml, 4
      pairs at 512^2) through the port's runner, equal to the plain-twin run;
   7. kernel D (nearest neighbours) vs its plain twin on real SuperPoint
-     (D = 256) and ALIKE-t (D = 64) descriptors at K = 1000 with invalid
-     rows and columns: indices equal except near ties (the two candidates'
-     distances within 1e-5 of |a|^2 + |b|^2), distances within 1e-4 of it;
+     (D = 256) and ALIKE-t (D = 64, the main path's) descriptors at
+     K = 1000 and on random unit descriptors at K = 4096 (D = 256), with
+     invalid rows and columns (one penalty column each): indices equal
+     except near ties (the two candidates' distances within 1e-5 of
+     |a|^2 + |b|^2), distances within 1e-4 of it; bit-equal on integer
+     descriptors; each of the three timed in turns with the library
+     yardstick (baddbmm, then both minima with their indices), beside
+     the plain twin, the bound and the device time of a call from the
+     profiler;
   8. kernel E (masked attention) vs its plain twin within 1e-5 absolute
      and relative: 8 pairs x 2 sides x 4 heads at K = 1000 for both scales,
      all keys invalid (finite and uniform), n != m off the tile size; timed
@@ -604,8 +611,8 @@ def main() -> int:
     with phase("build kernels (nvcc, parallel)"):
         t0 = time.perf_counter()
         with ThreadPoolExecutor() as pool:
-            info = {n: pool.submit(ptxas_info, n) for n in ("attention",
-                                                            "lk")}
+            info = {n: pool.submit(ptxas_info, n)
+                    for n in ("match", "attention", "lk")}
             list(pool.map(_build.build,
                           ["nms", "sample", "match", "attention", "lk",
                            "peel"]))
@@ -835,6 +842,11 @@ def main() -> int:
                       5.0), iters=5)}
         for name, ms in st.items():
             log(f"  stage {name}: {ms:.4f} ms")
+        with torch.inference_mode():
+            busy, window, _ = profile_step(lambda: mutual_nn_match(
+                ext_k[0][0], ext_k[1][0], ext_k[0][2], ext_k[1][2], 5.0))
+        log(f"  stage mutual_nn_match under the profiler: device busy "
+            f"{busy:.4f} ms of a {window:.4f} ms window")
 
     with phase("repeatability: synthetic, 4 pairs at 512^2"):
         cfg = EvalConfig.from_yaml(os.path.join(
@@ -861,38 +873,77 @@ def main() -> int:
 
     with phase("kernel D (nearest neighbours) vs plain nn_dists"):
         rows = torch.arange(K, device=dev)
-        cases = [("SuperPoint D=256", sample_at_points(sdm0, sk0), sva,
-                  sample_at_points(sdm1, sk1), svb),
-                 ("ALIKE-t D=64", ext_k[0][0], ext_k[0][2], ext_k[1][0],
-                  ext_k[1][2])]
-        for name, da, va_, db, vb_ in cases:
+
+        def pen_pair(da, va_, db, vb_):
             # covisibility leaves invalid rows; add more on both sides
-            a, _ = penalized(da, va_ & (rows % 9 != 0))
-            b, _ = penalized(db, vb_ & (rows % 11 != 0))
+            return (penalized(da, va_ & (rows % 9 != 0))[0],
+                    penalized(db, vb_ & (rows % 11 != 0))[0])
+
+        gen = torch.Generator(device=dev).manual_seed(3)
+        big = [torch.randn((PAIRS, K_LARGE, 256), device=dev, generator=gen)
+               for _ in range(2)]
+        big = [penalized(x / x.norm(dim=-1, keepdim=True),
+                         torch.rand((PAIRS, K_LARGE), device=dev,
+                                    generator=gen) > 0.15)[0] for x in big]
+        cases = [("SuperPoint D=257",
+                  *pen_pair(sample_at_points(sdm0, sk0), sva,
+                            sample_at_points(sdm1, sk1), svb)),
+                 ("ALIKE-t D=65", *pen_pair(ext_k[0][0], ext_k[0][2],
+                                            ext_k[1][0], ext_k[1][2])),
+                 (f"random D=257, K={K_LARGE}", *big)]
+        for name, a, b in cases:
             got = cuda_match.nn_dists_cuda(a, b)
             want = nn_dists(a, b)
             near, err_free, rel = check_nn(got, want, a, b)
             errs["nn_match"] = max(errs["nn_match"], err_free)
-            log(f"  {name} [16 pairs, K={K}]: near-tie index differences "
+            log(f"  {name} [{a.shape[0]} pairs]: near-tie index differences "
                 f"{near[0]} penalty-free, {near[1]} under a penalty, of "
-                f"{2 * a.shape[0] * K}; d max abs err {err_free:.3g} "
-                f"(penalty-free), {rel:.3g} of scale")
-            if name.startswith("SuperPoint"):
-                a_sp, b_sp = a, b
+                f"{2 * a.shape[0] * a.shape[1]}; d max abs err "
+                f"{err_free:.3g} (penalty-free), {rel:.3g} of scale")
+        ints = [torch.randint(-3, 4, (PAIRS, K, 65), device=dev,
+                              generator=gen).float() for _ in range(2)]
+        if not all(torch.equal(g, w) for g, w in zip(
+                cuda_match.nn_dists_cuda(*ints), nn_dists(*ints))):
+            raise AssertionError("kernel D differs from the plain twin on "
+                                 "integer descriptors")
 
-        def mm_argmin(a, b):
-            s = torch.baddbmm((a * a).sum(-1)[..., None]
-                              + (b * b).sum(-1)[:, None, :], a,
-                              b.transpose(1, 2), alpha=-2.0)
-            return s.argmin(-1), s.argmin(-2)
+        def mm_min(a, b):
+            """The library calls timed beside kernel D (the port never
+            makes them): baddbmm for s, then both minima with indices."""
+            def call():
+                s = torch.baddbmm((a * a).sum(-1)[..., None]
+                                  + (b * b).sum(-1)[:, None, :], a,
+                                  b.transpose(1, 2), alpha=-2.0)
+                return s.min(-1), s.min(-2)
+            return call
 
-        match_ms = cuda_ms(lambda: cuda_match.nn_dists_cuda(a_sp, b_sp))
-        match_plain_ms = cuda_ms(lambda: nn_dists(a_sp, b_sp), iters=5)
-        mm_argmin_ms = cuda_ms(lambda: mm_argmin(a_sp, b_sp), iters=5)
-        match_bound_ms, match_bound_by = match_bound(a_sp, b_sp)
-        log(f"  [16 pairs, K={K}, D=257]: kernel {match_ms:.4f} ms, plain "
-            f"{match_plain_ms:.4f} ms, matmul + argmin {mm_argmin_ms:.4f} "
-            f"ms, bound {match_bound_ms:.4f} ms ({match_bound_by})")
+        match_t = {}
+        for name, a, b in cases:
+            ms, lib_ms, turns = in_turns(
+                lambda: cuda_match.nn_dists_cuda(a, b), mm_min(a, b),
+                iters=20, other_iters=10)
+            plain_ms = cuda_ms(lambda: nn_dists(a, b), iters=5)
+            bound_ms, bound_by = match_bound(a, b)
+            # device time of a call (memset + 2 kernels), which the event
+            # time above exceeds where the wrapper's host work paces calls
+            busy, _, top = profile_step(
+                lambda: [cuda_match.nn_dists_cuda(a, b) for _ in range(10)])
+            dev_ms = busy / 10
+            by_kernel = ", ".join(f"{k.split('(')[0]} {t / 10:.4f}"
+                                  for k, t in top)
+            match_t[name] = (ms, plain_ms, lib_ms, bound_ms, bound_by,
+                             dev_ms)
+            log(f"  {name}: kernel {ms:.4f} ms (device {dev_ms:.4f} ms; "
+                f"{by_kernel}), plain "
+                f"{plain_ms:.4f} ms, baddbmm + min {lib_ms:.4f} ms, bound "
+                f"{bound_ms:.4f} ms ({bound_by}); bound / device time "
+                f"{bound_ms / dev_ms:.3f}; in turns "
+                f"kernel, library, library, kernel: "
+                f"{[round(t, 4) for t in turns]}")
+        (match_ms, match_plain_ms, match_lib_ms, match_bound_ms,
+         match_bound_by, match_dev_ms) = match_t["SuperPoint D=257"]
+        d65 = match_t["ALIKE-t D=65"]
+        big_t = match_t[f"random D=257, K={K_LARGE}"]
 
     with phase("kernel E (masked attention) vs plain fused_attention"):
         gen = torch.Generator(device=dev).manual_seed(2)
@@ -1399,7 +1450,12 @@ def main() -> int:
          "launches": launches["nn_match"], "max_abs_err": errs["nn_match"],
          "ms": match_ms, "plain_ms": match_plain_ms,
          "bound_ms": match_bound_ms, "bound_by": match_bound_by,
-         "library_ms": None, "matmul_argmin_ms": mm_argmin_ms},
+         "library_ms": match_lib_ms, "device_ms": match_dev_ms,
+         "ms_d65": d65[0], "device_ms_d65": d65[5], "plain_ms_d65": d65[1],
+         "library_ms_d65": d65[2], "bound_ms_d65": d65[3],
+         f"ms_k{K_LARGE}": big_t[0], f"device_ms_k{K_LARGE}": big_t[5],
+         f"library_ms_k{K_LARGE}": big_t[2],
+         f"bound_ms_k{K_LARGE}": big_t[3]},
         {"name": "attention", "route": "cuda",
          "source": "keypoint_bench_tpu_torch/csrc/attention.cu",
          "replaces": "keypoint_bench_tpu/ops/pallas_attention.py:33",

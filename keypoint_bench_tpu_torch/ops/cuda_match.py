@@ -29,8 +29,8 @@ def nearest_neighbours(a: torch.Tensor, b: torch.Tensor):
 
 
 def nn_dists_cuda(a: torch.Tensor, b: torch.Tensor):
-    """Launch kernel D once for every pair of the batch (a memset and two
-    kernel launches, no host sync)."""
+    """Launch kernel D once for every pair of the batch (a memset of the
+    row and column keys and two kernel launches, no host sync)."""
     KERNEL.function()   # builds, or raises, before any launch
     if not (a.is_cuda and b.is_cuda and a.device == b.device):
         raise ValueError("nn_dists_cuda takes CUDA tensors on one device")
@@ -50,7 +50,7 @@ def nn_dists_cuda(a: torch.Tensor, b: torch.Tensor):
     d01 = torch.empty((bsz, m), device=dev)
     nn10 = torch.empty((bsz, n), dtype=torch.int32, device=dev)
     d10 = torch.empty((bsz, n), device=dev)
-    keys = torch.empty((bsz, n), dtype=torch.int64, device=dev)
+    keys = torch.empty((bsz, m + n), dtype=torch.int64, device=dev)
     with torch.cuda.device(dev):
         KERNEL.launch(2, a3.data_ptr(), b3.data_ptr(), bsz, m, n, d,
                       nn01.data_ptr(), d01.data_ptr(), nn10.data_ptr(),

@@ -237,14 +237,20 @@ def _check_nn(got, want, a, b):
                      <= 1e-5 * scale).all())
 
 
-@pytest.mark.parametrize("b,m,n,d", [(1, 1, 1, 65), (2, 70, 130, 65),
-                                     (3, 1000, 1000, 257), (1, 64, 200, 3)])
+@pytest.mark.parametrize("b,m,n,d", [
+    (1, 1, 1, 65), (2, 70, 130, 65), (3, 1000, 1000, 257), (1, 64, 200, 3),
+    # M, N off the 128-row tile; D = 1 (one live feature), 300 (a slice
+    # tail of 12); 40 pairs of 8 x 8 tiles, beyond one wave of blocks
+    (1, 129, 127, 65), (2, 127, 129, 1), (2, 1000, 1, 257), (1, 1, 1000, 65),
+    (2, 300, 260, 300), (40, 1000, 1000, 65)])
 @pytest.mark.parametrize("integer", [True, False])
 def test_match_kernel_matches_plain(dev, b, m, n, d, integer):
     a = torch.from_numpy(_penalized(b, m, d - 1, m, integer)).to(dev)
     bb = torch.from_numpy(_penalized(b, n, d - 1, n + 1, integer)).to(dev)
     if integer and n > 100:
         bb[:, n - 3] = bb[:, 2]          # equal columns in far-apart tiles
+    if integer and m > 100:
+        a[:, m - 3] = a[:, 2]            # equal rows in far-apart tiles
     got = cuda_match.nn_dists_cuda(a, bb)
     want = nn_dists(a, bb)
     if integer:
@@ -252,6 +258,21 @@ def test_match_kernel_matches_plain(dev, b, m, n, d, integer):
             assert torch.equal(g, w)
     else:
         _check_nn(got, want, a, bb)
+
+
+@pytest.mark.parametrize("integer", [True, False])
+def test_match_kernel_pair_with_every_row_penalized(dev, integer):
+    """Pair 1's rows all carry the sqrt(1e8) penalty: every distance of
+    that pair sits near 1e8, where f32 spacing is 8, so the sums round
+    and the rule of near ties applies."""
+    a = _penalized(2, 300, 64, 5, integer)
+    a[1, :, -1] = 1e4
+    a = torch.from_numpy(a).to(dev)
+    bb = torch.from_numpy(_penalized(2, 260, 64, 6, integer)).to(dev)
+    got = cuda_match.nn_dists_cuda(a, bb)
+    _check_nn(got, nn_dists(a, bb), a, bb)
+    if integer:                          # no column carries a penalty
+        assert bool((got[1][1] >= 1e8 - 1e4).all())
 
 
 def test_mutual_nn_match_on_card_launches_kernel_d(dev):
