@@ -4,7 +4,7 @@
 Phases, each fatal on failure:
   1. the card's name and power limit; build the six CUDA kernels from
      keypoint_bench_tpu_torch/csrc with nvcc, in parallel, and print what
-     `-Xptxas -v` says of kernels D, E and F (registers, shared memory,
+     `-Xptxas -v` says of kernels B, D, E and F (registers, shared memory,
      spills);
   2. the ALIKE-t and SuperPoint forwards on the card vs the CPU at 128^2
      (atol 1e-4, f32 with TF32 off on both);
@@ -16,12 +16,16 @@ Phases, each fatal on failure:
   4. kernel B (sparse sampler) vs its plain twin on real branch features
      at 512^2, K=1000, original and y-sorted keypoint order, and on random
      features whose last branch is 3 x 3 or 2 x 2: max abs error <= 1e-5;
+     timed in both orders (CUDA events) beside the plain twin, the bound
+     of the distinct values and the bound of the 32-byte sectors a kernel
+     reading the channel-major layout must move;
   5. the ALIKE-t path, `extract_match` at 512^2, 16 pairs, nms 6, border
      8, top_k 1000, max_distance 5, with the launch counts reset just
      before it (kernel A exactly twice, one launch a detection batch):
      keypoints and masks equal to the same pipeline through the plain
      twins, match count within 0.5% of the valid keypoints; then
-     timed (median of 7 windows) with a per-stage breakdown;
+     timed (median of 7 windows) with a per-stage breakdown, and, after
+     the timings, kernel B's device time of a call from the profiler;
   6. synthetic repeatability (configs/repeatability_synthetic.yaml, 4
      pairs at 512^2) through the port's runner, equal to the plain-twin run;
   7. kernel D (nearest neighbours) vs its plain twin on real SuperPoint
@@ -75,7 +79,9 @@ Phases, each fatal on failure:
      `detection_batch_fused` vs `detection_batch` on the same score maps,
      launch counts reset just before it: keypoints and masks equal, the
      full-sort guard taken on the tie-heavy maps and not on the real ones;
-     the two detection paths timed in turns;
+     kernel C timed in turns with its library yardstick, torch.topk of
+     every 128-column chunk of the same border-masked maps (values equal
+     to C's); the two detection paths timed in turns;
  15. the port's Evaluator: FundamentalMatrix with optical_flow on 5
      synthetic-sequence frames at 512^2, per pair and pipelined, against
      the plain-twin runs on the same seed;
@@ -411,16 +417,15 @@ def nms_change_bound(maps, mask_px, supp_px):
                                        else "operations")
 
 
-def sample_bound(feats, px, py, h, w):
-    """(ms, bound_by): the feature values this run's keypoints need (taps
-    with non-zero weight, distinct per map, all channels), the coordinates
-    read once and the samples written once; 2 flops per tap product."""
+def sample_taps_used(feats, px, py, h, w):
+    """Per branch of kernel B's function: (channels, h_i, w_i, map, row,
+    column of every tap with non-zero weight, taps an axis), from the plain
+    taps on this run's keypoints."""
     import torch
     from keypoint_bench_tpu_torch.ops.sparse_desc import (_axis_taps_direct,
                                                           _axis_taps_up)
-    b, k = px.shape
-    nbytes = 2 * px.numel() * 4
-    flops = 0
+    b = px.shape[0]
+    out = []
     for i, f in enumerate(feats):
         c, hi, wi = f.shape[1], f.shape[2], f.shape[3]
         if i == 0:
@@ -431,17 +436,52 @@ def sample_bound(feats, px, py, h, w):
             cb, wc = _axis_taps_up(px, w, wi)
         t = wr.shape[-1]
         ar = torch.arange(t, device=px.device)
-        rows = (rb[..., None] + ar)[..., :, None]
-        cols = (cb[..., None] + ar)[..., None, :]
         used = (wr[..., :, None] != 0) & (wc[..., None, :] != 0)
+        rows = (rb[..., None] + ar)[..., :, None].expand(used.shape)
+        cols = (cb[..., None] + ar)[..., None, :].expand(used.shape)
         bidx = torch.arange(b, device=px.device)[:, None, None, None]
-        lin = (bidx * hi + rows) * wi + cols
-        nbytes += int(torch.unique(lin[used]).numel()) * c * 4
+        out.append((c, hi, wi, bidx.expand(used.shape)[used], rows[used],
+                    cols[used], t))
+    return out
+
+
+def sample_bound(feats, px, py, h, w):
+    """(ms, bound_by): the feature values this run's keypoints need (taps
+    with non-zero weight, distinct per map, all channels), the coordinates
+    read once and the samples written once; 2 flops per tap product."""
+    import torch
+    b, k = px.shape
+    nbytes = 2 * px.numel() * 4
+    flops = 0
+    for c, hi, wi, bi, r, q, t in sample_taps_used(feats, px, py, h, w):
+        nbytes += int(torch.unique((bi * hi + r) * wi + q).numel()) * c * 4
         nbytes += b * c * k * 4                          # the samples out
         flops += 2 * b * c * k * (t * t + t)
     t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_F32
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
+
+
+def sample_sector_bound(feats, px, py, h, w):
+    """(ms, bound_by, feature bytes) of kernel B reading the channel-major
+    features as they are laid out: one 32-byte sector per distinct (map,
+    channel, row, sector) that a tap with non-zero weight touches, the
+    coordinates read once and the samples written once; sample_bound's
+    flops."""
+    import torch
+    b, k = px.shape
+    nbytes = 2 * px.numel() * 4
+    feat_bytes, flops = 0, 0
+    for c, hi, wi, bi, r, q, t in sample_taps_used(feats, px, py, h, w):
+        ch = torch.arange(c, device=px.device)[:, None]
+        addr = ((bi[None] * c + ch) * hi + r[None]) * wi + q[None]
+        feat_bytes += int(torch.unique(addr // 8).numel()) * 32
+        nbytes += b * c * k * 4                          # the samples out
+        flops += 2 * b * c * k * (t * t + t)
+    nbytes += feat_bytes
+    t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_F32
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", feat_bytes)
 
 
 def lk_bound(imgs, n, win, levels, iterations):
@@ -570,7 +610,8 @@ def main() -> int:
                                                      detection_batch_fused,
                                                      fast_nms,
                                                      fast_nms_rounds,
-                                                     fused_topk, peel_topk)
+                                                     fused_topk, peel_topk,
+                                                     remove_border)
     from keypoint_bench_tpu_torch.ops.lk import (LKParams, _avg_pool_img,
                                                  _lk_level, draw_angles,
                                                  optical_flow_batch_from_angles)
@@ -612,7 +653,7 @@ def main() -> int:
         t0 = time.perf_counter()
         with ThreadPoolExecutor() as pool:
             info = {n: pool.submit(ptxas_info, n)
-                    for n in ("match", "attention", "lk")}
+                    for n in ("sample", "match", "attention", "lk")}
             list(pool.map(_build.build,
                           ["nms", "sample", "match", "attention", "lk",
                            "peel"]))
@@ -780,9 +821,17 @@ def main() -> int:
             feats0, pxs, pys, SIZE, SIZE), iters=3, warmup=1)
         samp_bound_ms, samp_bound_by = sample_bound(feats0, pxs, pys, SIZE,
                                                     SIZE)
-        log(f"  [16 maps, K={K}]: kernel {samp_ms:.4f} ms, plain "
-            f"{samp_plain_ms:.4f} ms, bound {samp_bound_ms:.4f} ms "
-            f"({samp_bound_by})")
+        samp_sector_ms, samp_sector_by, samp_sector_bytes = \
+            sample_sector_bound(feats0, pxs, pys, SIZE, SIZE)
+        samp_orig_ms = cuda_ms(lambda: cuda_sample.sample_cuda(
+            feats0, px, py, SIZE, SIZE))
+        log(f"  [16 maps, K={K}]: kernel {samp_ms:.4f} ms y-sorted, "
+            f"{samp_orig_ms:.4f} ms original order (CUDA events, "
+            f"back-to-back wrapper calls; device time in the next phase), "
+            f"plain {samp_plain_ms:.4f} ms, bound {samp_bound_ms:.4f} ms "
+            f"({samp_bound_by}; distinct values), sector bound "
+            f"{samp_sector_ms:.4f} ms ({samp_sector_by}; "
+            f"{samp_sector_bytes} bytes of 32-byte feature sectors)")
 
     with phase("main path: extract_match, 16 pairs at 512^2"):
         reset_launches()
@@ -847,6 +896,20 @@ def main() -> int:
                 ext_k[0][0], ext_k[1][0], ext_k[0][2], ext_k[1][2], 5.0))
         log(f"  stage mutual_nn_match under the profiler: device busy "
             f"{busy:.4f} ms of a {window:.4f} ms window")
+        # kernel B's device time of a call (after the timed windows: a
+        # process that has profiled once pays more per launch)
+        samp_dev = {}
+        for name, (x, y) in (("y-sorted", (pxs, pys)),
+                             ("original", (px, py))):
+            busy, _, _ = profile_step(lambda: [cuda_sample.sample_cuda(
+                feats0, x, y, SIZE, SIZE) for _ in range(10)])
+            samp_dev[name] = busy / 10
+        samp_dev_ms = samp_dev["y-sorted"]
+        log(f"  kernel B device time a call: {samp_dev_ms:.4f} ms y-sorted, "
+            f"{samp_dev['original']:.4f} ms original order (events "
+            f"{samp_ms:.4f} / {samp_orig_ms:.4f}); sector bound "
+            f"{samp_sector_ms:.4f} ms, bound {samp_bound_ms:.4f} ms; "
+            f"sector bound / device time {samp_sector_ms / samp_dev_ms:.3f}")
 
     with phase("repeatability: synthetic, 4 pairs at 512^2"):
         cfg = EvalConfig.from_yaml(os.path.join(
@@ -1387,13 +1450,33 @@ def main() -> int:
                     raise AssertionError(f"fused detection on {name}")
             peel_ms = cuda_ms(lambda: cuda_nms.peel_cuda(nms16, 8, 8))
             peel_plain_ms = cuda_ms(lambda: peel_topk(nms16, 8, 8), iters=5)
+            # the library yardstick: torch.topk of every 128-column chunk
+            # of the same border-masked maps (values only: topk does not
+            # promise kernel C's lowest-index order on ties)
+            masked = remove_border(nms16.float(), dp.border_dist)
+            pb, ph, pw = masked.shape
+
+            def chunk_topk():
+                return torch.topk(masked.view(pb, ph, pw // 128, 128), 8,
+                                  dim=-1)
+
+            if not torch.equal(chunk_topk()[0].reshape(pb, ph, -1),
+                               cuda_nms.peel_cuda(nms16, 8, 8)[0]):
+                raise AssertionError("torch.topk's values differ from "
+                                     "kernel C's")
+            peel_turn_ms, topk_ms, peel_turns = in_turns(
+                lambda: cuda_nms.peel_cuda(nms16, 8, 8), chunk_topk,
+                iters=20, other_iters=20)
             det_fused_ms, det_ms, det_turns = in_turns(
                 lambda: detection_batch_fused(score0, dp),
                 lambda: detection_batch(score0, dp), iters=5, other_iters=5)
         peel_bound_ms, peel_bound_by = peel_bound(nms16, 8)
         log(f"  {list(nms16.shape)} per_chunk 8: kernel {peel_ms:.4f} ms, plain "
             f"{peel_plain_ms:.4f} ms, bound {peel_bound_ms:.4f} ms "
-            f"({peel_bound_by}); detection_batch {det_ms:.4f} ms, "
+            f"({peel_bound_by}); torch.topk of the chunks {topk_ms:.4f} ms "
+            f"in turns with the kernel's {peel_turn_ms:.4f} (kernel, topk, "
+            f"topk, kernel: {[round(t, 4) for t in peel_turns]}); "
+            f"detection_batch {det_ms:.4f} ms, "
             f"detection_batch_fused {det_fused_ms:.4f} ms; in turns fused, "
             f"unfused, unfused, fused: {[round(t, 4) for t in det_turns]}")
 
@@ -1443,7 +1526,11 @@ def main() -> int:
          "replaces": "keypoint_bench_tpu/ops/pallas_sample.py:107",
          "launches": launches["sample"], "max_abs_err": errs["sample"],
          "ms": samp_ms, "plain_ms": samp_plain_ms, "bound_ms": samp_bound_ms,
-         "bound_by": samp_bound_by, "library_ms": None},
+         "bound_by": samp_bound_by, "library_ms": None,
+         "device_ms": samp_dev_ms, "ms_original_order": samp_orig_ms,
+         "device_ms_original_order": samp_dev["original"],
+         "sector_bound_ms": samp_sector_ms,
+         "sector_bound_by": samp_sector_by},
         {"name": "nn_match", "route": "cuda",
          "source": "keypoint_bench_tpu_torch/csrc/match.cu",
          "replaces": "keypoint_bench_tpu/ops/pallas_match.py:29",
@@ -1482,7 +1569,8 @@ def main() -> int:
          "replaces": "keypoint_bench_tpu/ops/pallas_nms.py:127",
          "launches": launches["peel"], "max_abs_err": errs["peel"],
          "ms": peel_ms, "plain_ms": peel_plain_ms, "bound_ms": peel_bound_ms,
-         "bound_by": peel_bound_by, "library_ms": None,
+         "bound_by": peel_bound_by, "library_ms": topk_ms,
+         "ms_in_turns_with_library": peel_turn_ms,
          "detection_batch_ms": det_ms,
          "detection_batch_fused_ms": det_fused_ms},
     ]

@@ -178,6 +178,60 @@ def test_sample_kernel_tiny_branches_match_dense_resize(dev, lo):
     assert float((got - want).abs().max()) <= 1e-5
 
 
+def _main_path_case(dev, b, k, order, seed):
+    """Branches of a 512^2 image (16 channels each) and k points a map,
+    in the original or the y-sorted order (the main path's)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    feats = tuple(torch.rand((b, 16, n, n), device=dev, generator=gen)
+                  for n in (512, 256, 64, 16))
+    px, py = (torch.rand((b, k), device=dev, generator=gen) * 511.0
+              for _ in range(2))
+    if order == "sorted":
+        idx = torch.sort(torch.floor(py), dim=1, stable=True)[1]
+        px, py = px.gather(1, idx), py.gather(1, idx)
+    return feats, px.contiguous(), py.contiguous(), 512, 512
+
+
+@pytest.mark.parametrize("order", ["original", "sorted"])
+@pytest.mark.parametrize("b", [1, 16])
+@pytest.mark.parametrize("k", [1, 127, 129, 1000, 4096])
+def test_sample_kernel_at_main_path_shapes(dev, k, b, order):
+    args = _main_path_case(dev, b, k, order, k + b)
+    before = cuda_sample.KERNEL.launches
+    got = cuda_sample.sample_cuda(*args)
+    assert cuda_sample.KERNEL.launches == before + 1
+    want = sample_branches(*args)
+    assert got.shape == (b, 64, k)
+    assert float((got - want).abs().max()) <= 1e-5
+
+
+def test_sample_kernel_launch_args_cached_across_shapes(dev):
+    cuda_sample.launch_args.cache_clear()
+    one = _sample_case(dev, 2, 300, 1)
+    two = _sample_case(dev, 3, 129, 2, ((64, 64), (32, 32), (8, 8), (2, 2)))
+    for args in (one, two, one, two):
+        got = cuda_sample.sample_cuda(*args)
+        assert float((got - sample_branches(*args)).abs().max()) <= 1e-5
+    info = cuda_sample.launch_args.cache_info()
+    assert (info.currsize, info.hits) == (2, 2)
+
+
+def test_sample_kernel_skips_zero_weight_taps(dev):
+    """Integer points take one tap of branch 0: NaN on every other value
+    of that branch must not reach the output."""
+    feats, px, py, h, w = _sample_case(dev, 2, 200, 3)
+    px = torch.floor(px.clamp(max=w - 2))
+    py = torch.floor(py.clamp(max=h - 2))
+    f0 = torch.full_like(feats[0], float("nan"))
+    bi = torch.arange(2, device=dev)[:, None]
+    r, c = py.long(), px.long()
+    f0.permute(0, 2, 3, 1)[bi, r, c] = feats[0].permute(0, 2, 3, 1)[bi, r, c]
+    got = cuda_sample.sample_cuda((f0,) + feats[1:], px, py, h, w)
+    assert bool(torch.isfinite(got).all())
+    assert torch.equal(got[:, :16], feats[0].permute(0, 2, 3, 1)[bi, r, c]
+                       .permute(0, 2, 1))
+
+
 def test_sample_kernel_rejects_bad_input(dev):
     feats, px, py, h, w = _sample_case(dev, 1, 10, 0)
     with pytest.raises(ValueError):
