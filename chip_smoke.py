@@ -4,8 +4,8 @@
 Phases, each fatal on failure:
   1. the card's name and power limit; build the six CUDA kernels from
      keypoint_bench_tpu_torch/csrc with nvcc, in parallel, and print what
-     `-Xptxas -v` says of kernels B, D, E and F (registers, shared memory,
-     spills);
+     `-Xptxas -v` says of kernels B, D, E, F and C (registers, shared
+     memory, spills);
   2. the ALIKE-t and SuperPoint forwards on the card vs the CPU at 128^2
      (atol 1e-4, f32 with TF32 off on both);
   3. kernel A (NMS fixpoint) vs its plain twin on real ALIKE-t score maps
@@ -75,13 +75,17 @@ Phases, each fatal on failure:
      (median of 7 windows) in frames/s with a per-stage breakdown and one
      step under torch.profiler;
  14. kernel C (the per-chunk peel) vs its plain version on ALIKE-t's NMS'd
-     maps [16,512,512], a tie-heavy and a sparse map: bit equality; then
-     `detection_batch_fused` vs `detection_batch` on the same score maps,
-     launch counts reset just before it: keypoints and masks equal, the
-     full-sort guard taken on the tie-heavy maps and not on the real ones;
-     kernel C timed in turns with its library yardstick, torch.topk of
-     every 128-column chunk of the same border-masked maps (values equal
-     to C's); the two detection paths timed in turns;
+     maps [16,512,512], a tie-heavy and a sparse map, maps with NaN chunks
+     and with -0.0 beside +0.0: values equal under == (NaN matching NaN),
+     indices equal, (NaN, W) in every round of a NaN chunk; the rounds
+     per chunk the maps need, reckoned from the plain peel's candidates;
+     then `detection_batch_fused` vs `detection_batch` on the same score
+     maps, launch counts reset just before it: keypoints and masks equal,
+     the full-sort guard taken on the tie-heavy maps and not on the real
+     ones; kernel C timed in turns with its library yardstick, torch.topk
+     of every 128-column chunk of the same border-masked maps (values
+     equal to C's), and the device time of a call of each from the
+     profiler; the two detection paths timed in turns;
  15. the port's Evaluator: FundamentalMatrix with optical_flow on 5
      synthetic-sequence frames at 512^2, per pair and pipelined, against
      the plain-twin runs on the same seed;
@@ -522,16 +526,40 @@ def lk_bound(imgs, n, win, levels, iterations):
             max(t_bytes, every) * 1e3)
 
 
-def peel_bound(maps, per_chunk):
-    """(ms, bound_by) of kernel C on maps [B,H,W]: every value read once,
-    per_chunk values and indices written per 128-column chunk; one compare
-    per value and round at the compare rate."""
+def peel_bound(maps, per_chunk, border):
+    """(ms, bound_by) of kernel C on maps [B,H,W]: every value outside the
+    border band read once (the band reads 0, so the function needs none of
+    it), per_chunk values and indices written per 128-column chunk; one
+    compare per value read and round at the compare rate."""
     b, h, w = maps.shape
     nc = (w // 128) * per_chunk
-    t_bytes = (4 * b * h * w + 8 * b * h * nc) / PEAK_BYTES
-    t_ops = per_chunk * b * h * w / PEAK_F32_OPS
+    inner = b * max(h - 2 * border, 0) * max(w - 2 * border, 0)
+    t_bytes = (4 * inner + 8 * b * h * nc) / PEAK_BYTES
+    t_ops = per_chunk * inner / PEAK_F32_OPS
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
+
+
+def peel_equal(v, i, pv, pi):
+    """Kernel C's (values, indices) against the plain peel's: values equal
+    under == (so -0.0 == +0.0), NaN matching NaN; indices equal."""
+    import torch
+    nan = torch.isnan(pv)
+    return (torch.equal(nan, torch.isnan(v))
+            and torch.equal(torch.where(nan, 0.0, v), torch.where(nan, 0.0, pv))
+            and torch.equal(i, pi))
+
+
+def peel_rounds(vals, per_chunk):
+    """Kernel C's rounds per chunk, [B,H,n_blk] int64, reckoned from the
+    plain peel's candidates vals [B,H,n_blk*per_chunk]: one round per run
+    of equal values (a batch of ties, or the -inf fill); a NaN chunk,
+    settled by one ballot, counts one."""
+    import torch
+    b, h, nc = vals.shape
+    v = vals.reshape(b, h, nc // per_chunk, per_chunk)
+    new = (v[..., 1:] != v[..., :-1]) & ~torch.isnan(v[..., 1:])
+    return 1 + new.sum(-1)
 
 
 def border_points(b, n, h, w, gen, dev):
@@ -653,7 +681,7 @@ def main() -> int:
         t0 = time.perf_counter()
         with ThreadPoolExecutor() as pool:
             info = {n: pool.submit(ptxas_info, n)
-                    for n in ("sample", "match", "attention", "lk")}
+                    for n in ("sample", "match", "attention", "lk", "peel")}
             list(pool.map(_build.build,
                           ["nms", "sample", "match", "attention", "lk",
                            "peel"]))
@@ -1410,21 +1438,42 @@ def main() -> int:
         ties = (torch.round(torch.rand((2, SIZE, SIZE), device=dev,
                                        generator=gen) * 2) / 2).to(
             torch.bfloat16)
+        # NaN in a few chunks (two in the border, which reads 0);
+        # the maps' zeros as -0.0 on every other column, tying with +0.0
+        nan2 = nms16[:2].clone()
+        for b_, r_, c_ in ((0, 100, 300), (1, 200, 130), (1, 7, 130),
+                           (1, 400, 5)):
+            nan2[b_, r_, c_] = torch.nan
+        cols = torch.arange(SIZE, device=dev)
         cases = [("NMS'd score maps x16", nms16),
                  ("tie-heavy", cuda_nms.nms_cuda(ties, 2, 30).float()),
-                 ("sparse", torch.where(nms16[:2] > 0.6, nms16[:2], 0.0))]
+                 ("sparse", torch.where(nms16[:2] > 0.6, nms16[:2], 0.0)),
+                 ("NaN chunks", nan2),
+                 ("-0.0 beside +0.0", torch.where(
+                     (nms16[:2] == 0) & (cols % 2 == 0), -0.0, nms16[:2]))]
         for name, m in cases:
             v, i = cuda_nms.peel_cuda(m, dp.border_dist, 8)
             pv, pi = peel_topk(m, dp.border_dist, 8)
+            nan = torch.isnan(pv)
             diff = float((v - pv).abs().nan_to_num(0.0).max())
             errs["peel"] = max(errs["peel"], diff)
             short = int(((m != 0).reshape(*m.shape[:2], -1, 128).sum(-1)
                          < 8).sum())
-            log(f"  {name}: values equal={torch.equal(v, pv)} indices "
-                f"equal={torch.equal(i, pi)}; chunks with fewer than 8 "
-                f"non-zero entries: {short}")
-            if not (torch.equal(v, pv) and torch.equal(i, pi)):
+            rounds = peel_rounds(pv, 8).float()
+            same = peel_equal(v, i, pv, pi)
+            log(f"  {name}: values and indices equal={same} (NaN matching "
+                f"NaN, {int(nan.sum())} NaN candidates); chunks with fewer "
+                f"than 8 non-zero entries: {short}; rounds per chunk the "
+                f"maps need (reckoned on the host from the plain peel's "
+                f"candidates; the kernel does not count its rounds): mean "
+                f"{float(rounds.mean()):.4f}, max {int(rounds.max())}")
+            if not same:
                 raise AssertionError(f"kernel C differs on {name}")
+            if name == "NaN chunks" and not (
+                    int(nan.sum()) == 16
+                    and bool((pi[nan.nonzero(as_tuple=True)] == SIZE).all())):
+                raise AssertionError("the NaN chunks' rounds are not (NaN, "
+                                     "W)")
         reset_launches()
         with torch.inference_mode():
             fk, fv = detection_batch_fused(score0, dp)
@@ -1470,12 +1519,26 @@ def main() -> int:
             det_fused_ms, det_ms, det_turns = in_turns(
                 lambda: detection_batch_fused(score0, dp),
                 lambda: detection_batch(score0, dp), iters=5, other_iters=5)
-        peel_bound_ms, peel_bound_by = peel_bound(nms16, 8)
-        log(f"  {list(nms16.shape)} per_chunk 8: kernel {peel_ms:.4f} ms, plain "
-            f"{peel_plain_ms:.4f} ms, bound {peel_bound_ms:.4f} ms "
-            f"({peel_bound_by}); torch.topk of the chunks {topk_ms:.4f} ms "
-            f"in turns with the kernel's {peel_turn_ms:.4f} (kernel, topk, "
-            f"topk, kernel: {[round(t, 4) for t in peel_turns]}); "
+        # device time of a call (after the timed turns: a process that
+        # has profiled once pays more per launch)
+        busy, _, top = profile_step(
+            lambda: [cuda_nms.peel_cuda(nms16, 8, 8) for _ in range(10)])
+        peel_dev_ms = busy / 10
+        by_kernel = ", ".join(f"{k.split('(')[0]} {t / 10:.4f}"
+                              for k, t in top)
+        busy, _, _ = profile_step(lambda: [chunk_topk() for _ in range(10)])
+        topk_dev_ms = busy / 10
+        peel_bound_ms, peel_bound_by = peel_bound(nms16, 8, 8)
+        log(f"  {list(nms16.shape)} border 8, per_chunk 8: kernel "
+            f"{peel_ms:.4f} ms (device {peel_dev_ms:.4f} ms; {by_kernel}), "
+            f"plain {peel_plain_ms:.4f} ms, bound {peel_bound_ms:.4f} ms "
+            f"({peel_bound_by}); device time / bound "
+            f"{peel_dev_ms / peel_bound_ms:.3f}; torch.topk of the chunks "
+            f"{topk_ms:.4f} ms in turns with the kernel's {peel_turn_ms:.4f} "
+            f"(kernel, topk, topk, kernel: "
+            f"{[round(t, 4) for t in peel_turns]}; topk / kernel "
+            f"{topk_ms / peel_turn_ms:.2f}), device time {topk_dev_ms:.4f} "
+            f"ms (topk / kernel {topk_dev_ms / peel_dev_ms:.2f}); "
             f"detection_batch {det_ms:.4f} ms, "
             f"detection_batch_fused {det_fused_ms:.4f} ms; in turns fused, "
             f"unfused, unfused, fused: {[round(t, 4) for t in det_turns]}")
@@ -1570,7 +1633,8 @@ def main() -> int:
          "launches": launches["peel"], "max_abs_err": errs["peel"],
          "ms": peel_ms, "plain_ms": peel_plain_ms, "bound_ms": peel_bound_ms,
          "bound_by": peel_bound_by, "library_ms": topk_ms,
-         "ms_in_turns_with_library": peel_turn_ms,
+         "ms_in_turns_with_library": peel_turn_ms, "device_ms": peel_dev_ms,
+         "library_device_ms": topk_dev_ms,
          "detection_batch_ms": det_ms,
          "detection_batch_fused_ms": det_fused_ms},
     ]

@@ -11,6 +11,7 @@ CPU tensors only. For a CUDA tensor both launch their kernel or raise.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 
 import torch
@@ -130,7 +131,7 @@ def peel_candidates(nms: torch.Tensor, border: int, per_chunk: int = 8):
 
 
 def peel_cuda(nms: torch.Tensor, border: int, per_chunk: int = 8):
-    """Launch kernel C once (one warp per row and 128-column chunk)."""
+    """Launch kernel C once (one warp per map row)."""
     PEEL_KERNEL.function()   # builds, or raises, before any launch
     if not nms.is_cuda:
         raise ValueError("peel_cuda takes a CUDA tensor")
@@ -147,7 +148,13 @@ def peel_cuda(nms: torch.Tensor, border: int, per_chunk: int = 8):
     if b * h == 0:
         return vals, idx
     maps = nms.contiguous()
-    with torch.cuda.device(nms.device):
+    if maps.data_ptr() % 16:        # the kernel loads rows as float4
+        maps = maps.clone()
+    # entering a device context costs a few microseconds a call
+    on_dev = (contextlib.nullcontext()
+              if nms.device.index == torch.cuda.current_device()
+              else torch.cuda.device(nms.device))
+    with on_dev:
         PEEL_KERNEL.launch(1, maps.data_ptr(), vals.data_ptr(),
                            idx.data_ptr(), b, h, w, border, per_chunk,
                            torch.cuda.current_stream().cuda_stream)

@@ -16,9 +16,13 @@ relative of the plain twin (online softmax, another summation order).
 Kernel F (one LK level) within 5e-3 px of the plain `_lk_level` after 8
 iterations (another summation order of the five sums, amplified by the
 Gauss-Newton steps; the JAX package's tolerance between its kernel and
-`_lk_level`). Kernel C (the peel) only compares and selects: bit-equal
-values, equal indices.
+`_lk_level`). Kernel C (the peel) only compares and selects: values equal
+under == (NaN matching NaN; -0.0 ties with +0.0, as the reference's == has
+it), equal indices.
 """
+import os
+import runpy
+
 import numpy as np
 import pytest
 import scipy.ndimage as ndi
@@ -592,21 +596,50 @@ def _peel_maps(kind, shape, seed):
     if kind == "sparse":
         return torch.where(m > m.flatten().quantile(0.97), m,
                            torch.zeros_like(m))
+    if kind == "nan_signed_zero":
+        # sparse maxima on a floor of -0.0 and +0.0 (every third column
+        # -0.0), subnormals, and a NaN in a few chunks, two of them in the
+        # border
+        m = torch.where(m > m.flatten().quantile(0.97), m,
+                        torch.zeros_like(m))
+        cols = torch.arange(shape[-1])
+        m = torch.where((m == 0) & (cols % 3 == 0), -0.0, m)
+        m[0, 10, shape[-1] // 2 + 5] = torch.nan
+        m[2, 12, 3::17] = 1e-45              # subnormals tie by column
+        m[2, 13, 5::19] = -1e-45
+        m[1, 20, 1] = torch.nan
+        m[2, -1, 0] = torch.nan
     return m
 
 
-@pytest.mark.parametrize("per_chunk", [1, 8, 32])
-@pytest.mark.parametrize("kind", ["smooth", "random", "ties", "sparse"])
-def test_peel_kernel_equals_plain(dev, kind, per_chunk):
-    maps = _peel_maps(kind, (3, 37, 384), per_chunk).to(dev)
+# values equal under == (so -0.0 == +0.0), NaN matching NaN; indices equal
+_peel_equal = runpy.run_path(
+    os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                 "chip_smoke.py"), run_name="not_main")["peel_equal"]
+
+
+# W = 384 at three depths; the widest shapes the rule (W // 128) *
+# per_chunk <= 128 allows: 16 chunks of 8, 128 chunks of 1, one of 128
+@pytest.mark.parametrize("w,per_chunk", [(384, 1), (384, 8), (384, 32),
+                                         (2048, 8), (16384, 1), (128, 128)])
+@pytest.mark.parametrize("kind", ["smooth", "random", "ties", "sparse",
+                                  "nan_signed_zero"])
+def test_peel_kernel_equals_plain(dev, kind, w, per_chunk):
+    maps = _peel_maps(kind, (3, 37, w), per_chunk).to(dev)
     before = cuda_nms.PEEL_KERNEL.launches
     v, i = cuda_nms.peel_candidates(maps, 4, per_chunk)
     assert cuda_nms.PEEL_KERNEL.launches == before + 1
     pv, pi = peel_topk(maps, 4, per_chunk)
     assert v.dtype == torch.float32 and i.dtype == torch.int32
-    assert torch.equal(v, pv) and torch.equal(i, pi)
+    assert _peel_equal(v, i, pv, pi)
     cv, ci = peel_topk(maps.cpu(), 4, per_chunk)
-    assert torch.equal(v.cpu(), cv) and torch.equal(i.cpu(), ci)
+    assert _peel_equal(v.cpu(), i.cpu(), cv, ci)
+    if kind == "nan_signed_zero":       # (NaN, W) in every round of it
+        blk = (w // 2 + 5) // 128
+        nan_v = v[0, 10, blk * per_chunk:(blk + 1) * per_chunk]
+        nan_i = i[0, 10, blk * per_chunk:(blk + 1) * per_chunk]
+        assert bool(torch.isnan(nan_v).all()) and bool((nan_i == w).all())
+        assert not bool(torch.isnan(v[1:]).any())     # border NaNs read 0
 
 
 def test_peel_kernel_minus_inf_and_rules(dev):
@@ -617,6 +650,27 @@ def test_peel_kernel_minus_inf_and_rules(dev):
     pv, pi = peel_topk(m, 0, 4)
     assert torch.equal(v, pv) and torch.equal(i, pi)
     assert i[0, 3].tolist() == [7, 40, 0, 0]      # -inf stays the lowest
+    # a NaN chunk gives (NaN, W) in every round; -0.0 ties with +0.0 by
+    # column; -inf repeats at the widest shapes too; a map that is not
+    # 16-byte aligned is copied first
+    for w, pc in ((256, 4), (2048, 8), (16384, 1), (128, 128)):
+        buf = torch.full((1 + 8 * w,), -torch.inf, device=dev)
+        m = buf[1:].view(1, 8, w)
+        m[0, 0, w - 100] = torch.nan
+        m[0, 1] = 0.0
+        m[0, 1, ::2] = -0.0
+        m[0, 2, 9] = 0.5
+        m[0, 3, -1] = -0.0
+        v, i = cuda_nms.peel_cuda(m, 0, pc)
+        pv, pi = peel_topk(m, 0, pc)
+        assert _peel_equal(v, i, pv, pi)
+        last = slice((w // 128 - 1) * pc, (w // 128) * pc)
+        assert bool(torch.isnan(v[0, 0, last]).all())
+        assert i[0, 0, last].tolist() == [w] * pc
+        assert i[0, 1, :pc].tolist() == list(range(pc))
+        assert bool((v[0, 1, :pc] == 0).all())
+        assert i[0, 2, :pc].tolist() == ([9] + [0] * (pc - 1))
+        assert i[0, 3, last].tolist() == [w - 1] + [w - 128] * (pc - 1)
     for shape, pc in (((1, 8, 100), 8), ((1, 8, 2176), 8), ((1, 8, 128), 0)):
         with pytest.raises(ValueError):
             cuda_nms.peel_cuda(torch.zeros(shape, device=dev), 2, pc)

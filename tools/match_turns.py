@@ -21,30 +21,13 @@ from __future__ import annotations
 
 import argparse
 import ctypes
-import hashlib
 import json
 import os
-import subprocess
 import sys
 
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+import turns_common as tc
+
 SHAPES = [(16, 1000, 65), (16, 1000, 257), (16, 4096, 257)]
-
-
-def build(src: str) -> ctypes.CDLL:
-    from keypoint_bench_tpu_torch.ops import _build
-    with open(src, "rb") as f:
-        tag = hashlib.sha256(f.read()).hexdigest()[:16]
-    os.makedirs(_build.BUILD_DIR, exist_ok=True)
-    out = os.path.join(_build.BUILD_DIR, f"libmatch_turns_{tag}.so")
-    if not os.path.exists(out):
-        subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", out, src],
-                       check=True)
-    lib = ctypes.CDLL(out)
-    P, I = ctypes.c_void_p, ctypes.c_int
-    lib.kbt_nn_dists.argtypes = [P, P, I, I, I, I, P, P, P, P, P, P]
-    lib.kbt_nn_dists.restype = I
-    return lib
 
 
 def runner(lib, a, b):
@@ -90,17 +73,18 @@ def main() -> int:
     ap.add_argument("other")
     ap.add_argument("--iters", type=int, default=20)
     args = ap.parse_args()
-    sys.path.insert(0, ROOT)
+    sys.path.insert(0, tc.ROOT)
     import chip_smoke as cs
     from keypoint_bench_tpu_torch.ops import _build
     from keypoint_bench_tpu_torch.ops.matching import nn_dists
 
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
-    libs = {"other": build(args.other),
-            "this": build(os.path.join(_build.CSRC_DIR, "match.cu"))}
+    card = tc.card()
+    P, I = ctypes.c_void_p, ctypes.c_int
+    argtypes = [P, P, I, I, I, I, P, P, P, P, P, P]
+    libs = {rev: tc.build(src, "match", "kbt_nn_dists", argtypes)
+            for rev, src in (("other", args.other),
+                             ("this", os.path.join(_build.CSRC_DIR,
+                                                   "match.cu")))}
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = []
     for bsz, k, d in SHAPES:
@@ -122,14 +106,8 @@ def main() -> int:
 
         call_other = runner(libs["other"], a, b)
         call_this = runner(libs["this"], a, b)
-        smi = subprocess.Popen(
-            ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
-             "--format=csv,noheader", "-lms", "50"],
-            stdout=subprocess.PIPE, text=True)
         other_ms, this_ms, turns = cs.in_turns(
             call_other, call_this, iters=args.iters, other_iters=args.iters)
-        smi.terminate()
-        clocks = smi.communicate()[0].strip().splitlines()
         lib_ms = cs.cuda_ms(lib_call, iters=args.iters // 2)
         mm_ms = cs.cuda_ms(lambda: torch.baddbmm(
             b[:, :1, :1], a, b.transpose(1, 2), alpha=-2.0),
@@ -138,11 +116,10 @@ def main() -> int:
         row = {"shape": [bsz, k, d], "other_ms": other_ms, "ms": this_ms,
                "turns_other_this_this_other": turns, "library_ms": lib_ms,
                "baddbmm_alone_ms": mm_ms, "bound_ms": bound_ms,
-               "bound_by": bound_by, "sm_clock_power_during_turns": clocks}
+               "bound_by": bound_by}
         for name, call in (("other", call_other), ("this", call_this)):
-            busy, _, kernels = cs.profile_step(call)
-            row[f"device_ms_{name}"] = busy
-            row[f"kernels_{name}"] = kernels
+            row[f"device_ms_{name}"], row[f"kernels_{name}"] = tc.device_ms(
+                call, calls=1)
         rows.append(row)
         print(json.dumps(row), flush=True)
     print(card)

@@ -31,33 +31,15 @@ from __future__ import annotations
 
 import argparse
 import ctypes
-import hashlib
 import importlib.util
 import json
 import os
-import subprocess
 import sys
 import time
 
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+import turns_common as tc
+
 SIZE = 512
-
-
-def build(src: str, argtypes) -> ctypes.CDLL:
-    from keypoint_bench_tpu_torch.ops import _build
-    with open(src, "rb") as f:
-        tag = hashlib.sha256(f.read()).hexdigest()[:16]
-    os.makedirs(_build.BUILD_DIR, exist_ok=True)
-    out = os.path.join(_build.BUILD_DIR, f"libsample_turns_{tag}.so")
-    if not os.path.exists(out):
-        subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", out, src],
-                       check=True)
-    lib = ctypes.CDLL(out)
-    lib.kbt_sample.argtypes = argtypes
-    lib.kbt_sample.restype = ctypes.c_int
-    lib.kbt_error_string.argtypes = [ctypes.c_int]
-    lib.kbt_error_string.restype = ctypes.c_char_p
-    return lib
 
 
 def launcher(lib, feats, px, py, h, w):
@@ -112,7 +94,7 @@ def main() -> int:
     ap.add_argument("--wrapper", default=None)
     ap.add_argument("--iters", type=int, default=20)
     args = ap.parse_args()
-    sys.path.insert(0, ROOT)
+    sys.path.insert(0, tc.ROOT)
     import numpy as np
 
     import chip_smoke as cs
@@ -125,15 +107,15 @@ def main() -> int:
                                                           sample_branches)
     from keypoint_bench_tpu_torch.weights import load_params
 
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+    card = tc.card()
     dev = torch.device("cuda")
-    argtypes = cuda_sample.KERNEL.argtypes
-    libs = {"other": build(args.other, argtypes),
-            "this": build(os.path.join(_build.CSRC_DIR, "sample.cu"),
-                          argtypes)}
+    libs = {}
+    for rev, src in (("other", args.other),
+                     ("this", os.path.join(_build.CSRC_DIR, "sample.cu"))):
+        libs[rev] = tc.build(src, "sample", "kbt_sample",
+                             cuda_sample.KERNEL.argtypes)
+        libs[rev].kbt_error_string.argtypes = [ctypes.c_int]
+        libs[rev].kbt_error_string.restype = ctypes.c_char_p
     wrappers = {"this": cuda_sample.sample_cuda}
     if args.wrapper:
         wrappers["other"] = other_wrapper(args.wrapper, libs["other"])
@@ -187,10 +169,6 @@ def main() -> int:
             calls[("wrapper", rev)] = (lambda fn=fn, x=x, y=y: fn(
                 feats, x, y, SIZE, SIZE))
         row = {}
-        smi = subprocess.Popen(
-            ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
-             "--format=csv,noheader", "-lms", "50"],
-            stdout=subprocess.PIPE, text=True)
         for how in ("launch", "wrapper"):
             if (how, "other") not in calls:
                 row[f"{how}_this_ms"] = cs.cuda_ms(calls[(how, "this")],
@@ -201,17 +179,12 @@ def main() -> int:
                 iters=args.iters, other_iters=args.iters)
             row[f"{how}_other_ms"], row[f"{how}_this_ms"] = other_ms, this_ms
             row[f"{how}_turns_other_this_this_other"] = turns
-        smi.terminate()
-        row["sm_clock_power_during_turns"] = \
-            smi.communicate()[0].strip().splitlines()
         rows[name] = row
     for name, (x, y) in orders.items():
         for rev, lib in libs.items():
-            call = launcher(lib, feats, x, y, SIZE, SIZE)
-            busy, _, kernels = cs.profile_step(
-                lambda: [call() for _ in range(10)])
-            rows[name][f"device_{rev}_ms"] = busy / 10
-            rows[name][f"kernels_{rev}"] = [(n, t / 10) for n, t in kernels]
+            (rows[name][f"device_{rev}_ms"],
+             rows[name][f"kernels_{rev}"]) = tc.device_ms(
+                launcher(lib, feats, x, y, SIZE, SIZE))
         x, y = orders[name]
         for rev, fn in wrappers.items():
             rows[name][f"wrapper_{rev}_host_us"] = host_us(
