@@ -89,7 +89,33 @@ Phases, each fatal on failure:
  15. the port's Evaluator: FundamentalMatrix with optical_flow on 5
      synthetic-sequence frames at 512^2, per pair and pipelined, against
      the plain-twin runs on the same seed;
- 16. a `kernels` JSON line and, last, the device JSON line.
+ 16. XFeat's forward joins phase 2's card-vs-CPU check; the AUC path
+     (bench.py:221-311): 8 synthetic SE3 pairs at 512^2 with 2400 blobs,
+     then `xfeat_auc_step` (XFeat x2 -> detection (kernel A) ->
+     descriptors at stride 8 -> LightGlue with the 64 -> 256 input
+     projection (kernel E) -> essential RANSAC with 4096 hypotheses ->
+     recoverPose -> pose error), launch counts reset just before it
+     (kernel A twice, kernel E 18 times); A bit-equal to fast_nms and E
+     within 1e-5 of max(1, max |v|) of fused_attention on the very calls
+     the step made (|v| reaches ~120 in the deep layers);
+     keypoints equal to the plain-twin step on the same generator seed,
+     errors within 1e-3 degrees; timed (median of 7 windows) in pairs/s
+     with a per-stage breakdown and one step under torch.profiler;
+ 17. RANSAC-E + recoverPose on the card against the same functions on the
+     CPU with the same minimal samples, on the warp_se3 ground-truth
+     correspondences of the step's keypoints: in float32 ok equal, inlier
+     counts within 0.5% and pose errors (evaluated in float64) within 0.1
+     degrees, the two SVD routes' float32 spread on these normal
+     equations; in float64 counts equal and pose errors within 1e-3
+     degrees; the stage and
+     its parts timed (sampling, 8-point SVDs, essential projections,
+     Sampson matrix), and the host synchronizations it makes counted;
+ 18. the port's Evaluator: AUC with ALIKE-t + brute force (kernels A and
+     D) on 4 SE3 pairs at 512^2: median pose error < 10 degrees, AUC@20 >
+     0.3, per-pair errors within 1e-3 of the plain-twin run; SE3
+     repeatability on the same pairs > 0.1;
+ 19. an `xfeat_auc_step` JSON line, a `kernels` JSON line and, last, the
+     device JSON line.
 Exits non-zero without CUDA, or without the port's package beside it.
 """
 from __future__ import annotations
@@ -108,6 +134,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 DEVICE, SIZE, PAIRS, K = "cuda", 512, 16, 1000
 LG_PAIRS, K_LARGE = 8, 4096     # LightGlue pairs; bench.py:314's second K
 LK_PAIRS = 8                    # bench.py:430's batch of the LK step
+AUC_PAIRS, AUC_BLOBS, AUC_NHYP = 8, 2400, 4096  # bench.py:258-264
 # H100 SXM peaks (vendor datasheet): HBM bytes/s, f32 FLOP/s (an FMA
 # counts 2). Compares, max and adds issue at most one per f32 lane and
 # clock, half the FMA-counted rate.
@@ -201,6 +228,23 @@ def plain_twins():
         (cuda_nms.nms_cuda, cuda_sample.sample_cuda,
          cuda_match.nn_dists_cuda, cuda_attention.attention_cuda,
          cuda_lk.lk_level_cuda, cuda_nms.peel_cuda) = saved
+
+
+@contextlib.contextmanager
+def recording(module, name):
+    """Record the arguments of every call of module.<name>, which still
+    runs as it is; restored on exit."""
+    calls, real = [], getattr(module, name)
+
+    def record(*args, **kwargs):
+        calls.append((args, kwargs))
+        return real(*args, **kwargs)
+
+    setattr(module, name, record)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, real)
 
 
 def kernel_handles():
@@ -614,6 +658,277 @@ def timed_windows(step, windows=7, per_window=3, warmup=2):
     return out
 
 
+def auc_phases(dev, dp, card, errs):
+    """The AUC path at bench.py's shapes (phases 16-18): the step with
+    kernels A and E held on its own calls and against its plain-twin run,
+    timed; RANSAC-E + recoverPose on the card against the CPU on
+    ground-truth correspondences; the runner's AUC task and SE3
+    repeatability. Returns the numbers for the kernels JSON line."""
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from keypoint_bench_tpu_torch.datasets.synthetic import \
+        SyntheticSE3Dataset
+    from keypoint_bench_tpu_torch.geometry import ransac
+    from keypoint_bench_tpu_torch.geometry.warp import warp_se3
+    from keypoint_bench_tpu_torch.models import get_model
+    from keypoint_bench_tpu_torch.models.lightglue import (
+        lightglue_forward, sample_descriptors_lg)
+    from keypoint_bench_tpu_torch.ops import cuda_attention, cuda_nms
+    from keypoint_bench_tpu_torch.ops.attention import fused_attention
+    from keypoint_bench_tpu_torch.ops.detect import (detection_batch,
+                                                     fast_nms)
+    from keypoint_bench_tpu_torch.ops.matching import take_rows
+    from keypoint_bench_tpu_torch.pipeline import xfeat_auc_step
+    from keypoint_bench_tpu_torch.runner import EvalConfig, Evaluator
+    from keypoint_bench_tpu_torch.tasks.auc import (estimate_pose_pair,
+                                                    pose_error)
+    from keypoint_bench_tpu_torch.weights import (
+        lightglue_input_proj_params, load_golden_params)
+
+    out = {}
+    with phase(f"data: {AUC_PAIRS} SE3 pairs at {SIZE}^2, {AUC_BLOBS} "
+               f"blobs"):
+        ds = SyntheticSE3Dataset(AUC_PAIRS, SIZE, 0, AUC_BLOBS)
+        items = [ds[i] for i in range(AUC_PAIRS)]
+
+        def stacked(key, group=None):
+            return torch.from_numpy(np.stack([
+                (it[group] if group else it)[key] for it in items])).to(dev)
+
+        imgs0, imgs1 = stacked("image0"), stacked("image1")
+        wp = {k: stacked(k, "warp01_params") for k in (
+            "pose01", "bbox0", "bbox1", "depth0", "depth1", "intrinsics0",
+            "intrinsics1")}
+        Ks, poses = wp["intrinsics0"], wp["pose01"]
+    xf = get_model("XFeat")(load_golden_params("XFeat", dev)).eval()
+    lg = lightglue_input_proj_params(device=dev)
+
+    with phase(f"xfeat_auc_step: {AUC_PAIRS} pairs at {SIZE}^2, n_hyp "
+               f"{AUC_NHYP}"):
+        def step(seed=0):
+            return xfeat_auc_step(
+                xf, lg, imgs0, imgs1, Ks, poses, dp,
+                torch.Generator(device=dev).manual_seed(seed), AUC_NHYP,
+                device=DEVICE)
+
+        reset_launches()
+        with recording(cuda_nms, "nms_cuda") as nms_calls, \
+                recording(cuda_attention, "attention_cuda") as att_calls:
+            err, n_in, k0, k1, m0, mask = step()
+            torch.cuda.synchronize()
+        got = read_launches()
+        log(f"  launches in one run: {got}")
+        if got["nms"] != 2 or got["attention"] != 18:
+            raise AssertionError(f"the AUC step launches kernel A twice and "
+                                 f"kernel E 18 times; got {got}")
+        out["launches"] = {k: got[k] for k in ("nms", "attention")}
+        for args, kw in nms_calls:
+            g, w = cuda_nms.nms_cuda(*args, **kw), fast_nms(*args, **kw)
+            errs["nms"] = max(errs["nms"],
+                              float((g.float() - w.float()).abs().max()))
+            if not torch.equal(g, w):
+                raise AssertionError("kernel A differs from fast_nms on the "
+                                     "step's XFeat heatmaps")
+        # an output row is a convex combination of v's rows, so its
+        # rounding scales with |v|, which reaches ~120 in the deep layers
+        # of the randomized weights: 1e-5 of max(1, max |v|) of the call
+        att_err, att_rel = 0.0, 0.0
+        for i, (args, kw) in enumerate(att_calls):
+            g = cuda_attention.attention_cuda(*args, **kw)
+            w = fused_attention(*args, **kw)
+            e = float((g - w).abs().max())
+            scale = max(1.0, float(args[2].abs().max()))
+            att_err, att_rel = max(att_err, e), max(att_rel, e / scale)
+            log(f"  kernel E call {i}: max abs err {e:.3g}, max |v| "
+                f"{scale:.3g}, err / max(1, |v|) {e / scale:.3g}")
+            if not (e <= 1e-5 * scale and bool(torch.isfinite(g).all())):
+                raise AssertionError("kernel E differs from fused_attention "
+                                     "on the step's LightGlue calls")
+        errs["attention"] = max(errs["attention"], att_err)
+        out["attention_err_over_v_scale"] = att_rel
+        log(f"  kernel A on the step's {len(nms_calls)} heatmap batches "
+            f"{tuple(nms_calls[0][0][0].shape)}: equal to fast_nms; kernel E "
+            f"on its {len(att_calls)} calls {tuple(att_calls[0][0][0].shape)}"
+            f": max abs err {att_err:.3g}, {att_rel:.3g} of max(1, |v|)")
+        del nms_calls[:], att_calls[:]
+        with plain_twins():
+            err_p, n_in_p, k0_p, k1_p, m0_p, mask_p = step()
+        n_valid = int((k0[..., 2] > 0).sum() + (k1[..., 2] > 0).sum())
+        log(f"  errors {err.tolist()} (plain {err_p.tolist()}); inliers "
+            f"{n_in.tolist()}; matches {int(mask.sum())} (plain "
+            f"{int(mask_p.sum())}); m0 rows that differ "
+            f"{int((m0 != m0_p).sum())}; keypoints with a score "
+            f"{n_valid}")
+        if not (torch.equal(k0, k0_p) and torch.equal(k1, k1_p)):
+            raise AssertionError("AUC step keypoints differ from plain")
+        if not (err.shape == (AUC_PAIRS,) and bool(torch.isfinite(err).all())
+                and bool(((err >= 0) & (err <= 180)).all())
+                and bool(((err - err_p).abs() <= 1e-3).all())):
+            raise AssertionError("AUC step errors malformed or differ from "
+                                 "the plain-twin step")
+        windows = timed_windows(step)
+        dt = statistics.median(windows)
+        pps = [AUC_PAIRS / w for w in windows]
+        out["pairs_per_s"] = AUC_PAIRS / dt
+        log(f"  step: median {dt * 1e3:.3f} ms per {AUC_PAIRS}-pair batch, "
+            f"{AUC_PAIRS / dt:.2f} pairs/s (min {min(pps):.2f}, max "
+            f"{max(pps):.2f}) on {card}")
+        gen_t = torch.Generator(device=dev).manual_seed(0)
+        scale = torch.tensor([SIZE - 1.0, SIZE - 1.0], device=dev)
+        with torch.inference_mode():
+            heat0, dm0 = xf(imgs0)
+            heat1, dm1 = xf(imgs1)
+            d0, v0 = detection_batch(heat0, dp)
+            d1, v1 = detection_batch(heat1, dp)
+            p0, p1 = d0[..., :2] * scale, d1[..., :2] * scale
+            f0 = sample_descriptors_lg(p0, dm0, 8)
+            f1 = sample_descriptors_lg(p1, dm1, 8)
+            lm0, _, lok = lightglue_forward(lg, p0, v0, f0, p1, v1, f1)
+            mp1, lmask = take_rows(p1, lm0.clamp_min(0)), lok & v0
+            st = {f"forward, XFeat on 2 x {AUC_PAIRS} images":
+                  cuda_ms(lambda: (xf(imgs0), xf(imgs1)), iters=5),
+                  f"detection_batch, 2 x {AUC_PAIRS} maps":
+                  cuda_ms(lambda: (detection_batch(heat0, dp),
+                                   detection_batch(heat1, dp)), iters=5),
+                  "descriptors + LightGlue (kernel E)":
+                  cuda_ms(lambda: lightglue_forward(
+                      lg, p0, v0, sample_descriptors_lg(p0, dm0, 8), p1, v1,
+                      sample_descriptors_lg(p1, dm1, 8)), iters=5),
+                  "RANSAC-E + recoverPose on the step's matches":
+                  cuda_ms(lambda: estimate_pose_pair(
+                      p0, mp1, lmask, Ks, Ks, gen_t, n_hyp=AUC_NHYP),
+                      iters=3)}
+        out["stages_ms"] = st
+        for name, ms in st.items():
+            log(f"  stage {name}: {ms:.4f} ms")
+        busy, window, top = profile_step(step)
+        out["idle_share"] = 1.0 - busy / window if window > 0 else None
+        log(f"  profiled step: device busy {busy:.3f} ms of a {window:.3f} "
+            f"ms window, idle share {out['idle_share']:.4f}"
+            if window > 0 else "  profiled step: no events recorded")
+        for name, ms in top:
+            log(f"    device time {ms:.4f} ms: {name[:90]}")
+
+    with phase("RANSAC-E + recoverPose: card vs CPU on ground truth"):
+        # the step's keypoints and their warp_se3 correspondences, in the
+        # warp's pixels plus 0.5 (the COLMAP centre the intrinsics expect)
+        _, kw, vw = warp_se3(d0, v0, wp["pose01"], wp["bbox0"], wp["bbox1"],
+                             wp["depth0"], wp["depth1"], Ks, Ks)
+        g0, g1 = d0[..., :2] * SIZE + 0.5, kw * SIZE + 0.5
+        samples = ransac._sample_minimal(
+            vw, AUC_NHYP, 8, torch.Generator(device=dev).manual_seed(1))
+        args = (g0, g1, vw, Ks, Ks)
+        R, t, _, n_c, ok_c = estimate_pose_pair(*args, None, n_hyp=AUC_NHYP,
+                                                samples=samples)
+        Rc, tc, _, n_h, ok_h = estimate_pose_pair(
+            *(a.cpu() for a in args), None, n_hyp=AUC_NHYP,
+            samples=samples.cpu())
+        # in float64: float32's arccos near 0 resolves only ~0.02 degrees
+        e_c = pose_error(R.double(), t.double(), poses.double()).cpu()
+        e_h = pose_error(Rc.double(), tc.double(), poses.double().cpu())
+        n_gt = vw.sum(-1).cpu()
+        log(f"  ground-truth correspondences per pair {n_gt.tolist()}; pose "
+            f"error card {e_c.tolist()}, CPU {e_h.tolist()}; inliers card "
+            f"{n_c.tolist()}, CPU {n_h.tolist()}")
+        # float32: the card's and the CPU's SVDs of the raw-coordinate
+        # normal equations differ at the conditioning's level, up to
+        # 0.06 degrees of pose here; in float64 the two agree closely
+        args64 = tuple(a.double() if a.is_floating_point() else a
+                       for a in args)
+        R, t, _, n_c64, _ = estimate_pose_pair(*args64, None, n_hyp=AUC_NHYP,
+                                               samples=samples)
+        Rc, tc, _, n_h64, _ = estimate_pose_pair(
+            *(a.cpu() for a in args64), None, n_hyp=AUC_NHYP,
+            samples=samples.cpu())
+        e_c64 = pose_error(R, t, poses.double()).cpu()
+        e_h64 = pose_error(Rc, tc, poses.double().cpu())
+        out["ransac_card_vs_cpu_deg"] = {
+            "float32": float((e_c - e_h).abs().max()),
+            "float64": float((e_c64 - e_h64).abs().max())}
+        log(f"  float64: pose error card {e_c64.tolist()}, CPU "
+            f"{e_h64.tolist()}; largest card-CPU gap "
+            f"{out['ransac_card_vs_cpu_deg']}")
+        if not (bool(ok_c.all()) and torch.equal(ok_c.cpu(), ok_h)
+                and bool(((e_c - e_h).abs() <= 1e-1).all())
+                and bool(((n_c.cpu() - n_h).abs() <= 0.005 * n_gt).all())
+                and bool(((e_c64 - e_h64).abs() <= 1e-3).all())
+                and torch.equal(n_c64.cpu(), n_h64)):
+            raise AssertionError("RANSAC-E + recoverPose differ between the "
+                                 "card and the CPU")
+        p0n = (g0 - Ks[:, None, :2, 2]) / Ks[:, None, [0, 1], [0, 1]]
+        p1n = (g1 - Ks[:, None, :2, 2]) / Ks[:, None, [0, 1], [0, 1]]
+        q0, q1 = ransac._take(p0n, samples), ransac._take(p1n, samples)
+        ones = torch.ones_like(q0[..., 0])
+        e9 = ransac._solve_eightpoint(q0, q1, ones)
+        es = ransac._essential_project(e9)
+        gen_g = torch.Generator(device=dev).manual_seed(1)
+        sub = {"RANSAC-E + recoverPose on ground truth":
+               cuda_ms(lambda: estimate_pose_pair(*args, gen_g,
+                                                  n_hyp=AUC_NHYP), iters=3),
+               "minimal samples (Gumbel top-8 of [8,4096,1000])":
+               cuda_ms(lambda: ransac._sample_minimal(vw, AUC_NHYP, 8,
+                                                      gen_g), iters=3),
+               "8-point solves (A^T A + SVD of [8,4096,9,9])":
+               cuda_ms(lambda: ransac._solve_eightpoint(q0, q1, ones),
+                       iters=3),
+               "essential projections (SVD of [8,4096,3,3])":
+               cuda_ms(lambda: ransac._essential_project(e9), iters=3),
+               "Sampson matrix [8,4096,1000]":
+               cuda_ms(lambda: ransac._sampson(es, p0n[:, None], p1n[:, None]),
+                       iters=3)}
+        out["ransac_ms"] = sub
+        for name, ms in sub.items():
+            log(f"  stage {name}: {ms:.4f} ms")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                estimate_pose_pair(*args, gen_g, n_hyp=AUC_NHYP)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        syncs = [str(w.message).splitlines()[0] for w in caught
+                 if "synchroniz" in str(w.message)]
+        out["ransac_host_syncs"] = len(syncs)
+        log(f"  synchronizing operations in one RANSAC-E + recoverPose: "
+            f"{len(syncs)} {sorted(set(syncs))[:3]}")
+
+    with phase(f"AUC runner: ALIKE-t + brute force, 4 SE3 pairs at "
+               f"{SIZE}^2"):
+        cfg = EvalConfig(
+            model_type="Alike", task_type="AUC",
+            data_params={"type": "synthetic_se3", "num_pairs": 4,
+                         "image_size": SIZE},
+            extractor_params={"nms_dist": 6, "border_dist": 8, "top_k": K,
+                              "threshold": 0, "min_score": 0.0},
+            matcher_params={"type": "brute_force",
+                            "brute_force_params": {"max_distance": 5.0}},
+            task_params={"th": [5, 10, 20]},
+            output_dir=os.path.join(ROOT, "output", "chip_smoke_auc"))
+        reset_launches()
+        res = Evaluator(cfg, DEVICE).run()
+        got = read_launches()
+        with plain_twins():
+            res_p = Evaluator(cfg, DEVICE).run()
+        e, e_p = (np.asarray(r["per_pair_error"]) for r in (res, res_p))
+        cfg.task_type, cfg.task_params = "repeatability", {"th": 3}
+        rep = Evaluator(cfg, DEVICE).run()["repeatability"]
+        out["runner"] = {"per_pair_error": e.tolist(),
+                         "AUC@20": res["AUC@20"], "repeatability": rep}
+        log(f"  per-pair error {e.tolist()} (plain {e_p.tolist()}); AUC@5/"
+            f"10/20 {[res[f'AUC@{t}'] for t in (5, 10, 20)]}; inliers "
+            f"{res['AUC_inliers']}; launches {got}; SE3 repeatability {rep}")
+        if got["nms"] <= 0 or got["nn_match"] <= 0:
+            raise AssertionError(f"the AUC runner missed kernel A or D: {got}")
+        if not (np.median(e) < 10.0 and res["AUC@20"] > 0.3 and rep > 0.1
+                and np.abs(e - e_p).max() <= 1e-3):
+            raise AssertionError("the AUC runner missed its gates or differs "
+                                 "from the plain twins")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -711,13 +1026,17 @@ def main() -> int:
     sp_model = get_model("SuperPoint")(sp_params).eval()
     lg_params = load_golden_params("lightglue", dev)
 
-    with phase("forward: ALIKE-t and SuperPoint, card vs CPU at 128^2"):
+    with phase("forward: ALIKE-t, SuperPoint and XFeat, card vs CPU at "
+               "128^2"):
         img = torch.from_numpy(np.random.default_rng(0).random(
             (1, 128, 128, 3), np.float32))
         for name, m_gpu, m_cpu in (
                 ("Alike", model, get_model("Alike")(load_params("Alike"))),
                 ("SuperPoint", sp_model, get_model("SuperPoint")(
-                    load_golden_params("SuperPoint")))):
+                    load_golden_params("SuperPoint"))),
+                ("XFeat", get_model("XFeat")(load_golden_params("XFeat",
+                                                                dev)),
+                 get_model("XFeat")(load_golden_params("XFeat")))):
             with torch.inference_mode():
                 s_gpu, d_gpu = m_gpu(img.to(dev))
                 s_cpu, d_cpu = m_cpu(img)
@@ -1572,6 +1891,8 @@ def main() -> int:
                 raise AssertionError("FundamentalMatrix runner differs from "
                                      "the plain twins")
 
+    auc = auc_phases(dev, dp, card, errs)
+
     kernels = [
         {"name": "nms_fixpoint", "route": "cuda",
          "source": "keypoint_bench_tpu_torch/csrc/nms.cu",
@@ -1583,7 +1904,8 @@ def main() -> int:
          "launches_per_call": nms_per_call,
          "ms_by_max_iter": {str(it): ms for it, ms in split.items()},
          "grid_blocks": min(blocks, tiles), "tiles_mask_per_round": k_mask,
-         "tiles_suppression_per_round": k_supp[1:]},
+         "tiles_suppression_per_round": k_supp[1:],
+         "launches_xfeat_auc_step": auc["launches"]["nms"]},
         {"name": "sparse_sample", "route": "cuda",
          "source": "keypoint_bench_tpu_torch/csrc/sample.cu",
          "replaces": "keypoint_bench_tpu/ops/pallas_sample.py:107",
@@ -1615,7 +1937,8 @@ def main() -> int:
          "bound_by": att_bound_by, "library_ms": att_lib_ms,
          f"ms_k{K_LARGE}": att4_ms, f"plain_ms_k{K_LARGE}": att4_plain_ms,
          f"library_ms_k{K_LARGE}": att4_lib_ms,
-         f"bound_ms_k{K_LARGE}": att4_bound_ms},
+         f"bound_ms_k{K_LARGE}": att4_bound_ms,
+         "launches_xfeat_auc_step": auc["launches"]["attention"]},
         {"name": "lk_level", "route": "cuda",
          "source": "keypoint_bench_tpu_torch/csrc/lk.cu",
          "replaces": "keypoint_bench_tpu/ops/pallas_lk.py:78",
@@ -1638,6 +1961,9 @@ def main() -> int:
          "detection_batch_ms": det_ms,
          "detection_batch_fused_ms": det_fused_ms},
     ]
+    log(json.dumps({"xfeat_auc_step": {k: auc[k] for k in (
+        "pairs_per_s", "stages_ms", "idle_share", "ransac_ms",
+        "ransac_host_syncs", "runner")}}))
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -1,6 +1,6 @@
 """Dataset factory keyed on params['type'] (counterpart of
 keypoint_bench_tpu/datasets/registry.py). Ported: the synthetic homography
-pairs, both synthetic sequences and the in-process `preloaded` type. The
+and SE3 pairs, both synthetic sequences and the in-process `preloaded` type. The
 file-backed loaders are not (ROADMAP.md, Queue 1)."""
 from __future__ import annotations
 
@@ -24,6 +24,12 @@ def get_dataset(params: dict):
         return SyntheticHomographyDataset(params.get("num_pairs", 8),
                                           params.get("image_size", 512),
                                           params.get("seed", 0))
+    if t == "synthetic_se3":
+        from keypoint_bench_tpu_torch.datasets.synthetic import \
+            SyntheticSE3Dataset
+        return SyntheticSE3Dataset(params.get("num_pairs", 4),
+                                   params.get("image_size", 256),
+                                   params.get("seed", 0))
     if t == "synthetic_splat_sequence":
         from keypoint_bench_tpu_torch.datasets.synthetic import \
             SyntheticSplatSequenceDataset

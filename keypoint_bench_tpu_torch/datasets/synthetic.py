@@ -1,8 +1,8 @@
 """Synthetic datasets for data-free runs: the port's own copy of
 keypoint_bench_tpu/datasets/synthetic.py (_texture, _warp_image,
-SyntheticHomographyDataset, SyntheticSequenceDataset,
-SyntheticSplatSequenceDataset with the splat renderer it borrows), numpy
-(and cv2.Rodrigues) only, same draws from the same seed.
+SyntheticHomographyDataset, SyntheticSE3Dataset, SyntheticSequenceDataset,
+SyntheticSplatSequenceDataset with the splat renderer they share), numpy
+and scipy only, same draws from the same seed.
 """
 from __future__ import annotations
 
@@ -10,6 +10,21 @@ import numpy as np
 
 from keypoint_bench_tpu_torch.datasets.sequences import \
     _fundamentals_from_poses
+
+
+def rodrigues(aa) -> np.ndarray:
+    """Axis-angle 3-vector -> 3x3 rotation matrix, float64: the closed form
+    c I + (1 - c) r r^T + s [r]_x of cv2.Rodrigues, with its small-angle
+    case (the identity below machine epsilon)."""
+    aa = np.asarray(aa, np.float64).reshape(3)
+    theta = float(np.linalg.norm(aa))
+    if theta < np.finfo(np.float64).eps:
+        return np.eye(3)
+    c, s = np.cos(theta), np.sin(theta)
+    r = aa * (1.0 / theta)
+    r_x = np.array([[0.0, -r[2], r[1]], [r[2], 0.0, -r[0]],
+                    [-r[1], r[0], 0.0]])
+    return c * np.eye(3) + (1.0 - c) * np.outer(r, r) + s * r_x
 
 
 def _texture(h, w, rng, blocks=8):
@@ -80,10 +95,10 @@ class SyntheticHomographyDataset:
 
 
 class _SplatScene:
-    """The 3D gaussian-splat renderer of the JAX package's
-    SyntheticSE3Dataset (its intrinsics, `_plane`, `_background` and
-    `_render`): random blobs z-buffer-splatted over two textured planes at
-    different depths, which break the single-plane degeneracy."""
+    """The 3D gaussian-splat renderer of SyntheticSE3Dataset (its
+    intrinsics, `_plane`, `_background` and `_render`): random blobs
+    z-buffer-splatted over two textured planes at different depths, which
+    break the single-plane degeneracy."""
 
     _BG_DEPTHS = (30.0, 14.0)
 
@@ -156,13 +171,63 @@ class _SplatScene:
         return img, depth
 
 
+class SyntheticSE3Dataset:
+    """MegaDepth-contract pairs rendered from the 3D gaussian-splat scene:
+    random 3D blobs z-buffer-splatted into two cameras with a relative
+    rotation and translation, with exact per-pixel depth maps. Genuine
+    parallax, so the essential-matrix task (AUC) runs without MegaDepth."""
+
+    def __init__(self, num_pairs: int = 4, image_size: int = 256,
+                 seed: int = 0, n_blobs: int = 900):
+        self.n = num_pairs
+        self.s = image_size
+        self.seed = seed
+        self.n_blobs = n_blobs
+        self.scene = _SplatScene(image_size)
+        self.K = self.scene.K
+
+    def __len__(self):
+        return self.n
+
+    def __getitem__(self, idx):
+        rng = np.random.default_rng(self.seed + 31 * idx)
+        # a wide depth range keeps the scene far from planar
+        X = np.concatenate([rng.uniform(-4, 4, (self.n_blobs, 2)),
+                            rng.uniform(4, 20, (self.n_blobs, 1))], axis=1)
+        colors = rng.uniform(0.3, 1.0, (self.n_blobs, 3)).astype(np.float32)
+        R0, t0 = np.eye(3), np.zeros(3)
+        R1 = rodrigues(rng.normal(0, 0.03, 3))
+        t1 = np.array([rng.uniform(0.3, 0.7), rng.uniform(-0.2, 0.2),
+                       rng.uniform(-0.1, 0.1)])
+        # dim, low-contrast background: detections gather on the blobs
+        tex = _texture(self.s, self.s, rng) * 0.15
+        img0, depth0 = self.scene._render(X, colors, R0, t0, tex)
+        img1, depth1 = self.scene._render(X, colors, R1, t1, tex)
+        T0, T1 = np.eye(4), np.eye(4)
+        T0[:3, :3], T0[:3, 3] = R0, t0
+        T1[:3, :3], T1[:3, 3] = R1, t1
+        pose01 = (T1 @ np.linalg.inv(T0)).astype(np.float32)
+        pose10 = np.linalg.inv(pose01).astype(np.float32)
+        z2 = np.zeros(2, np.float32)
+
+        def params(pose, d0, d1):
+            return {"mode": "se3", "width": self.s, "height": self.s,
+                    "pose01": pose, "bbox0": z2, "bbox1": z2, "depth0": d0,
+                    "depth1": d1, "intrinsics0": self.K,
+                    "intrinsics1": self.K}
+
+        return {"image0": img0, "image1": img1,
+                "warp01_params": params(pose01, depth0, depth1),
+                "warp10_params": params(pose10, depth1, depth0),
+                "dataset": "megaDepth"}
+
+
 class SyntheticSplatSequenceDataset:
     """KITTI-contract mono sequence rendered from the 3D gaussian-splat
     scene (true parallax, unlike SyntheticSequenceDataset's single plane)."""
 
     def __init__(self, num_frames: int = 6, image_size: int = 256,
                  seed: int = 0, n_blobs: int = 900):
-        import cv2
         self.n = num_frames
         self.base = _SplatScene(image_size)
         rng = np.random.default_rng(seed)
@@ -172,8 +237,7 @@ class SyntheticSplatSequenceDataset:
         self.tex = _texture(image_size, image_size, rng) * 0.15
         self.poses_cam = []   # cam-from-world per frame
         for i in range(num_frames):
-            aa = np.array([0.0, 0.002 * i, 0.0])
-            R, _ = cv2.Rodrigues(aa)
+            R = rodrigues([0.0, 0.002 * i, 0.0])
             t = np.array([0.35 * i, 0.05 * i, 0.0])
             T = np.eye(4)
             T[:3, :3] = R

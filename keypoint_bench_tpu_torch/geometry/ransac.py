@@ -1,15 +1,17 @@
-"""Fixed-hypothesis RANSAC for homographies and fundamental matrices
-(counterpart of those parts of keypoint_bench_tpu/geometry/ransac.py, on
-the exact path that the JAX package takes on the CPU: stacked DLT rows,
-the SVD of A^T A, the SVD rank-2 projection).
+"""Fixed-hypothesis RANSAC for homographies, fundamental and essential
+matrices, and recoverPose (counterpart of keypoint_bench_tpu/geometry/
+ransac.py, on the exact path that the JAX package takes on the CPU:
+stacked DLT rows, the SVD of A^T A, the SVD rank-2 and essential
+projections, the SVD decomposition of E).
 
 A static batch of minimal samples (Gumbel top-k over the validity mask,
 drawn from an explicit torch.Generator), one batched SVD for every
 hypothesis, one [n_hyp, K] residual matrix, the best hypothesis by inlier
 count, then a Hartley-normalized weighted refit on its inliers. Every
 function takes leading batch dimensions. The JAX package's TPU-only
-list-form, fixed-iteration and deflation solves are not ported: they are
-numerics workarounds for the TPU, not semantics.
+list-form, fixed-iteration and deflation solves (`_essential_project_fast`,
+`essential_basis`, `svd3`) are not ported: they are numerics workarounds
+for the TPU, not semantics.
 """
 from __future__ import annotations
 
@@ -95,6 +97,13 @@ def _take(p: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return out.unflatten(-2, idx.shape[-2:])
 
 
+def _rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """x [..., n, *rest], idx [...] -> x[..., idx, *rest]."""
+    d = idx.dim()
+    i = idx.reshape(*idx.shape, 1, *([1] * (x.dim() - d - 1)))
+    return x.gather(d, i.expand(*idx.shape, 1, *x.shape[d + 1:])).squeeze(d)
+
+
 def ransac_homography_from_samples(p0: torch.Tensor, p1: torch.Tensor,
                                    mask: torch.Tensor, idx: torch.Tensor,
                                    thresh: float = 3.0):
@@ -106,10 +115,8 @@ def ransac_homography_from_samples(p0: torch.Tensor, p1: torch.Tensor,
     res = _homography_residual(hs, p0[..., None, :, :], p1[..., None, :, :])
     inl = (res < thresh) & mask[..., None, :]
     counts = inl.sum(-1)
-    best = counts.argmax(-1, keepdim=True)
-    w = inl.gather(-2, best[..., None].expand(*best.shape,
-                                              inl.shape[-1]))[..., 0, :]
-    w = w.float()
+    best = counts.argmax(-1)
+    w = _rows(inl, best).float()
     t0 = _normalize_pts(p0, w)
     t1 = _normalize_pts(p1, w)
     hn = _solve_dlt_h(_apply_T(t0, p0), _apply_T(t1, p1), w)
@@ -117,7 +124,7 @@ def ransac_homography_from_samples(p0: torch.Tensor, p1: torch.Tensor,
     h22 = H[..., 2:3, 2:3]
     H = H / torch.where(h22.abs() > 1e-12, h22, torch.full_like(h22, 1e-12))
     final = (_homography_residual(H, p0, p1) < thresh) & mask
-    ok = (mask.sum(-1) >= 4) & (counts.gather(-1, best)[..., 0] >= 4)
+    ok = (mask.sum(-1) >= 4) & (_rows(counts, best) >= 4)
     return H, final, ok
 
 
@@ -182,16 +189,14 @@ def ransac_fundamental_from_samples(p0: torch.Tensor, p1: torch.Tensor,
     res = _sampson(fs, p0[..., None, :, :], p1[..., None, :, :])
     inl = (res < thresh) & mask[..., None, :]
     counts = inl.sum(-1)
-    best = counts.argmax(-1, keepdim=True)
-    w = inl.gather(-2, best[..., None].expand(*best.shape,
-                                              inl.shape[-1]))[..., 0, :]
-    w = w.float()
+    best = counts.argmax(-1)
+    w = _rows(inl, best).float()
     t0 = _normalize_pts(p0, w)
     t1 = _normalize_pts(p1, w)
     fn = _rank2(_solve_eightpoint(_apply_T(t0, p0), _apply_T(t1, p1), w))
     F = t1.transpose(-1, -2) @ (fn @ t0)
     final = (_sampson(F, p0, p1) < thresh) & mask
-    ok = (mask.sum(-1) >= 8) & (counts.gather(-1, best)[..., 0] >= 8)
+    ok = (mask.sum(-1) >= 8) & (_rows(counts, best) >= 8)
     return F, final, ok
 
 
@@ -203,3 +208,101 @@ def ransac_fundamental(p0: torch.Tensor, p1: torch.Tensor, mask: torch.Tensor,
     inliers [..., K], ok [...])."""
     idx = _sample_minimal(mask, n_hyp, 8, generator)
     return ransac_fundamental_from_samples(p0, p1, mask, idx, thresh)
+
+
+def _threshold(thresh, ref: torch.Tensor, n_new: int) -> torch.Tensor:
+    """A scalar or per-batch [...] threshold with n_new trailing 1-dims, to
+    compare with residuals of ref's device."""
+    th = torch.as_tensor(thresh, dtype=torch.float32, device=ref.device)
+    return th.reshape(*th.shape, *([1] * n_new))
+
+
+def _essential_project(E: torch.Tensor) -> torch.Tensor:
+    """The nearest essential matrix: singular values (m, m, 0) with m the
+    mean of the largest two."""
+    u, s, vh = torch.linalg.svd(E)
+    m = (s[..., 0] + s[..., 1]) / 2.0
+    sv = torch.stack([m, m, torch.zeros_like(m)], dim=-1)
+    return (u * sv[..., None, :]) @ vh
+
+
+def ransac_essential_from_samples(p0n: torch.Tensor, p1n: torch.Tensor,
+                                  mask: torch.Tensor, idx: torch.Tensor,
+                                  thresh=1e-3):
+    """8-point essential RANSAC on normalized camera coordinates p0n, p1n
+    [..., K, 2] with mask [..., K], over given minimal samples idx
+    [..., n_hyp, 8]. Hypotheses solve the raw coordinates (no Hartley
+    normalization) and are projected onto the essential manifold; the
+    winner (most inliers, the first on ties) is refit 3 times on its
+    inliers, plainly (the JAX package measured a normalized refit and a
+    best-so-far guard and kept neither, geometry/ransac.py:376-390).
+    `thresh` is a Sampson threshold, scalar or [...]. Returns (E [..., 3,
+    3], inliers [..., K], ok [...])."""
+    q0, q1 = _take(p0n, idx), _take(p1n, idx)
+    es = _essential_project(_solve_eightpoint(q0, q1,
+                                              torch.ones_like(q0[..., 0])))
+    res = _sampson(es, p0n[..., None, :, :], p1n[..., None, :, :])
+    inl = (res < _threshold(thresh, res, 2)) & mask[..., None, :]
+    counts = inl.sum(-1)
+    best = counts.argmax(-1)
+    th = _threshold(thresh, res, 1)
+    w = _rows(inl, best).float()
+    for _ in range(3):
+        E = _essential_project(_solve_eightpoint(p0n, p1n, w))
+        w = ((_sampson(E, p0n, p1n) < th) & mask).float()
+    ok = (mask.sum(-1) >= 8) & (_rows(counts, best) >= 8)
+    return E, w > 0, ok
+
+
+def ransac_essential(p0n: torch.Tensor, p1n: torch.Tensor,
+                     mask: torch.Tensor, generator: torch.Generator,
+                     n_hyp: int = 512, thresh=1e-3):
+    """As `ransac_essential_from_samples`, with the minimal samples drawn
+    from `generator` (on the tensors' device)."""
+    idx = _sample_minimal(mask, n_hyp, 8, generator)
+    return ransac_essential_from_samples(p0n, p1n, mask, idx, thresh)
+
+
+def _triangulate_depths(R: torch.Tensor, t: torch.Tensor, u0: torch.Tensor,
+                        u1: torch.Tensor):
+    """Least-squares depths along normalized rays u0 (camera 0) and u1
+    (camera 1), [..., K, 3], with X1 = R X0 + t: z0 (R u0 x u1) =
+    -(t x u1). Returns (z0, z1) [..., K]."""
+    ru0 = u0 @ R.transpose(-1, -2)
+    a = torch.linalg.cross(ru0, u1, dim=-1)
+    b = -torch.linalg.cross(t[..., None, :], u1, dim=-1)
+    z0 = (a * b).sum(-1) / (a * a).sum(-1).clamp_min(1e-18)
+    x1 = z0[..., None] * ru0 + t[..., None, :]
+    return z0, x1[..., 2]
+
+
+def decompose_essential(E: torch.Tensor):
+    """E [..., 3, 3] -> (R1, R2, t): the four candidate poses are (R1, t),
+    (R1, -t), (R2, t) and (R2, -t)."""
+    u, _, vh = torch.linalg.svd(E)
+    # proper rotations
+    u = u * torch.sign(torch.linalg.det(u))[..., None, None]
+    vh = vh * torch.sign(torch.linalg.det(vh))[..., None, None]
+    W = torch.tensor([[0.0, -1.0, 0.0], [1.0, 0.0, 0.0], [0.0, 0.0, 1.0]],
+                     dtype=E.dtype, device=E.device)
+    return u @ (W @ vh), u @ (W.T @ vh), u[..., :, 2]
+
+
+def recover_pose(E: torch.Tensor, p0n: torch.Tensor, p1n: torch.Tensor,
+                 mask: torch.Tensor):
+    """cv2.recoverPose on normalized camera coordinates: of the four poses
+    of E, the one with the most masked points in front of both cameras
+    (the first on ties, in the order of `decompose_essential`). Returns
+    (R [..., 3, 3], t [..., 3], pose_mask [..., K], count [...])."""
+    R1, R2, t = decompose_essential(E)
+    u0 = torch.cat([p0n, torch.ones_like(p0n[..., :1])], dim=-1)
+    u1 = torch.cat([p1n, torch.ones_like(p1n[..., :1])], dim=-1)
+    Rs = torch.stack([R1, R1, R2, R2], dim=-3)             # [..., 4, 3, 3]
+    ts = torch.stack([t, -t, t, -t], dim=-2)               # [..., 4, 3]
+    z0, z1 = _triangulate_depths(Rs, ts, u0[..., None, :, :],
+                                 u1[..., None, :, :])
+    goods = (z0 > 0) & (z1 > 0) & mask[..., None, :]       # [..., 4, K]
+    counts = goods.sum(-1)
+    best = counts.argmax(-1)
+    return (_rows(Rs, best), _rows(ts, best), _rows(goods, best),
+            _rows(counts, best))

@@ -1,5 +1,5 @@
 """Shared eval-mode blocks: the subset of keypoint_bench_tpu/models/common.py
-that ALIKE-t and SuperPoint need.
+that ALIKE-t, SuperPoint and XFeat need.
 
 These helpers work on NCHW tensors (torch's native conv layout); the model
 classes convert at their public boundary, which keeps the JAX package's
@@ -52,9 +52,23 @@ def bn_eval(x: torch.Tensor, gamma, beta, mean, var,
     return (x - c(mean)) * c(torch.rsqrt(var + eps)) * c(gamma) + c(beta)
 
 
+def instance_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """Affine-free InstanceNorm2d of NCHW x: statistics over H, W per
+    sample and channel, biased variance, in the JAX package's order
+    (x - mean) * rsqrt(var + eps)."""
+    mean = x.mean((-2, -1), keepdim=True)
+    var = x.var((-2, -1), unbiased=False, keepdim=True)
+    return (x - mean) * torch.rsqrt(var + eps)
+
+
 def max_pool(x: torch.Tensor, k: int) -> torch.Tensor:
     """k x k max pool, stride k, VALID padding."""
     return F.max_pool2d(x, k, k)
+
+
+def avg_pool(x: torch.Tensor, k: int) -> torch.Tensor:
+    """k x k average pool, stride k, VALID padding."""
+    return F.avg_pool2d(x, k, k)
 
 
 def relu(x: torch.Tensor) -> torch.Tensor:
@@ -97,14 +111,45 @@ def _interp_matrix(n_out: int, n_in: int) -> np.ndarray:
     return a
 
 
+@functools.lru_cache(maxsize=64)
+def _interp_matrix_half(n_out: int, n_in: int) -> np.ndarray:
+    """[n_out, n_in] bilinear matrix with the half-pixel mapping
+    (align_corners=False: src = (i + 0.5) * n_in / n_out - 0.5, clamped to
+    the edges), as keypoint_bench_tpu's models/common._interp_matrix_half
+    builds it."""
+    i = np.arange(n_out)
+    src = np.clip((i + 0.5) * (n_in / n_out) - 0.5, 0, n_in - 1)
+    lo = np.clip(np.floor(src).astype(np.int64), 0, max(n_in - 2, 0))
+    frac = src - lo
+    a = np.zeros((n_out, n_in), np.float32)
+    a[i, lo] = 1 - frac
+    a[i, np.minimum(lo + 1, n_in - 1)] += frac
+    return a
+
+
+def _interp_apply(x: torch.Tensor, ah: np.ndarray,
+                  aw: np.ndarray) -> torch.Tensor:
+    """Two dense interpolation products over NCHW x, rows then columns,
+    as the JAX package computes a bilinear resize."""
+    y = torch.einsum("oh,bchw->bcow", torch.from_numpy(ah).to(x.device), x)
+    return torch.einsum("pw,bcow->bcop", torch.from_numpy(aw).to(x.device),
+                        y)
+
+
 def resize_bilinear_align(x: torch.Tensor, out_h: int,
                           out_w: int) -> torch.Tensor:
     """F.interpolate(bilinear, align_corners=True) of NCHW x, computed as
     two dense interpolation products like the JAX package does."""
-    ah = torch.from_numpy(_interp_matrix(out_h, x.shape[-2])).to(x.device)
-    aw = torch.from_numpy(_interp_matrix(out_w, x.shape[-1])).to(x.device)
-    y = torch.einsum("oh,bchw->bcow", ah, x)
-    return torch.einsum("pw,bcow->bcop", aw, y)
+    return _interp_apply(x, _interp_matrix(out_h, x.shape[-2]),
+                         _interp_matrix(out_w, x.shape[-1]))
+
+
+def resize_bilinear_half_pixel(x: torch.Tensor, out_h: int,
+                               out_w: int) -> torch.Tensor:
+    """F.interpolate(bilinear, align_corners=False) of NCHW x, from the
+    same cached half-pixel matrices as the JAX package."""
+    return _interp_apply(x, _interp_matrix_half(out_h, x.shape[-2]),
+                         _interp_matrix_half(out_w, x.shape[-1]))
 
 
 def upsample_bilinear_align(x: torch.Tensor, factor: int) -> torch.Tensor:

@@ -16,6 +16,7 @@ def get_model(name: str):
     if name not in _REGISTRY:
         import keypoint_bench_tpu_torch.models.alike  # noqa: F401 (registers)
         import keypoint_bench_tpu_torch.models.superpoint  # noqa: F401
+        import keypoint_bench_tpu_torch.models.xfeat  # noqa: F401
     if name not in _REGISTRY:
         raise KeyError(f"unknown model {name!r}; have {sorted(_REGISTRY)} "
                        f"(other models are still to port, see ROADMAP.md)")

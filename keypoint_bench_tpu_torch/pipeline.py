@@ -17,6 +17,13 @@ fundamental matrix (counterpart of bench.py:434-446, the step of
 `bench_lk_fund`, at float32): forward of imgs0 only -> detection_batch
 (kernel A) -> optical_flow_batch (kernel F, one launch per level) ->
 fundamental_metrics.
+
+`xfeat_auc_step`: XFeat -> LightGlue -> essential RANSAC -> recoverPose ->
+pose error (counterpart of bench.py:275-293, the step of
+`bench_xfeat_auc`, at float32): XFeat x2 -> detection_batch (kernel A) ->
+descriptors sampled from the 1/8 map -> lightglue_forward with the
+64 -> 256 input projection (kernel E) -> estimate_pose_pair -> pose_error,
+a failed pair counting 180 degrees.
 """
 from __future__ import annotations
 
@@ -25,13 +32,16 @@ import torch
 from keypoint_bench_tpu_torch.device import resolve_device
 from keypoint_bench_tpu_torch.geometry.warp import warp_homography
 from keypoint_bench_tpu_torch.models.common import to_float_image
-from keypoint_bench_tpu_torch.models.lightglue import lightglue_match
+from keypoint_bench_tpu_torch.models.lightglue import (lightglue_forward,
+                                                       lightglue_match,
+                                                       sample_descriptors_lg)
 from keypoint_bench_tpu_torch.ops.detect import DetectParams, detection_batch
 from keypoint_bench_tpu_torch.ops.lk import LKParams, optical_flow_batch
 from keypoint_bench_tpu_torch.ops.matching import (brute_force_match,
                                                    mutual_nn_match, take_rows)
 from keypoint_bench_tpu_torch.ops.sparse_desc import \
     alike_sparse_descriptors_cm_batch_yorder
+from keypoint_bench_tpu_torch.tasks.auc import estimate_pose_pair, pose_error
 from keypoint_bench_tpu_torch.tasks.fundamental import fundamental_metrics
 from keypoint_bench_tpu_torch.tasks.mha import mha_pair
 
@@ -166,3 +176,44 @@ def lk_fundamental_step(model, params: dict, imgs0, imgs1, Fs,
     out = fundamental_metrics(k0[:, :, 0:2] * scale, tracked * scale, v0,
                               Fs, th)
     return out, k0, v0, tracked
+
+
+@torch.inference_mode()
+def xfeat_auc_step(model, lightglue_params: dict, imgs0, imgs1, Ks,
+                   poses01, detect_params: DetectParams,
+                   generator: torch.Generator | None, n_hyp: int = 4096,
+                   samples: torch.Tensor | None = None,
+                   device: str | torch.device = "cuda"):
+    """B SE3 pairs imgs0/imgs1 [B,S,S,3] (float in [0,1] or uint8; S a
+    multiple of 32) with intrinsics Ks [B,3,3] (both cameras) and
+    ground-truth poses01 [B,4,4] -> (errors [B] in degrees, 180 where
+    the pose failed; n_inliers [B]; k0, k1 [B,K,3]; m0 [B,K]; match_mask
+    [B,K]). RANSAC's minimal samples come from `generator` (on `device`),
+    or are given as `samples` [B, n_hyp, 8]. The model and LightGlue's
+    params (with `input_proj`) must already be on `device`."""
+    dev = resolve_device(device)
+    _check_weights(model.params, dev)
+    _check_weights(lightglue_params, dev)
+    imgs0 = torch.as_tensor(imgs0, device=dev)
+    imgs1 = torch.as_tensor(imgs1, device=dev)
+    Ks = torch.as_tensor(Ks, dtype=torch.float32, device=dev)
+    poses01 = torch.as_tensor(poses01, dtype=torch.float32, device=dev)
+    h, w = imgs0.shape[1], imgs0.shape[2]
+    heat0, dm0 = model(imgs0)
+    heat1, dm1 = model(imgs1)
+    k0, v0 = detection_batch(heat0, detect_params)
+    k1, v1 = detection_batch(heat1, detect_params)
+    scale = torch.tensor([w - 1.0, h - 1.0], device=dev)
+    p0, p1 = k0[..., 0:2] * scale, k1[..., 0:2] * scale
+    m0, _, ok = lightglue_forward(
+        lightglue_params, p0, v0, sample_descriptors_lg(p0, dm0, 8), p1, v1,
+        sample_descriptors_lg(p1, dm1, 8))
+    mp1 = take_rows(p1, m0.clamp_min(0))
+    mask = ok & v0
+    R, t, _, n_in, okp = estimate_pose_pair(p0, mp1, mask, Ks, Ks,
+                                            generator, n_hyp=n_hyp,
+                                            samples=samples)
+    err = torch.where(okp, pose_error(R, t, poses01),
+                      torch.full_like(okp, 180.0, dtype=torch.float32))
+    return (err, torch.where(okp, n_in, torch.zeros_like(n_in)), k0, k1, m0,
+            mask)

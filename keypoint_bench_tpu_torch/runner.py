@@ -1,13 +1,15 @@
 """Evaluation orchestrator (counterpart of keypoint_bench_tpu/runner.py).
 
-Ported so far: the per-pair repeatability and MHA loops on homography
-pairs (`_run_repeatability`, `_run_mha` and their per-pair records), and
-the sequence tasks FundamentalMatrix (per pair and `task_params.pipelined`)
-and FundamentalMatrixRansac, with the brute-force, LightGlue (deterministic
+Ported so far: the per-pair repeatability loop on homography and SE3
+pairs, the per-pair MHA and AUC loops (`_run_repeatability`, `_run_mha`,
+`_run_auc` and their per-pair records), and the sequence tasks
+FundamentalMatrix (per pair and `task_params.pipelined`) and
+FundamentalMatrixRansac, with the brute-force, LightGlue (deterministic
 only), optical_flow and optical_flow_cv matchers (`_match`). Other tasks,
-adaptive LightGlue, the LETNet / GoodPoint flow sources, save_images, the
-resume journal, bf16, debug_nans and the sharded batch paths (brute-force
-MHA, repeatability) raise NotImplementedError (ROADMAP.md).
+adaptive LightGlue, the five-point solver, the LETNet / GoodPoint flow
+sources, save_images, the resume journal, bf16, debug_nans and the
+sharded batch paths (brute-force MHA and AUC, repeatability) raise
+NotImplementedError (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -35,6 +37,8 @@ from keypoint_bench_tpu_torch.ops.matching import (brute_force_match,
                                                    mutual_nn_match, take_rows)
 from keypoint_bench_tpu_torch.ops.sparse_desc import \
     alike_sparse_descriptors_cm_batch
+from keypoint_bench_tpu_torch.tasks.auc import (estimate_pose_pair, pose_auc,
+                                              pose_error)
 from keypoint_bench_tpu_torch.tasks.fundamental import (
     fundamental_metrics, fundamental_ransac_ratio)
 from keypoint_bench_tpu_torch.tasks.mha import mha_pair
@@ -207,8 +211,6 @@ class Evaluator:
         return tuple(torch.cat([p[j] for p in parts]) for j in range(4))
 
     def _warp(self, kpts, valid, wp):
-        if wp["mode"] != "homo":
-            raise _not_ported(f"warp mode {wp['mode']!r}")
         return warp_points(kpts, valid, wp)
 
     @torch.inference_mode()
@@ -245,6 +247,7 @@ class Evaluator:
               "MHA": self._run_mha,
               "FundamentalMatrix": self._run_fundamental,
               "FundamentalMatrixRansac": self._run_fundamental_ransac,
+              "AUC": self._run_auc,
               }.get(task)
         if fn is None:
             raise _not_ported(f"task_type {task!r}")
@@ -273,7 +276,10 @@ class Evaluator:
                 "num_feat": out["num_feat"]}, (k0, v0, k1, v1)
 
     def _run_repeatability(self, ds):
-        if int(self.cfg.data_params.get("batch_size", 1)) > 1:
+        # the JAX runner's sharded path stacks homography warps only; SE3
+        # pairs run the per-pair loop whatever the batch size
+        if int(self.cfg.data_params.get("batch_size", 1)) > 1 and \
+                len(ds) > 0 and ds[0]["warp01_params"]["mode"] == "homo":
             raise _not_ported("the sharded batch repeatability path")
         if self.cfg.task_params.get("save_images"):
             raise _not_ported("task_params.save_images")
@@ -329,6 +335,52 @@ class Evaluator:
         for v in mean:
             print("MHA ", v)
         result["per_pair"] = [list(map(float, h)) for h in hits]
+        return result
+
+    def _auc_pair_record(self, batch):
+        """Per-pair AUC record (reference AUC.py:40-155): match, essential
+        RANSAC + recoverPose on the intrinsics-normalized matches, pose
+        error; a failed pair counts 180 degrees and 0 inliers."""
+        img0, img1, s0, d0, k0, v0, s1, d1, k1, v1 = self._pair_maps(batch)
+        wp01 = batch["warp01_params"]
+        m0, m1, ok = self._match(k0, v0, k1, v1, d0, d1, img0.shape[1],
+                                 img0.shape[0])
+        h0, w0 = img0.shape[0], img0.shape[1]
+        h1, w1 = img1.shape[0], img1.shape[1]
+        dev = self.device
+        p0 = m0[:, 0:2] * torch.tensor([w0 - 1.0, h0 - 1.0], device=dev)
+        p1 = m1[:, 0:2] * torch.tensor([w1 - 1.0, h1 - 1.0], device=dev)
+
+        def f32(x):
+            return torch.as_tensor(x, dtype=torch.float32, device=dev)
+
+        R, t, _, n_in, okp = estimate_pose_pair(
+            p0, p1, ok, f32(wp01["intrinsics0"]), f32(wp01["intrinsics1"]),
+            self.generator,
+            solver=self.cfg.task_params.get("solver", "8pt"))
+        err = pose_error(R, t, f32(wp01["pose01"]))
+        return {"error": float(err) if bool(okp) else 180.0,
+                "inliers": int(n_in) if bool(okp) else 0}
+
+    def _run_auc(self, ds):
+        # the JAX runner shards brute force alone; every other matcher runs
+        # the per-pair loop whatever the batch size
+        if int(self.cfg.data_params.get("batch_size", 1)) > 1 and \
+                self.matcher_type == "brute_force":
+            raise _not_ported("the sharded batch AUC path")
+        if self.cfg.task_params.get("save_images"):
+            raise _not_ported("task_params.save_images")
+        ths = tuple(self.cfg.task_params.get("th", [5, 10, 20]))
+        recs = [self._auc_pair_record(ds[i]) for i in range(len(ds))]
+        errors = [float(r["error"]) for r in recs]
+        inliers = [float(r["inliers"]) for r in recs]
+        aucs = pose_auc(errors, ths)
+        result = {f"AUC@{t}": float(a) for t, a in zip(ths, aucs)}
+        result["AUC_inliers"] = float(np.mean(inliers))
+        for a in aucs:
+            print("AUC ", a)
+        print("AUC inliers", result["AUC_inliers"])
+        result["per_pair_error"] = errors
         return result
 
     def _iter_sequence(self, ds):

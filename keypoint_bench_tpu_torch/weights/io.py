@@ -6,9 +6,11 @@ in HWIO and linears in [in, out] (the JAX layout); `params_from_jax`
 
 `tests/golden/<name>.npz` fixtures hold the same layout under `param:`
 keys: full-width parameters with randomized values for the models whose
-upstream checkpoints are not in the repository (SuperPoint, LightGlue).
-`load_golden_params` reads them; `stage_golden_weights` writes them into a
-`weights_dir` under the names the runner loads.
+upstream checkpoints are not in the repository (SuperPoint, XFeat,
+LightGlue). `load_golden_params` reads them; `stage_golden_weights` writes
+them into a `weights_dir` under the names the runner loads;
+`lightglue_input_proj_params` adds the 64 -> 256 input projection that the
+AUC step's XFeat descriptors need.
 """
 from __future__ import annotations
 
@@ -27,7 +29,7 @@ GOLDEN_DIR = os.path.join(REPO_DIR, "tests", "golden")
 # Alike_s2d is a TPU layout variant of the same checkpoint and forward
 _ALIASES = {"Alike_s2d": "Alike"}
 # golden fixture -> the weights_dir file name the runner loads
-GOLDEN_STAGE_NAMES = {"SuperPoint": "SuperPoint",
+GOLDEN_STAGE_NAMES = {"SuperPoint": "SuperPoint", "XFeat": "XFeat",
                       "lightglue": "lightglue_superpoint"}
 _PREFIX = "param:"
 
@@ -60,10 +62,25 @@ def load_golden_params(name: str,
     return params_from_jax(golden_npz(name), device)
 
 
+def lightglue_input_proj_params(device: str | torch.device = "cpu") -> dict:
+    """Torch-layout golden LightGlue parameters plus the 64 -> dim
+    `input_proj` (the disk / aliked schema) that XFeat's descriptors need,
+    as bench.py's AUC chain builds it: weight rng(7).normal(0, 0.1, (64,
+    dim)) in the JAX [in, out] layout, zero bias."""
+    lg = golden_npz("lightglue")
+    if "input_proj.weight" not in lg:
+        dim = int(lg["transformers.0.self_attn.Wqkv.weight"].shape[0])
+        lg["input_proj.weight"] = np.random.default_rng(7).normal(
+            0, 0.1, (64, dim)).astype(np.float32)
+        lg["input_proj.bias"] = np.zeros((dim,), np.float32)
+    return params_from_jax(lg, device)
+
+
 def stage_golden_weights(weights_dir: str) -> str:
-    """Write the golden SuperPoint and LightGlue parameters into
-    `weights_dir` as `SuperPoint.npz` and `lightglue_superpoint.npz` (JAX
-    layout, as weights_npz/ holds them); returns `weights_dir`."""
+    """Write the golden SuperPoint, XFeat and LightGlue parameters into
+    `weights_dir` as `SuperPoint.npz`, `XFeat.npz` and
+    `lightglue_superpoint.npz` (JAX layout, as weights_npz/ holds them);
+    returns `weights_dir`."""
     os.makedirs(weights_dir, exist_ok=True)
     for name, stage in GOLDEN_STAGE_NAMES.items():
         np.savez(os.path.join(weights_dir, f"{stage}.npz"), **golden_npz(name))

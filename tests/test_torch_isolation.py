@@ -83,7 +83,10 @@ def _default_device_calls(tmp_path):
     from keypoint_bench_tpu_torch.ops.detect import DetectParams
     from keypoint_bench_tpu_torch.ops.lk import LKParams
     from keypoint_bench_tpu_torch.pipeline import (extract_match,
-                                                   lk_fundamental_step)
+                                                   lk_fundamental_step,
+                                                   xfeat_auc_step)
+    from keypoint_bench_tpu_torch.weights import (load_golden_params,
+                                                  lightglue_input_proj_params)
     from keypoint_bench_tpu_torch.runner import EvalConfig, Evaluator
     from keypoint_bench_tpu_torch.weights import load_params
     cfg = {"model_type": "Alike", "task_type": "repeatability",
@@ -102,14 +105,20 @@ def _default_device_calls(tmp_path):
             get_model("Alike")(params), params, imgs, imgs,
             np.zeros((1, 3, 3), np.float32), torch.Generator(),
             DetectParams(), LKParams()),
+        "xfeat_auc_step": lambda: xfeat_auc_step(
+            get_model("XFeat")(load_golden_params("XFeat")),
+            lightglue_input_proj_params(), imgs, imgs,
+            np.eye(3, dtype=np.float32)[None],
+            np.eye(4, dtype=np.float32)[None], DetectParams(),
+            torch.Generator()),
         "Evaluator": lambda: Evaluator(EvalConfig.from_dict(cfg)),
         "cli": lambda: cli.main(["-c", str(cfg_path)]),
     }
 
 
 @pytest.mark.parametrize("entry", ["resolve_device", "extract_match",
-                                   "lk_fundamental_step", "Evaluator",
-                                   "cli"])
+                                   "lk_fundamental_step", "xfeat_auc_step",
+                                   "Evaluator", "cli"])
 def test_default_device_raises_without_cuda(tmp_path, entry):
     if torch.cuda.is_available():
         pytest.skip("this host has CUDA")

@@ -8,9 +8,10 @@ different random streams on the two sides, so the MHA hits are compared
 in tests/test_torch_ransac_mha.py on shared samples; here they must be
 well-formed. The batched `superpoint_mha_step` must give the runner's
 per-pair matches. Also the JAX runner's error semantics for LightGlue
-without weights, and the parts that raise NotImplementedError; LightGlue
-with data_params.batch_size > 1 runs the per-pair loop, as in the JAX
-runner.
+without weights, and the parts that raise NotImplementedError (the AUC
+case is the sharded batch AUC path: brute force at batch_size 2);
+LightGlue with data_params.batch_size > 1 runs the per-pair loop, as in
+the JAX runner.
 """
 import json
 
@@ -167,7 +168,9 @@ def test_lightglue_without_weights_raises_or_falls_back(tmp_path):
     ({"task_type": "visual_odometer"}, "visual_odometer"),
     ({"data_params": {"type": "synthetic_homography", "num_pairs": 2,
                       "image_size": S, "batch_size": 2}}, "sharded"),
-    ({"task_type": "AUC"}, "AUC"),
+    ({"task_type": "AUC",
+      "data_params": {"type": "synthetic_se3", "num_pairs": 2,
+                      "image_size": S, "batch_size": 2}}, "AUC"),
     ({"debug_nans": True}, "debug_nans")])
 def test_unported_parts_raise(weights, tmp_path, change, what):
     cfg = {**_cfg(weights, tmp_path), **change}

@@ -131,10 +131,16 @@ def test_runner_normalizes_uint8(tmp_path):
     np.testing.assert_array_equal(v8.numpy(), vf.numpy())
 
 
-@pytest.mark.parametrize("field,value", [
-    ("task_type", "AUC"), ("precision", "bfloat16"), ("resume", True)])
-def test_unported_options_raise(tmp_path, field, value):
-    cfg = {**_config(tmp_path, "x"), field: value}
+@pytest.mark.parametrize("field,value,extra", [
+    # AUC itself is ported; its five-point solver is not
+    pytest.param("task_type", "AUC", {
+        "task_params": {"solver": "5pt"},
+        "data_params": {"type": "synthetic_se3", "num_pairs": 1,
+                        "image_size": 64}}, id="task_type-AUC"),
+    pytest.param("precision", "bfloat16", {}, id="precision-bfloat16"),
+    pytest.param("resume", True, {}, id="resume-True")])
+def test_unported_options_raise(tmp_path, field, value, extra):
+    cfg = {**_config(tmp_path, "x"), field: value, **extra}
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Evaluator(EvalConfig.from_dict(cfg), device="cpu").run()
 
