@@ -24,9 +24,19 @@ pose error (counterpart of bench.py:275-293, the step of
 descriptors sampled from the 1/8 map -> lightglue_forward with the
 64 -> 256 input projection (kernel E) -> estimate_pose_pair -> pose_error,
 a failed pair counting 180 degrees.
+
+`vo_step`: batched monocular VO with optional windowed bundle adjustment
+(counterpart of the JAX runner's `_run_vo_pipelined`, runner.py:969-1108,
+and of the step of `bench_vo`, bench.py:356-405, at float32): detection
+of every frame in chunks (`detect_frames`: kernel A, and kernel B for
+sparse descriptors) -> shift-by-one pairing -> mutual_nn_match over all
+pairs at once (kernel D) -> vo_pair_pose (essential RANSAC +
+recoverPose) over all pairs -> chain_poses on the host; with ba_refine,
+the world-to-camera chain -> chain_tracks -> refine_window (LM / Schur).
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from keypoint_bench_tpu_torch.device import resolve_device
@@ -36,14 +46,19 @@ from keypoint_bench_tpu_torch.models.lightglue import (lightglue_forward,
                                                        lightglue_match,
                                                        sample_descriptors_lg)
 from keypoint_bench_tpu_torch.ops.detect import DetectParams, detection_batch
+from keypoint_bench_tpu_torch.ops.grid_sample import sample_at_points
 from keypoint_bench_tpu_torch.ops.lk import LKParams, optical_flow_batch
 from keypoint_bench_tpu_torch.ops.matching import (brute_force_match,
                                                    mutual_nn_match, take_rows)
-from keypoint_bench_tpu_torch.ops.sparse_desc import \
-    alike_sparse_descriptors_cm_batch_yorder
+from keypoint_bench_tpu_torch.ops.sparse_desc import (
+    alike_sparse_descriptors_cm_batch,
+    alike_sparse_descriptors_cm_batch_yorder)
 from keypoint_bench_tpu_torch.tasks.auc import estimate_pose_pair, pose_error
 from keypoint_bench_tpu_torch.tasks.fundamental import fundamental_metrics
 from keypoint_bench_tpu_torch.tasks.mha import mha_pair
+from keypoint_bench_tpu_torch.tasks.vo import chain_poses, vo_pair_pose
+from keypoint_bench_tpu_torch.tasks.vo_ba import (chain_tracks, chain_w2c,
+                                                  refine_window)
 
 MATCHERS = ("brute_force", "light_glue")
 
@@ -217,3 +232,95 @@ def xfeat_auc_step(model, lightglue_params: dict, imgs0, imgs1, Ks,
                       torch.full_like(okp, 180.0, dtype=torch.float32))
     return (err, torch.where(okp, n_in, torch.zeros_like(n_in)), k0, k1, m0,
             mask)
+
+
+def detect_frames(model, frames, dp: DetectParams, sparse: bool = False,
+                  chunk: int = 8):
+    """Batched detection over equal-shape frames [n,H,W,3] (float in
+    [0,1] or uint8; numpy, or a tensor on the model's device): one batched
+    forward + detection_batch per chunk of `chunk` frames, each chunk moved
+    to the device as it is (uint8 frames are normalized there). Returns
+    stacked (scores [n,H,W,1], descs, kpts [n,K,3], valids [n,K]), equal
+    to detecting frame by frame. descs is the dense map [n,H/s,W/s,D], or
+    with sparse=True (ALIKE) the per-keypoint vectors [n,K,64] from the
+    sparse sampler (kernel B on CUDA), with no dense map built."""
+    dev = next(iter(model.params.values())).device
+    parts = []
+    for i0 in range(0, len(frames), chunk):
+        imgs = torch.as_tensor(frames[i0:i0 + chunk], device=dev)
+        if sparse:
+            h, w = imgs.shape[1], imgs.shape[2]
+            score, feats = model.feats(imgs)
+            kpts, valid = detection_batch(score, dp)
+            desc = alike_sparse_descriptors_cm_batch(model.params, feats,
+                                                     kpts, h, w)
+        else:
+            score, desc = model(imgs)
+            kpts, valid = detection_batch(score, dp)
+        parts.append((score, desc, kpts, valid))
+    return tuple(torch.cat([p[j] for p in parts]) for j in range(4))
+
+
+@torch.inference_mode()
+def vo_step(model, frames, K, scales, detect_params: DetectParams,
+            generator: torch.Generator | None, max_distance: float = 5.0,
+            n_hyp: int = 4096, ba_refine: bool = False,
+            samples: torch.Tensor | None = None, sparse: bool = True,
+            device: str | torch.device = "cuda"):
+    """Monocular VO over T consecutive frames [T,H,W,3] (float in [0,1] or
+    uint8) with intrinsics K [3,3] and per-frame ground-truth scales [T]
+    (||t_gt_i - t_gt_{i-1}||, 0 for frame 0). Frame i pairs with frame
+    i-1, and frame 0 with itself. The pair solve is single-focal (fx, cx,
+    cy; `vo_pair_pose`); BA projects with fx and fy. Descriptors are
+    ALIKE's sparse ones with `sparse` (the model must have `feats`), else
+    sampled from the dense map. RANSAC's minimal samples come from
+    `generator` (on `device`), or are given as `samples` [T, n_hyp, 8].
+    The model must already be on `device`.
+
+    Returns a dict: the relative poses `R_rel` [T,3,3], `t_rel` [T,3],
+    `n_inliers` [T], `ok` [T]; the detections `kpts` [T,K,3], `valid`
+    [T,K]; the matches `nn01` [T,K] (into frame i's keypoints) and
+    `match_mask` [T,K] (tensors on `device`); the chained `R_est`
+    [T+1,3,3], `t_est` [T+1,3,1] (numpy). With ba_refine, when the window
+    has enough tracks, also `ba_R_w2c`, `ba_t_w2c`, `ba_points` (numpy),
+    `ba_reproj_before`, `ba_reproj_after` and `ba_tracks` (the runner's
+    keys)."""
+    dev = resolve_device(device)
+    _check_weights(model.params, dev)
+    frames = torch.as_tensor(frames, device=dev)
+    K = np.asarray(K, np.float32)
+    h, w = frames.shape[1], frames.shape[2]
+    _, descs, kpts, valid = detect_frames(model, frames, detect_params,
+                                          sparse)
+    if not sparse:
+        descs = sample_at_points(descs, kpts)
+
+    def shift1(x):
+        """The previous frame's operand of every frame (frame 0 pairs
+        with itself)."""
+        return torch.cat([x[:1], x[:-1]])
+
+    nn01, ok = mutual_nn_match(shift1(descs), descs, shift1(valid), valid,
+                               max_distance)
+    scale = torch.tensor([w - 1.0, h - 1.0], device=dev)
+    R, t, n_in, okp = vo_pair_pose(
+        shift1(kpts)[..., 0:2] * scale, take_rows(kpts, nn01)[..., 0:2]
+        * scale, ok, K[0, 0], K[0, 2], K[1, 2], generator, n_hyp,
+        samples=samples)
+    rel_R, rel_t, ok_np = R.cpu().numpy(), t.cpu().numpy(), okp.cpu().numpy()
+    scales = np.asarray(scales, np.float64)
+    R_est, t_est = chain_poses(rel_R, rel_t, ok_np, scales)
+    out = {"R_rel": R, "t_rel": t, "n_inliers": n_in, "ok": okp,
+           "kpts": kpts, "valid": valid, "nn01": nn01, "match_mask": ok,
+           "R_est": R_est, "t_est": t_est}
+    if not ba_refine:
+        return out
+    R_w2c, t_w2c = chain_w2c(rel_R, rel_t, ok_np, scales)
+    tracks = chain_tracks(nn01.cpu().numpy(), ok.cpu().numpy())
+    kpts_px = (kpts[..., 0:2] * scale).cpu().numpy()
+    ref = refine_window(kpts_px, tracks, R_w2c, t_w2c, K, device=dev)
+    if ref is not None:
+        out.update(zip(("ba_R_w2c", "ba_t_w2c", "ba_points",
+                        "ba_reproj_before", "ba_reproj_after"), ref))
+        out["ba_tracks"] = len(tracks)
+    return out

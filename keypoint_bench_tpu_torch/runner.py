@@ -2,14 +2,17 @@
 
 Ported so far: the per-pair repeatability loop on homography and SE3
 pairs, the per-pair MHA and AUC loops (`_run_repeatability`, `_run_mha`,
-`_run_auc` and their per-pair records), and the sequence tasks
+`_run_auc` and their per-pair records), the sequence tasks
 FundamentalMatrix (per pair and `task_params.pipelined`) and
-FundamentalMatrixRansac, with the brute-force, LightGlue (deterministic
-only), optical_flow and optical_flow_cv matchers (`_match`). Other tasks,
-adaptive LightGlue, the five-point solver, the LETNet / GoodPoint flow
-sources, save_images, the resume journal, bf16, debug_nans and the
-sharded batch paths (brute-force MHA and AUC, repeatability) raise
-NotImplementedError (ROADMAP.md).
+FundamentalMatrixRansac, and visual_odometer (`_run_vo` pair by pair, and
+`_run_vo_pipelined`, brute force through `pipeline.vo_step`, with
+`task_params.ba_refine` windowed bundle adjustment), with the
+brute-force, LightGlue (deterministic only), optical_flow and
+optical_flow_cv matchers (`_match`). Other tasks, adaptive LightGlue, the
+five-point solver, the LETNet / GoodPoint flow sources, save_images, the
+resume journal, bf16, debug_nans, the distributed BA
+(`task_params.ba_distributed`) and the sharded batch paths (brute-force
+MHA and AUC, repeatability) raise NotImplementedError (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -27,22 +30,22 @@ from keypoint_bench_tpu_torch.geometry.warp import warp_points
 from keypoint_bench_tpu_torch.models import get_model
 from keypoint_bench_tpu_torch.models.common import to_float_image
 from keypoint_bench_tpu_torch.models.lightglue import lightglue_match
-from keypoint_bench_tpu_torch.ops.detect import (DetectParams, detection,
-                                                 detection_batch)
+from keypoint_bench_tpu_torch.ops.detect import DetectParams, detection
 from keypoint_bench_tpu_torch.ops.grid_sample import sample_at_points
 from keypoint_bench_tpu_torch.ops.lk import (LKParams, optical_flow,
                                              optical_flow_batch,
                                              optical_flow_cv)
 from keypoint_bench_tpu_torch.ops.matching import (brute_force_match,
                                                    mutual_nn_match, take_rows)
-from keypoint_bench_tpu_torch.ops.sparse_desc import \
-    alike_sparse_descriptors_cm_batch
+from keypoint_bench_tpu_torch.pipeline import detect_frames, vo_step
 from keypoint_bench_tpu_torch.tasks.auc import (estimate_pose_pair, pose_auc,
                                               pose_error)
 from keypoint_bench_tpu_torch.tasks.fundamental import (
     fundamental_metrics, fundamental_ransac_ratio)
 from keypoint_bench_tpu_torch.tasks.mha import mha_pair
 from keypoint_bench_tpu_torch.tasks.repeatability import repeatability_pair
+from keypoint_bench_tpu_torch.tasks.vo import (chain_poses, vo_pair_pose,
+                                               write_kitti_trajectory)
 from keypoint_bench_tpu_torch.weights import load_params
 
 
@@ -183,33 +186,6 @@ class Evaluator:
         kpts, valid = detection(score[0], self.detect_params)
         return score[0], desc[0], kpts, valid
 
-    @torch.inference_mode()
-    def detect_many(self, images: list, chunk: int = 8,
-                    sparse: bool = False):
-        """Batched detection over equal-shape images (the pipelined
-        runners' detect phase): one batched forward + detection_batch per
-        chunk. uint8 frames go to the device as they are and are normalized
-        there. Returns stacked (scores [n,H,W,1], descs, kpts [n,K,3],
-        valids [n,K]), equal to per-frame `detect`. descs is the dense map
-        [n,H/s,W/s,D], or with sparse=True (Alike_s2d) the per-keypoint
-        vectors [n,K,64] from the sparse sampler (kernel B on CUDA), with
-        no dense descriptor map ever built."""
-        parts = []
-        for i0 in range(0, len(images), chunk):
-            imgs = torch.as_tensor(np.stack(images[i0:i0 + chunk]),
-                                   device=self.device)
-            if sparse:
-                h, w = imgs.shape[1], imgs.shape[2]
-                score, feats = self.model.feats(imgs)
-                kpts, valid = detection_batch(score, self.detect_params)
-                desc = alike_sparse_descriptors_cm_batch(
-                    self.params, feats, kpts, h, w)
-            else:
-                score, desc = self.model(imgs)
-                kpts, valid = detection_batch(score, self.detect_params)
-            parts.append((score, desc, kpts, valid))
-        return tuple(torch.cat([p[j] for p in parts]) for j in range(4))
-
     def _warp(self, kpts, valid, wp):
         return warp_points(kpts, valid, wp)
 
@@ -248,6 +224,7 @@ class Evaluator:
               "FundamentalMatrix": self._run_fundamental,
               "FundamentalMatrixRansac": self._run_fundamental_ransac,
               "AUC": self._run_auc,
+              "visual_odometer": self._run_vo,
               }.get(task)
         if fn is None:
             raise _not_ported(f"task_type {task!r}")
@@ -445,15 +422,16 @@ class Evaluator:
                              f"{self.matcher_type!r}")
         th = float(self.cfg.task_params.get("th", 3.0))
         items = list(_iter(ds))
-        raw = [np.asarray(b["image0"]) for b in items]
+        raw = np.stack([np.asarray(b["image0"]) for b in items])
         Fs = torch.as_tensor(np.stack([np.asarray(b["fundamental"])
                                        for b in items]),
                              dtype=torch.float32, device=self.device)
         sparse = (self.cfg.model_type == "Alike_s2d"
                   and self.matcher_type != "optical_flow"
                   and bool(self.cfg.task_params.get("sparse_desc", True)))
-        _, descs, kpts, valids = self.detect_many(raw, sparse=sparse)
-        h, w = raw[0].shape[:2]
+        _, descs, kpts, valids = detect_frames(self.model, raw,
+                                               self.detect_params, sparse)
+        h, w = raw.shape[1:3]
         scale = torch.tensor([w - 1.0, h - 1.0], device=self.device)
 
         def shift1(x):
@@ -463,7 +441,7 @@ class Evaluator:
 
         k0 = shift1(kpts)[:, :, 0:2]
         if self.matcher_type == "optical_flow":
-            frames = to_float_image(torch.as_tensor(np.stack(raw),
+            frames = to_float_image(torch.as_tensor(raw,
                                                     device=self.device))
             src0, src1 = self._flow_sources(shift1(frames), frames,
                                             shift1(descs), descs)
@@ -528,6 +506,89 @@ class Evaluator:
         result = {"fundamental_radio": float(np.mean(radios))}
         print("fundamental_radio", result["fundamental_radio"])
         return result
+
+    def _vo_result(self, R_est, t_est):
+        """Write the KITTI trajectory; the VO result's common keys."""
+        os.makedirs(self.cfg.output_dir, exist_ok=True)
+        traj = os.path.join(self.cfg.output_dir, "trajectory.txt")
+        write_kitti_trajectory(traj, R_est, t_est)
+        return {"num_frames": len(R_est) - 1, "trajectory_path": traj,
+                "R_est": R_est, "t_est": t_est}
+
+    def _run_vo_pipelined(self, ds):
+        """Batched VO (task_params.pipelined, brute force):
+        `pipeline.vo_step` over every frame of the sequence at once, only
+        the GT-scale pose chain on the host; task_params.ba_refine grows it
+        into windowed bundle adjustment (tasks/vo_ba.py)."""
+        tp = self.cfg.task_params
+        ba = bool(tp.get("ba_refine"))
+        if ba and tp.get("ba_distributed"):
+            raise _not_ported("visual_odometer's task_params.ba_distributed "
+                              "(the distributed Schur solver, "
+                              "ba/distributed.py)")
+        metas = list(_iter(ds))
+        frames = np.stack([np.asarray(b["image0"]) for b in metas])
+        scales = [float(np.linalg.norm(np.asarray(b["ground_truth"])[0:3, 3]
+                                       - np.asarray(
+                                           b["last_ground_truth"])[0:3, 3]))
+                  for b in metas]
+        m = metas[0]
+        K = np.array([[float(m["fx"]), 0, float(m["cx"])],
+                      [0, float(m["fy"]), float(m["cy"])], [0, 0, 1.0]],
+                     np.float32)
+        # Alike_s2d: sparse per-keypoint descriptors (the same values as
+        # dense sampling, no dense map; task_params.sparse_desc opts out)
+        sparse = (self.cfg.model_type == "Alike_s2d"
+                  and bool(tp.get("sparse_desc", True)))
+        out = vo_step(self.model, frames, K, scales, self.detect_params,
+                      self.generator, self.bf_max_distance, ba_refine=ba,
+                      sparse=sparse, device=self.device)
+        result = self._vo_result(out["R_est"], out["t_est"])
+        if "ba_tracks" in out:
+            result.update({k: v for k, v in out.items()
+                           if k.startswith("ba_")})
+            print(f"BA window: {out['ba_tracks']} tracks, reproj "
+                  f"{out['ba_reproj_before']:.2f} -> "
+                  f"{out['ba_reproj_after']:.2f} px")
+        return result
+
+    @torch.inference_mode()
+    def _run_vo(self, ds):
+        """Monocular VO with GT-scale injection: pair by pair (brute force,
+        LightGlue, optical_flow, optical_flow_cv), or batched for brute
+        force with task_params.pipelined. Device LK has no cv2 status, so
+        optical_flow keeps the tracks that land in bounds."""
+        if self.cfg.task_params.get("pipelined") and \
+                self.matcher_type == "brute_force":
+            return self._run_vo_pipelined(ds)
+        rel_R, rel_t, oks, scales = [], [], [], []
+        for last, batch in self._iter_sequence(ds):
+            img0, img1, s0, d0, k0, v0, s1, d1, k1, v1 = \
+                self._seq_maps(last, batch)
+            h, w = img1.shape[0], img1.shape[1]
+            if self.matcher_type in ("optical_flow", "optical_flow_cv"):
+                m0, m1, ok = self._match(
+                    k0, v0, k1, v1, d0, d1, w, h,
+                    imgs=self._flow_sources(img0, img1, d0, d1))
+                if self.matcher_type == "optical_flow":
+                    ok = ok & ((m1[:, 0:2] >= 0) & (m1[:, 0:2] <= 1)).all(-1)
+            else:
+                m0, m1, ok = self._match(k0, v0, k1, v1, d0, d1, w, h)
+            scale = torch.tensor([w - 1.0, h - 1.0], device=self.device)
+            R, t, _, okp = vo_pair_pose(
+                m0[:, 0:2] * scale, m1[:, 0:2] * scale, ok,
+                float(batch["fx"]), float(batch["cx"]), float(batch["cy"]),
+                self.generator)
+            rel_R.append(R)
+            rel_t.append(t)
+            oks.append(okp)
+            gt = np.asarray(batch["ground_truth"])
+            gt_prev = np.asarray(batch["last_ground_truth"])
+            scales.append(float(np.linalg.norm(gt[0:3, 3] - gt_prev[0:3, 3])))
+        R_est, t_est = chain_poses(
+            torch.stack(rel_R).cpu().numpy(), torch.stack(rel_t).cpu().numpy(),
+            torch.stack(oks).cpu().numpy(), np.asarray(scales))
+        return self._vo_result(R_est, t_est)
 
 
 def _iter(ds):

@@ -223,7 +223,10 @@ def test_cli_runs_fund_synthetic_config_on_cpu(tmp_path, capsys):
 
 @pytest.mark.parametrize("change,what", [
     ({"task_params": {"save_images": True}}, "save_images"),
-    ({"task_type": "visual_odometer"}, "visual_odometer"),
+    ({"task_type": "visual_odometer",
+      "matcher_params": {"type": "brute_force"},
+      "task_params": {"pipelined": True, "ba_refine": True,
+                      "ba_distributed": True}}, "visual_odometer"),
     ({"task_type": "VisualizeTrackingError"}, "VisualizeTrackingError"),
     ({"data_params": {"type": "kitti", "root": "x", "gt": "y"}}, "kitti")])
 def test_unported_parts_raise(tmp_path, change, what):

@@ -84,10 +84,11 @@ def _default_device_calls(tmp_path):
     from keypoint_bench_tpu_torch.ops.lk import LKParams
     from keypoint_bench_tpu_torch.pipeline import (extract_match,
                                                    lk_fundamental_step,
-                                                   xfeat_auc_step)
+                                                   vo_step, xfeat_auc_step)
     from keypoint_bench_tpu_torch.weights import (load_golden_params,
                                                   lightglue_input_proj_params)
     from keypoint_bench_tpu_torch.runner import EvalConfig, Evaluator
+    from keypoint_bench_tpu_torch.tasks.vo_ba import refine_window
     from keypoint_bench_tpu_torch.weights import load_params
     cfg = {"model_type": "Alike", "task_type": "repeatability",
            "data_params": {"type": "synthetic_homography", "num_pairs": 1,
@@ -111,6 +112,12 @@ def _default_device_calls(tmp_path):
             np.eye(3, dtype=np.float32)[None],
             np.eye(4, dtype=np.float32)[None], DetectParams(),
             torch.Generator()),
+        "vo_step": lambda: vo_step(
+            get_model("Alike")(params), imgs, np.eye(3), [0.0],
+            DetectParams(), torch.Generator()),
+        "refine_window": lambda: refine_window(
+            np.zeros((2, 1, 2), np.float32), [], np.stack([np.eye(3)] * 2),
+            np.zeros((2, 3)), np.eye(3)),
         "Evaluator": lambda: Evaluator(EvalConfig.from_dict(cfg)),
         "cli": lambda: cli.main(["-c", str(cfg_path)]),
     }
@@ -118,7 +125,8 @@ def _default_device_calls(tmp_path):
 
 @pytest.mark.parametrize("entry", ["resolve_device", "extract_match",
                                    "lk_fundamental_step", "xfeat_auc_step",
-                                   "Evaluator", "cli"])
+                                   "vo_step", "refine_window", "Evaluator",
+                                   "cli"])
 def test_default_device_raises_without_cuda(tmp_path, entry):
     if torch.cuda.is_available():
         pytest.skip("this host has CUDA")

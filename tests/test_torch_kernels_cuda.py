@@ -18,7 +18,13 @@ iterations (another summation order of the five sums, amplified by the
 Gauss-Newton steps; the JAX package's tolerance between its kernel and
 `_lk_level`). Kernel C (the peel) only compares and selects: values equal
 under == (NaN matching NaN; -0.0 ties with +0.0, as the reference's == has
-it), equal indices.
+it), equal indices. `vo_step` on the card against its plain-twin run on
+the same generator seed: keypoints equal, match rows within 0.5% of the
+valid keypoints, and where the matches are equal the positions within
+1e-3 of the trajectory's length. `ba_solve` on the card against the CPU
+on one problem: the mean error within 1e-3 px in float32 and 1e-6 px in
+float64, poses within 1e-3 and 1e-6 after the free scale about camera 0
+(`chip_smoke.gauge_gap`).
 """
 import os
 import runpy
@@ -612,10 +618,11 @@ def _peel_maps(kind, shape, seed):
     return m
 
 
-# values equal under == (so -0.0 == +0.0), NaN matching NaN; indices equal
-_peel_equal = runpy.run_path(
+_CHIP_SMOKE = runpy.run_path(
     os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                 "chip_smoke.py"), run_name="not_main")["peel_equal"]
+                 "chip_smoke.py"), run_name="not_main")
+# values equal under == (so -0.0 == +0.0), NaN matching NaN; indices equal
+_peel_equal = _CHIP_SMOKE["peel_equal"]
 
 
 # W = 384 at three depths; the widest shapes the rule (W // 128) *
@@ -686,3 +693,79 @@ def test_fused_detection_on_card_equals_unfused(dev, kind, unsafe):
     pk, pv = detection_batch(maps, dp)
     assert torch.equal(fk, pk) and torch.equal(fv, pv)
     assert fused_topk(maps, dp, 300)[2] == unsafe
+
+
+def test_vo_step_on_card_matches_plain(dev):
+    from keypoint_bench_tpu_torch.datasets.synthetic import \
+        SyntheticSplatSequenceDataset
+    from keypoint_bench_tpu_torch.models import get_model
+    from keypoint_bench_tpu_torch.pipeline import vo_step
+    from keypoint_bench_tpu_torch.weights import load_params
+    ds = SyntheticSplatSequenceDataset(4, 256, 0)
+    items = [ds[i] for i in range(4)]
+    frames = np.stack([it["image0"] for it in items])
+    scales = [float(np.linalg.norm(it["ground_truth"][:3, 3]
+                                   - it["last_ground_truth"][:3, 3]))
+              for it in items]
+    model = get_model("Alike_s2d")(load_params("Alike_s2d", device=dev))
+    dp = DetectParams(nms_dist=4, border_dist=8, top_k=300)
+
+    def run():
+        return vo_step(model, frames, ds.base.K, scales, dp,
+                       torch.Generator(device=dev).manual_seed(0),
+                       n_hyp=256, ba_refine=True, device=dev)
+
+    kernels = (cuda_nms.KERNEL, cuda_sample.KERNEL, cuda_match.KERNEL)
+    before = [k.launches for k in kernels]
+    got = run()
+    assert all(k.launches > b for k, b in zip(kernels, before))
+    with _CHIP_SMOKE["plain_twins"]():
+        want = run()
+    assert torch.equal(got["kpts"], want["kpts"])
+    assert torch.equal(got["valid"], want["valid"])
+    differ = int((got["match_mask"] != want["match_mask"]).sum()
+                 + ((got["nn01"] != want["nn01"]) & got["match_mask"]).sum())
+    assert differ <= 0.005 * int(got["valid"].sum())
+    assert np.isfinite(got["t_est"]).all() and got["ba_tracks"] > 100
+    if differ == 0:
+        length = np.linalg.norm(np.diff(want["t_est"][:, :, 0], axis=0),
+                                axis=1).sum()
+        assert np.abs(got["t_est"] - want["t_est"]).max() <= 1e-3 * length
+        assert got["ba_tracks"] == want["ba_tracks"]
+        assert abs(got["ba_reproj_after"] - want["ba_reproj_after"]) <= 1e-3
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-3),
+                                       (torch.float64, 1e-6)])
+def test_ba_solve_on_card_matches_cpu(dev, dtype, tol):
+    from keypoint_bench_tpu_torch.ba import BAProblem, ba_solve
+    from keypoint_bench_tpu_torch.datasets.synthetic import rodrigues
+    rng = np.random.default_rng(1)
+    C, P = 6, 80
+    pts = np.c_[rng.uniform(-2, 2, (P, 2)), rng.uniform(6, 12, P)]
+    Rs = np.stack([rodrigues(rng.normal(0, 0.05, 3)) for _ in range(C)])
+    ts = np.array([[0.3 * c, 0.05 * c, 0.0] for c in range(C)])
+    Kc = np.array([[400.0, 0, 320], [0, 400.0, 240], [0, 0, 1]])
+    ci, pi = np.meshgrid(np.arange(C), np.arange(P), indexing="ij")
+    ci, pi = ci.ravel(), pi.ravel()
+    Xc = np.einsum("nij,nj->ni", Rs[ci], pts[pi]) + ts[ci]
+    uv = Xc[:, :2] / Xc[:, 2:] * 400.0 + [320, 240] + rng.normal(
+        0, 0.5, (len(ci), 2))
+    R0 = np.stack([Rs[0]] + [rodrigues(rng.normal(0, 0.01, 3)) @ R
+                             for R in Rs[1:]])
+    t0 = np.concatenate([ts[:1], ts[1:] + rng.normal(0, 0.05, (C - 1, 3))])
+    p0 = pts + rng.normal(0, 0.02, pts.shape)
+    sols = []
+    for d in (dev, torch.device("cpu")):
+        def f(x):
+            return torch.as_tensor(x, dtype=dtype, device=d)
+        prob = BAProblem(f(R0), f(t0), f(p0), torch.as_tensor(ci, device=d),
+                         torch.as_tensor(pi, device=d), f(uv),
+                         torch.ones(len(ci), dtype=torch.bool, device=d),
+                         f(Kc))
+        R, t, p, e = ba_solve(prob, iters=8, damping=1e-2, huber_delta=2.0)
+        sols.append(([x.cpu().numpy() for x in (R, t, p)], float(e)))
+    (card, e_card), (cpu, e_cpu) = sols
+    assert abs(e_card - e_cpu) <= tol and e_card < 1.0
+    s, gap_r, gap_c, gap_p = _CHIP_SMOKE["gauge_gap"](card, cpu)
+    assert abs(s - 1.0) <= 0.05 and max(gap_r, gap_c, gap_p) <= tol

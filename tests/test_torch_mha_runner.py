@@ -165,7 +165,10 @@ def test_lightglue_without_weights_raises_or_falls_back(tmp_path):
     ({"matcher_params": {"type": "light_glue",
                          "light_glue_params": {"adaptive": True}}},
      "adaptive"),
-    ({"task_type": "visual_odometer"}, "visual_odometer"),
+    ({"task_type": "visual_odometer",
+      "matcher_params": {"type": "brute_force"},
+      "task_params": {"pipelined": True, "ba_refine": True,
+                      "ba_distributed": True}}, "visual_odometer"),
     ({"data_params": {"type": "synthetic_homography", "num_pairs": 2,
                       "image_size": S, "batch_size": 2}}, "sharded"),
     ({"task_type": "AUC",
