@@ -144,9 +144,40 @@ Phases, each fatal on failure:
      CPU (`JAX_CPU_ATE`; one draw's ATE spreads several-fold across
      seeds); BA: error falls, over 100 tracks, over 95% of the points in
      front of camera 0;
- 23. an `xfeat_auc_step` JSON line, a `vo_step` JSON line, the card's name
-     and power limit, a `kernels` JSON line and, last, the device JSON
-     line.
+ 24. the detector family's forwards (EdgePoint, GoodPoint, LETNet, r2d2,
+     DISK, sfd2, D2Net, KeyNet, Harris, ORB, SIFT) on the card against
+     the port's CPU path, at 64^2 on the golden inputs and at 512^2 on a
+     texture: within 1e-4 of each map's largest value, NaNs at the same
+     places; sfd2's stability class may flip only where the top two
+     logits lie within 1e-5 of the largest |logit| (the flips counted,
+     those pixels set aside);
+     the 8 learned models against their golden fixtures with
+     tests/test_models.py's tolerances;
+ 25. `dense_extract_match` (bench.py:626-640's dense pair step, batched)
+     for the seven descriptor models on 4 uint8 texture pairs at 512^2,
+     and `dense_detect` of both sides for the four detectors, launch
+     counts reset just before each (kernel A twice; D once, 2 launches,
+     with descriptors); A bit-equal
+     (NaN bits included) and D's indices equal except near ties on the
+     step's own calls; keypoints bit-equal to the plain-twin step, a
+     match row parted only where D's pick is a near tie; timed (median
+     of 7 windows) in pairs/s and frames/s with peak memory and stages
+     (forward, detection, sampling, D); kernel D on the LETNet (D = 4)
+     and D2Net (D = 513) steps' inputs timed in turns with baddbmm +
+     both minima, beside the plain twin, the bound and its device time;
+ 26. the sweep: `run_sweep` on configs/sweep_repeatability.yaml's base (4
+     pairs at 512^2) over its seven models, then DISK, sfd2 and D2Net
+     from staged golden weights, ORB and SIFT: each repeatability equal
+     to the plain-twin sweep's, printed beside the JAX package's on the
+     CPU (`JAX_CPU_SWEEP`, tools/sweep_cpu_reference.py);
+ 27. the port's Evaluator: FundamentalMatrix with LETNet + optical_flow
+     (kernel F on its 3-channel descriptor maps, A) on 5 frames at 512^2,
+     per pair and pipelined: F's launches, F within 1e-2 px of
+     `_lk_level` on 99% of the points of its own calls, the result
+     against the plain-twin run as in phase 15;
+ 28. an `xfeat_auc_step` JSON line, a `vo_step` JSON line, a
+     `dense_extract_match` JSON line, the card's name and power limit, a
+     `kernels` JSON line and, last, the device JSON line.
 Exits non-zero without CUDA, or without the port's package beside it.
 """
 from __future__ import annotations
@@ -177,6 +208,38 @@ VO_SEEDS = range(5)
 # over its generator seeds must stay below twice these.
 JAX_CPU_ATE = {"pipelined_ba": 0.009197223262693427,
                "sequential_lk": 0.008769001315207312}
+# The detector family (phases 24-27): bench.py:641's dense batch of 4
+# pairs; the models with golden randomized weights; the classic detectors
+# (model_params, no weights); test_models.py's golden tolerances
+DENSE_PAIRS = 4
+DESC_MODELS = ("EdgePoint", "GoodPoint", "LETNet", "r2d2", "DISK", "sfd2",
+               "D2Net")
+DETECTOR_MODELS = ("KeyNet", "Harris", "ORB", "SIFT")
+FAMILY = DESC_MODELS + DETECTOR_MODELS
+GOLDEN_MODELS = ("DISK", "sfd2", "D2Net")
+CLASSIC_MODELS = ("Harris", "ORB", "SIFT")
+SWEEP_EXTRA = GOLDEN_MODELS + ("ORB", "SIFT")
+GOLDEN_TOL = {"LETNet": (2e-4, 0), "GoodPoint": (2e-4, 0),
+              "EdgePoint": (2e-4, 0), "KeyNet": (1e-2, 1e-4),
+              "r2d2": (5e-4, 0), "DISK": (5e-4, 0), "sfd2": (1e-3, 1e-3),
+              "D2Net": (1e-3, 1e-3)}
+# The JAX package's run_sweep on the CPU over the same sweep
+# (tools/sweep_cpu_reference.py): each model's repeatability, printed
+# beside the card's; sfd2's randomized weights leave it no keypoint
+JAX_CPU_SWEEP = {
+    "Alike": 0.8695000112056732,
+    "EdgePoint": 0.885000005364418,
+    "GoodPoint": 0.8362499922513962,
+    "LETNet": 0.846000000834465,
+    "KeyNet": 0.8754999935626984,
+    "r2d2": 0.8814999908208847,
+    "Harris": 0.7237499952316284,
+    "DISK": 0.4012499898672104,
+    "sfd2": 0.0,
+    "D2Net": 0.21525000035762787,
+    "ORB": 0.8264999985694885,
+    "SIFT": 0.8646625578403473,
+}
 # H100 SXM peaks (vendor datasheet): HBM bytes/s, f32 FLOP/s (an FMA
 # counts 2). Compares, max and adds issue at most one per f32 lane and
 # clock, half the FMA-counted rate.
@@ -1173,7 +1236,7 @@ def vo_phases(dev, dp, card, errs):
 
         # the stages, each alone on the step's own tensors
         with torch.inference_mode():
-            _, descs, kpts, valid = detect_frames(model, frames, dp, True)
+            _, descs, kpts, valid = detect_frames(model, frames, dp, dev, True)
             d0 = torch.cat([descs[:1], descs[:-1]])
             v0 = torch.cat([valid[:1], valid[:-1]])
             k0 = torch.cat([kpts[:1], kpts[:-1]])
@@ -1186,7 +1249,7 @@ def vo_phases(dev, dp, card, errs):
                                              res["ok"])]
             st = {f"detection (Alike_s2d feats + A + B, {VO_FRAMES} frames "
                   f"in chunks of 8)":
-                  cuda_ms(lambda: detect_frames(model, frames, dp, True),
+                  cuda_ms(lambda: detect_frames(model, frames, dp, dev, True),
                           iters=3),
                   f"mutual_nn_match ({VO_FRAMES} pairs, kernel D)":
                   cuda_ms(lambda: mutual_nn_match(d0, descs, v0, valid,
@@ -1366,6 +1429,406 @@ def vo_phases(dev, dp, card, errs):
                                      f"its plain twin or misses its ATE "
                                      f"bound")
         out["launches_lk"] = out["runner"]["sequential_lk"]["launches"]["lk"]
+    return out
+
+
+def family_model(name, dev):
+    """A model of the detector family on `dev`: weights_npz/ checkpoints,
+    the golden randomized parameters (GOLDEN_MODELS), or the default
+    model_params (Harris, ORB, SIFT)."""
+    from keypoint_bench_tpu_torch.models import get_model
+    from keypoint_bench_tpu_torch.weights import (load_golden_params,
+                                                  load_params)
+    if name in CLASSIC_MODELS:
+        return get_model(name)({})
+    params = (load_golden_params(name, dev) if name in GOLDEN_MODELS
+              else load_params(name, device=dev))
+    return get_model(name)(params).eval()
+
+
+def bits_equal(a, b):
+    """Bit equality of two float32 tensors (a NaN equals a NaN with the
+    same bits, which torch.equal does not grant)."""
+    import torch
+    return a.shape == b.shape and torch.equal(
+        a.contiguous().view(torch.int32), b.contiguous().view(torch.int32))
+
+
+def map_gap(got, want):
+    """(max |got - want| over the values finite on both sides, the
+    largest finite |want|, whether the NaNs sit at the same places)."""
+    import torch
+    fin = torch.isfinite(want) & torch.isfinite(got)
+    err = float((got - want).abs()[fin].max()) if bool(fin.any()) else 0.0
+    scale = float(want.abs()[fin].max()) if bool(fin.any()) else 0.0
+    return err, scale, bool(torch.equal(torch.isnan(got), torch.isnan(want)))
+
+
+def mm_min(a, b):
+    """The library calls timed beside kernel D (the port never makes
+    them): baddbmm for s, then both minima with indices."""
+    import torch
+
+    def call():
+        s = torch.baddbmm((a * a).sum(-1)[..., None]
+                          + (b * b).sum(-1)[:, None, :], a,
+                          b.transpose(1, 2), alpha=-2.0)
+        return s.min(-1), s.min(-2)
+    return call
+
+
+def detector_phases(dev, card, errs):
+    """The detector family (phases 24-27): every model's forward on the
+    card against the CPU (and the golden fixtures); `dense_extract_match`
+    for the seven descriptor models at bench.py's dense shape, kernels A
+    and D held on the step's own calls and against the plain-twin step,
+    timed with stages; `dense_detect` for the four detectors; the sweep
+    against its plain-twin run beside the JAX CPU values; LETNet's LK
+    flow source through the runner (kernel F on 3-channel maps). Returns
+    the numbers for the dense_extract_match and kernels JSON lines."""
+    import numpy as np
+    import torch
+
+    from keypoint_bench_tpu_torch.datasets.synthetic import _texture
+    from keypoint_bench_tpu_torch.models.sfd2 import stability
+    from keypoint_bench_tpu_torch.ops import cuda_lk, cuda_match, cuda_nms
+    from keypoint_bench_tpu_torch.ops.detect import (DetectParams,
+                                                     detection_batch,
+                                                     fast_nms)
+    from keypoint_bench_tpu_torch.ops.grid_sample import sample_at_points
+    from keypoint_bench_tpu_torch.ops.lk import _lk_level
+    from keypoint_bench_tpu_torch.ops.matching import (mutual_nn_match,
+                                                       nn_dists)
+    from keypoint_bench_tpu_torch.pipeline import (dense_detect,
+                                                   dense_extract_match)
+    from keypoint_bench_tpu_torch.runner import EvalConfig, Evaluator
+    from keypoint_bench_tpu_torch.sweep import run_sweep
+    from keypoint_bench_tpu_torch.weights import stage_golden_weights
+    from keypoint_bench_tpu_torch.weights.io import GOLDEN_DIR
+
+    out = {"models": {}}
+    t_start = time.perf_counter()
+    dp = DetectParams(nms_dist=6, border_dist=8, top_k=K)
+    models = {n: family_model(n, dev) for n in FAMILY}
+    cpu_models = {n: family_model(n, torch.device("cpu")) for n in FAMILY}
+
+    with phase(f"forwards: the detector family, card vs CPU at 64^2 "
+               f"(golden inputs) and at {SIZE}^2"):
+        rng = np.random.default_rng(0)
+        big = torch.from_numpy(_texture(SIZE, SIZE, rng)[None])
+        flips = {}
+        for name in FAMILY:
+            g = np.load(os.path.join(GOLDEN_DIR, f"{name}.npz")) \
+                if name not in CLASSIC_MODELS else None
+            small = torch.from_numpy((g if g is not None else np.load(
+                os.path.join(GOLDEN_DIR, "LETNet.npz")))["image"]
+                .transpose(0, 2, 3, 1).copy())
+            for size, img in ((64, small), (SIZE, big)):
+                with torch.inference_mode():
+                    s_c, d_c = models[name](img.to(dev))
+                    s_p, d_p = cpu_models[name](img)
+                s_c = s_c.cpu()
+                keep = torch.ones_like(s_p, dtype=torch.bool)
+                if name == "sfd2":
+                    # the stability class may flip where the top two
+                    # upsampled logits lie within float error of each
+                    # other: a gap under 1e-5 of the largest |logit| (the
+                    # randomized weights' logits reach ~2.5e5, where f32's
+                    # spacing is 0.0156); those pixels are set aside
+                    with torch.inference_mode():
+                        sta_c = models[name].logits(img.to(dev))[2].cpu()
+                        sta_p = cpu_models[name].logits(img)[2]
+                    top2 = sta_p.topk(2, dim=1).values
+                    gap = top2[:, 0] - top2[:, 1]                # [B,H,W]
+                    flip = (stability(sta_c) != stability(sta_p))[:, 0]
+                    thr = 1e-5 * float(sta_p.abs().max())
+                    flips[size] = {
+                        "flipped": int(flip.sum()),
+                        "beyond_allowance": int((flip & (gap >= thr)).sum()),
+                        "under_allowance": int((gap < thr).sum()),
+                        "allowance": thr,
+                        "flip_gaps": gap[flip].tolist()[:10],
+                        "logit_max_abs_err": float(
+                            (sta_c - sta_p).abs().max()),
+                        "logit_max_abs": float(sta_p.abs().max())}
+                    log(f"  sfd2 at {size}^2 stability: {flips[size]}")
+                    if flips[size]["beyond_allowance"]:
+                        raise AssertionError("sfd2: a stability flip beyond "
+                                             "the allowance")
+                    keep = ~flip[..., None]
+                err, scale, nan_eq = map_gap(s_c[keep], s_p[keep])
+                derr, dscale = 0.0, 0.0
+                if d_p is not None:
+                    derr, dscale, dnan = map_gap(d_c.cpu(), d_p)
+                    nan_eq = nan_eq and dnan
+                log(f"  {name} at {size}^2: score max abs err {err:.3g} "
+                    f"(max |score| {scale:.3g}), desc {derr:.3g} (max "
+                    f"{dscale:.3g}); NaN at the same places {nan_eq}"
+                    + (f"; stability flips {flips[size]['flipped']}"
+                       if name == "sfd2" else ""))
+                # card vs CPU: f32 sums in other orders through up to 13
+                # layers: 1e-4 of each map's largest value
+                if not (nan_eq and err <= 1e-4 * scale
+                        and derr <= 1e-4 * dscale):
+                    raise AssertionError(f"{name} forward card vs CPU")
+                if size == 64 and g is not None:
+                    atol, rtol = GOLDEN_TOL[name]
+                    np.testing.assert_allclose(
+                        s_c[..., 0].numpy(), g["score"][:, 0], atol=atol,
+                        rtol=rtol, err_msg=f"{name} score vs golden")
+                    if d_p is not None:
+                        np.testing.assert_allclose(
+                            d_c.cpu().numpy(),
+                            g["desc"].transpose(0, 2, 3, 1), atol=atol,
+                            rtol=rtol, err_msg=f"{name} desc vs golden")
+        out["sfd2_stability_flips"] = flips
+        log(f"  the 8 learned models equal their golden fixtures within "
+            f"tests/test_models.py's tolerances on the card")
+
+    rng = np.random.default_rng(0)
+    imgs = [torch.from_numpy(np.round(np.stack(
+        [_texture(SIZE, SIZE, rng) for _ in range(DENSE_PAIRS)]) * 255)
+        .astype(np.uint8)).to(dev) for _ in range(2)]
+
+    with phase(f"dense_extract_match: {len(DESC_MODELS)} descriptor models, "
+               f"{DENSE_PAIRS} pairs at {SIZE}^2 (uint8); dense_detect: "
+               f"{len(DETECTOR_MODELS)} detectors"):
+        for name in DESC_MODELS + DETECTOR_MODELS:
+            model, rec = models[name], {}
+            dense = name in DESC_MODELS
+
+            def step(model=model, dense=dense):
+                if dense:
+                    return dense_extract_match(model, imgs[0], imgs[1], dp,
+                                               5.0, device=DEVICE)
+                return [dense_detect(model, im, dp, device=DEVICE)
+                        for im in imgs]
+
+            reset_launches()
+            with recording(cuda_nms, "nms_cuda") as nms_calls, \
+                    recording(cuda_match, "nn_dists_cuda") as nn_calls:
+                res = step()
+                torch.cuda.synchronize()
+            got = read_launches()
+            want_l = {"nms": 2, "nn_match": 2 if dense else 0}
+            if any(got[k] != v for k, v in want_l.items()):
+                raise AssertionError(f"{name}: launches {got}, want "
+                                     f"{want_l}")
+            rec["launches"] = {k: got[k] for k in want_l}
+            for args, kw in nms_calls:
+                g_, w_ = cuda_nms.nms_cuda(*args, **kw), fast_nms(*args,
+                                                                  **kw)
+                if not bits_equal(g_, w_):
+                    raise AssertionError(f"{name}: kernel A differs from "
+                                         f"fast_nms on the step's maps")
+            maps = nms_calls[0][0][0]
+            rec["score_nan_share"] = float(torch.isnan(maps).float().mean())
+            with plain_twins():
+                res_p = step()
+            if dense:
+                n, k0, m1 = res
+                n_p, k0_p, m1_p = res_p
+                (a, b), _ = nn_calls[0]
+                g_, w_ = cuda_match.nn_dists_cuda(a, b), nn_dists(a, b)
+                near, err_free, _ = check_nn(g_, w_, a, b)
+                errs["nn_match"] = max(errs["nn_match"], err_free)
+                differ01 = g_[0] != w_[0]
+                n_diff = int(differ01.sum() + (g_[2] != w_[2]).sum())
+                parted = ~(m1[..., :2] == m1_p[..., :2]).all(-1)
+                valid = k0[..., 2] > 0
+                rec.update(matches=int(n), matches_plain=int(n_p),
+                           valid_kpts=int(valid.sum()),
+                           near_tie_indices=near, rows_parted=int(
+                               (parted & valid).sum()), desc_dim=a.shape[-1]
+                           - 1)
+                if not bits_equal(k0, k0_p):
+                    raise AssertionError(f"{name}: k0 differs from the "
+                                         f"plain-twin step")
+                # a match row may part only where kernel D's pick is a near
+                # tie of the plain twin's (check_nn held that above)
+                if bool((parted & ~differ01).any()) or \
+                        abs(int(n) - int(n_p)) > n_diff:
+                    raise AssertionError(f"{name}: matches differ from the "
+                                         f"plain-twin step beyond near ties")
+                if not (torch.isfinite(m1[..., :2]).all()
+                        and m1.shape == (DENSE_PAIRS, K, 3)):
+                    raise AssertionError(f"{name}: outputs malformed")
+            else:
+                rec.update(valid_kpts=sum(int(r[1].sum()) for r in res))
+                if not all(bits_equal(r[0], rp[0]) and torch.equal(r[1],
+                                                                   rp[1])
+                           for r, rp in zip(res, res_p)):
+                    raise AssertionError(f"{name}: keypoints differ from "
+                                         f"the plain-twin step")
+            torch.cuda.reset_peak_memory_stats()
+            step()
+            torch.cuda.synchronize()
+            rec["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 2 ** 30
+            windows = timed_windows(step)
+            dt = statistics.median(windows)
+            rec["pairs_per_s"] = DENSE_PAIRS / dt
+            rec["frames_per_s"] = 2 * DENSE_PAIRS / dt
+            rec["pairs_per_s_windows"] = [DENSE_PAIRS / w for w in windows]
+            with torch.inference_mode():
+                s0, dm0 = model(imgs[0])
+                s1, dm1 = model(imgs[1])
+                kk0, vv0 = detection_batch(s0, dp)
+                kk1, vv1 = detection_batch(s1, dp)
+                st = {"forward": cuda_ms(
+                    lambda: [model(im) for im in imgs], iters=3),
+                      "detection": cuda_ms(
+                    lambda: [detection_batch(s, dp) for s in (s0, s1)],
+                    iters=3)}
+                if dense:
+                    f0 = sample_at_points(dm0, kk0)
+                    f1 = sample_at_points(dm1, kk1)
+                    st["sampling"] = cuda_ms(lambda: (
+                        sample_at_points(dm0, kk0),
+                        sample_at_points(dm1, kk1)), iters=3)
+                    st["mutual_nn_match (kernel D)"] = cuda_ms(
+                        lambda: mutual_nn_match(f0, f1, vv0, vv1, 5.0),
+                        iters=5)
+            rec["stages_ms"] = st
+            out["models"][name] = rec
+            log(f"  {name}: {rec['pairs_per_s']:.2f} pairs/s, "
+                f"{rec['frames_per_s']:.2f} frames/s (windows "
+                f"{min(rec['pairs_per_s_windows']):.2f}-"
+                f"{max(rec['pairs_per_s_windows']):.2f} pairs/s), peak "
+                f"{rec['peak_memory_gb']:.3f} GiB, stages "
+                + ", ".join(f"{k} {v:.4f} ms" for k, v in st.items())
+                + "; " + ", ".join(f"{k} {v}" for k, v in rec.items() if k
+                                  in ("matches", "matches_plain",
+                                      "valid_kpts", "near_tie_indices",
+                                      "rows_parted", "desc_dim",
+                                      "score_nan_share")) + f" on {card}")
+            if dense and name in ("LETNet", "D2Net"):
+                out[f"nn_call_{name}"] = (a, b)
+        out["launches_dense_extract_match"] = \
+            out["models"]["D2Net"]["launches"]
+
+    with phase("kernel D at the family's widths: D = 4 (LETNet) and 513 "
+               "(D2Net), the steps' own inputs, in turns with baddbmm"):
+        out["match_widths"] = {}
+        for name in ("LETNet", "D2Net"):
+            a, b = out.pop(f"nn_call_{name}")
+            ms, lib_ms, turns = in_turns(
+                lambda: cuda_match.nn_dists_cuda(a, b), mm_min(a, b),
+                iters=20, other_iters=10)
+            plain_ms = cuda_ms(lambda: nn_dists(a, b), iters=5)
+            bound_ms, bound_by = match_bound(a, b)
+            busy, _, _ = profile_step(
+                lambda: [cuda_match.nn_dists_cuda(a, b) for _ in range(10)])
+            dev_ms = busy / 10
+            d = a.shape[-1]
+            out["match_widths"][d] = {
+                "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+                "library_ms": lib_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by}
+            log(f"  D={d} ({name}, {tuple(a.shape)}): kernel {ms:.4f} ms "
+                f"(device {dev_ms:.4f}), plain {plain_ms:.4f}, baddbmm + "
+                f"min {lib_ms:.4f}, bound {bound_ms:.4f} ({bound_by}); "
+                f"bound / device time {bound_ms / dev_ms:.3f}; in turns "
+                f"{[round(t, 4) for t in turns]}")
+
+    with phase("sweep: configs/sweep_repeatability.yaml (4 pairs at "
+               "512^2) and DISK, sfd2, D2Net, ORB, SIFT, against the "
+               "plain-twin sweep"):
+        import yaml
+        with open(os.path.join(ROOT, "configs",
+                               "sweep_repeatability.yaml")) as f:
+            spec = yaml.safe_load(f)
+        base = dict(spec["base"], output_dir=os.path.join(
+            ROOT, "output", "chip_smoke_sweep"))
+        staged = dict(base, weights_dir=stage_golden_weights(os.path.join(
+            ROOT, "output", "chip_smoke_sweep_weights")))
+        extra = SWEEP_EXTRA
+
+        def sweep_all():
+            r = run_sweep(base, spec["models"], device=DEVICE)
+            r.update(run_sweep(staged, list(extra), device=DEVICE))
+            return r
+
+        t0 = time.perf_counter()
+        reset_launches()
+        res = sweep_all()
+        out["sweep_launches"] = read_launches()
+        sweep_s = time.perf_counter() - t0
+        with plain_twins():
+            res_p = sweep_all()
+        out["sweep"] = {}
+        for m, r in res.items():
+            if "error" in r:
+                raise AssertionError(f"sweep {m}: {r['error']}")
+            rp = res_p[m]
+            out["sweep"][m] = r["repeatability"]
+            log(f"  {m}: repeatability {r['repeatability']} (plain "
+                f"{rp['repeatability']}, JAX CPU {JAX_CPU_SWEEP[m]}), "
+                f"num_feat {r['num_feat']}, rep_mean_err "
+                f"{r['rep_mean_err']}")
+            if (r["repeatability"] != rp["repeatability"]
+                    or r["num_feat"] != rp["num_feat"]):
+                raise AssertionError(f"sweep {m} differs from the "
+                                     f"plain-twin sweep")
+        if set(res) != set(spec["models"]) | set(extra):
+            raise AssertionError(f"sweep ran {sorted(res)}")
+        log(f"  the card's sweep of {len(res)} models: {sweep_s:.1f} s; "
+            f"launches {out['sweep_launches']}")
+
+    with phase("FundamentalMatrix runner: LETNet + optical_flow on its "
+               "descriptor maps, 5 frames at 512^2"):
+        for pipelined in (False, True):
+            cfg = EvalConfig.from_yaml(os.path.join(
+                ROOT, "configs", "fund_synthetic.yaml"))
+            cfg.model_type = "LETNet"
+            cfg.data_params = {**cfg.data_params, "num_frames": 5,
+                               "image_size": SIZE}
+            cfg.task_params = {**cfg.task_params, "pipelined": pipelined}
+            cfg.output_dir = os.path.join(ROOT, "output",
+                                          "chip_smoke_fund_letnet")
+            levels = int(cfg.matcher_params["optical_flow_params"]["levels"])
+            reset_launches()
+            with recording(cuda_lk, "lk_level_cuda") as lk_calls:
+                res = Evaluator(cfg, DEVICE).run()
+            got = read_launches()
+            with plain_twins():
+                res_p = Evaluator(cfg, DEVICE).run()
+            lk_err, lk_far = 0.0, 0
+            for args, kw in lk_calls:
+                if args[0].shape[-1] != 3:
+                    raise AssertionError("kernel F ran on something other "
+                                         "than the 3-channel maps")
+                g_ = cuda_lk.lk_level_cuda(*args, **kw)
+                w_ = _lk_level(*args, **kw)
+                e = (g_ - w_).abs().amax(-1)
+                lk_err = max(lk_err, float(e.max()))
+                lk_far += int((e > 1e-2).sum())
+            n_pts = sum(a_[2].shape[0] * a_[2].shape[1] for a_, _ in lk_calls)
+            e, e_p = (np.asarray(r["per_frame_error"]) for r in (res, res_p))
+            log(f"  pipelined={pipelined}: per_frame_error "
+                f"{np.round(e, 5).tolist()} (plain "
+                f"{np.round(e_p, 5).tolist()}); fundamental_num "
+                f"{res['fundamental_num']} (plain {res_p['fundamental_num']})"
+                f"; launches {got}; kernel F on {len(lk_calls)} calls of "
+                f"{tuple(lk_calls[0][0][0].shape)} maps: max abs err "
+                f"{lk_err:.3g} px, {lk_far} of {n_pts} points beyond 1e-2")
+            want_lk = levels * (1 if pipelined else 5)
+            if got["lk"] != want_lk or got["nms"] <= 0:
+                raise AssertionError(f"the LETNet run missed kernel F or A: "
+                                     f"{got}")
+            if lk_far > 0.01 * n_pts:
+                raise AssertionError("kernel F differs from _lk_level on "
+                                     "the descriptor maps")
+            if not (np.isfinite(e).all() and len(e) == 5
+                    and (np.abs(e - e_p) <= 1e-3 * np.abs(e_p) + 1e-5).all()
+                    and abs(res["fundamental_num"] - res_p["fundamental_num"])
+                    <= 0.005 * K):
+                raise AssertionError("the LETNet FundamentalMatrix run "
+                                     "differs from the plain twins")
+            out["launches_fund_letnet_lk"] = {k: got[k] for k in ("nms",
+                                                                  "lk")}
+            errs["lk"] = max(errs["lk"], lk_err)
+    out["seconds"] = time.perf_counter() - t_start
+    log(f"the detector family's phases: {out['seconds']:.1f} s")
     return out
 
 
@@ -1756,16 +2219,6 @@ def main() -> int:
                 cuda_match.nn_dists_cuda(*ints), nn_dists(*ints))):
             raise AssertionError("kernel D differs from the plain twin on "
                                  "integer descriptors")
-
-        def mm_min(a, b):
-            """The library calls timed beside kernel D (the port never
-            makes them): baddbmm for s, then both minima with indices."""
-            def call():
-                s = torch.baddbmm((a * a).sum(-1)[..., None]
-                                  + (b * b).sum(-1)[:, None, :], a,
-                                  b.transpose(1, 2), alpha=-2.0)
-                return s.min(-1), s.min(-2)
-            return call
 
         match_t = {}
         for name, a, b in cases:
@@ -2333,6 +2786,8 @@ def main() -> int:
 
     auc = auc_phases(dev, dp, card, errs)
     vo = vo_phases(dev, dp, card, errs)
+    det = detector_phases(dev, card, errs)
+    d4, d513 = det["match_widths"][4], det["match_widths"][513]
 
     kernels = [
         {"name": "nms_fixpoint", "route": "cuda",
@@ -2347,7 +2802,10 @@ def main() -> int:
          "grid_blocks": min(blocks, tiles), "tiles_mask_per_round": k_mask,
          "tiles_suppression_per_round": k_supp[1:],
          "launches_xfeat_auc_step": auc["launches"]["nms"],
-         "launches_vo_step": vo["launches"]["nms"]},
+         "launches_vo_step": vo["launches"]["nms"],
+         "launches_dense_extract_match":
+             det["launches_dense_extract_match"]["nms"],
+         "launches_fund_letnet_lk": det["launches_fund_letnet_lk"]["nms"]},
         {"name": "sparse_sample", "route": "cuda",
          "source": "keypoint_bench_tpu_torch/csrc/sample.cu",
          "replaces": "keypoint_bench_tpu/ops/pallas_sample.py:107",
@@ -2371,7 +2829,12 @@ def main() -> int:
          f"ms_k{K_LARGE}": big_t[0], f"device_ms_k{K_LARGE}": big_t[5],
          f"library_ms_k{K_LARGE}": big_t[2],
          f"bound_ms_k{K_LARGE}": big_t[3],
-         "launches_vo_step": vo["launches"]["nn_match"]},
+         "launches_vo_step": vo["launches"]["nn_match"],
+         "launches_dense_extract_match":
+             det["launches_dense_extract_match"]["nn_match"],
+         **{f"{k}_d{d}": t[k] for d, t in ((4, d4), (513, d513))
+            for k in ("ms", "device_ms", "plain_ms", "library_ms",
+                      "bound_ms", "bound_by")}},
         {"name": "attention", "route": "cuda",
          "source": "keypoint_bench_tpu_torch/csrc/attention.cu",
          "replaces": "keypoint_bench_tpu/ops/pallas_attention.py:33",
@@ -2394,7 +2857,8 @@ def main() -> int:
          "moved_start_share": lk_moved_share,
          "max_abs_err_win3_border": lk_loose_err,
          "ms_per_level": lk_level_ms, "step_frames_per_s": lk_fps,
-         "launches_vo_runner_lk": vo["launches_lk"]},
+         "launches_vo_runner_lk": vo["launches_lk"],
+         "launches_fund_letnet_lk": det["launches_fund_letnet_lk"]["lk"]},
         {"name": "peel_topk", "route": "cuda",
          "source": "keypoint_bench_tpu_torch/csrc/peel.cu",
          "replaces": "keypoint_bench_tpu/ops/pallas_nms.py:127",
@@ -2413,6 +2877,11 @@ def main() -> int:
         "frames_per_s", "stages_ms", "idle_share", "host_syncs",
         "peak_memory_gb", "ba_window", "ba_card_vs_cpu", "ate_planar",
         "runner")}}, default=float))
+    log(json.dumps({"dense_extract_match": {
+        "models": det["models"], "sweep_repeatability": det["sweep"],
+        "sweep_repeatability_jax_cpu": JAX_CPU_SWEEP,
+        "sfd2_stability_flips": det["sfd2_stability_flips"],
+        "seconds": det["seconds"]}}, default=float))
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -7,7 +7,9 @@
 // pixel that has another local maximum inside its (2d+1)^2 window, then
 // recomputes the local-max mask (strictly greater than every window value
 // before the centre in row-major order, >= every value after it, zero
-// padding outside the map) and its count. Round 1 always runs (the
+// padding outside the map; a NaN in the window makes the pixel no local
+// maximum, as the reference's NaN-propagating window max does) and its
+// count. Round 1 always runs (the
 // reference's do-while); a map stops when its count equals the previous
 // round's, or after max_iter rounds; under a batch each map stops on its
 // own (vmap semantics).
@@ -155,8 +157,16 @@ __device__ __forceinline__ void load_halo(V* dst, const V* src, int gr0,
   }
 }
 
+// The window max of the reference (max_pool2d, lax.max): NaN if either
+// operand is NaN, where fmaxf would drop it. One instruction (sm_80+).
+__device__ __forceinline__ float nanmax(float a, float b) {
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
 // out[i] = max(v[i .. i+D-1]) for i = 0..3: the D-4 values all four
-// windows share are reduced once (D+6 fmaxf in place of 4D).
+// windows share are reduced once (D+6 maxima in place of 4D).
 template <int D>
 __device__ __forceinline__ void window_max4(const float* v, float* out) {
   if constexpr (D < 4) {
@@ -164,17 +174,17 @@ __device__ __forceinline__ void window_max4(const float* v, float* out) {
     for (int i = 0; i < 4; ++i) {
       out[i] = v[i];
 #pragma unroll
-      for (int k = 1; k < D; ++k) out[i] = fmaxf(out[i], v[i + k]);
+      for (int k = 1; k < D; ++k) out[i] = nanmax(out[i], v[i + k]);
     }
   } else {
     float core = v[3];
 #pragma unroll
-    for (int k = 4; k < D; ++k) core = fmaxf(core, v[k]);
-    const float s12 = fmaxf(v[1], v[2]), p01 = fmaxf(v[D], v[D + 1]);
-    out[0] = fmaxf(core, fmaxf(v[0], s12));
-    out[1] = fmaxf(core, fmaxf(s12, v[D]));
-    out[2] = fmaxf(core, fmaxf(v[2], p01));
-    out[3] = fmaxf(core, fmaxf(p01, v[D + 2]));
+    for (int k = 4; k < D; ++k) core = nanmax(core, v[k]);
+    const float s12 = nanmax(v[1], v[2]), p01 = nanmax(v[D], v[D + 1]);
+    out[0] = nanmax(core, nanmax(v[0], s12));
+    out[1] = nanmax(core, nanmax(s12, v[D]));
+    out[2] = nanmax(core, nanmax(v[2], p01));
+    out[3] = nanmax(core, nanmax(p01, v[D + 2]));
   }
 }
 
@@ -240,7 +250,7 @@ __device__ void mask_tile(const NmsArgs& a, int item, int r, float* smem) {
     window_max4<D>(v + D + 5, rt + 4);
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
-      rowfull[rr * RS + c8 + i] = fmaxf(fmaxf(l[i], rt[i]), v[i + D]);
+      rowfull[rr * RS + c8 + i] = nanmax(nanmax(l[i], rt[i]), v[i + D]);
       if (rr >= D && rr < D + TILE) {
         left[(rr - D) * RS + c8 + i] = l[i];
         right[(rr - D) * RS + c8 + i] = rt[i];
@@ -258,8 +268,8 @@ __device__ void mask_tile(const NmsArgs& a, int item, int r, float* smem) {
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int rr = r4 + i, gr = r0 + rr, gc = c0 + c;
-    const float before = fmaxf(left[rr * RS + c], above[i]);
-    const float after = fmaxf(right[rr * RS + c], below[i]);
+    const float before = nanmax(left[rr * RS + c], above[i]);
+    const float after = nanmax(right[rr * RS + c], below[i]);
     const float v = tile[(rr + D) * SP + c + D];
     const bool m = gr < H && gc < W && (v > before) && (v >= after);
     cnt += m;

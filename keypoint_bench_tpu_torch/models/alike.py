@@ -23,10 +23,9 @@ class Alike(c.ParamModule):
         """NHWC image -> (params, [a1, a2, a3, a4]) post-ReLU NCHW branch
         features at H, H/2, H/8, H/32."""
         p = self.params
-        # contiguous NCHW: a permuted NHWC view is channels-last in memory,
-        # and cuDNN would keep that format for every activation, while the
-        # sampler kernel takes channel-major branch features
-        x = c.to_float_image(image).permute(0, 3, 1, 2).contiguous()
+        # contiguous NCHW (the sampler kernel takes channel-major branch
+        # features)
+        x = c.nchw_image(image)
         x1 = c.conv_block(x, p, "block1")
         x2 = c.res_block(c.max_pool(x1, 2), p, "block2")
         x3 = c.res_block(c.max_pool(x2, 4), p, "block3")

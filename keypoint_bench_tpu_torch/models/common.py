@@ -1,5 +1,5 @@
-"""Shared eval-mode blocks: the subset of keypoint_bench_tpu/models/common.py
-that ALIKE-t, SuperPoint and XFeat need.
+"""Shared eval-mode blocks (counterpart of keypoint_bench_tpu/models/common.py)
+for the port's detector and descriptor models.
 
 These helpers work on NCHW tensors (torch's native conv layout); the model
 classes convert at their public boundary, which keeps the JAX package's
@@ -37,28 +37,64 @@ def to_float_image(image: torch.Tensor) -> torch.Tensor:
     return image.float()
 
 
+def nchw_image(image: torch.Tensor) -> torch.Tensor:
+    """NHWC image (uint8, or float in [0, 1]) -> contiguous float NCHW. A
+    permuted view would be channels-last in memory, and cuDNN would keep
+    that format for every activation."""
+    return to_float_image(image).permute(0, 3, 1, 2).contiguous()
+
+
+def gray_mean(image: torch.Tensor, scale: float = 1.0) -> torch.Tensor:
+    """[..., C] -> [...] channel mean times `scale` as the JAX package's
+    jitted `jnp.mean(image, -1) * scale` computes it on the CPU: the sum
+    in channel order times float32(scale / C) (XLA turns the mean's
+    division into a product and folds the constants into one)."""
+    total = image[..., 0]
+    for i in range(1, image.shape[-1]):
+        total = total + image[..., i]
+    return total * np.float32(scale / image.shape[-1])
+
+
 def conv2d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None,
-           stride: int = 1, padding: int = 0) -> torch.Tensor:
-    """x [B,Ci,H,W], w [Co,Ci,kh,kw] (OIHW)."""
-    return F.conv2d(x, w, b, stride, padding)
+           stride: int = 1, padding: int = 0, dilation: int = 1,
+           groups: int = 1) -> torch.Tensor:
+    """x [B,Ci,H,W], w [Co,Ci/groups,kh,kw] (OIHW)."""
+    return F.conv2d(x, w, b, stride, padding, dilation, groups)
+
+
+def conv_transpose2d(x: torch.Tensor, w: torch.Tensor,
+                     b: torch.Tensor | None = None,
+                     stride: int = 2) -> torch.Tensor:
+    """nn.ConvTranspose2d(k, stride, padding=0): w is torch's own
+    [I, O, kh, kw], which the converter's OIHW round trip gives back."""
+    return F.conv_transpose2d(x, w, b, stride)
 
 
 def bn_eval(x: torch.Tensor, gamma, beta, mean, var,
             eps: float = 1e-5) -> torch.Tensor:
     """BatchNorm inference transform, in the JAX package's operation order:
-    (x - mean) * rsqrt(var + eps) * gamma + beta, per channel of NCHW."""
+    (x - mean) * rsqrt(var + eps) * gamma + beta, per channel of NCHW.
+    gamma and beta None: BatchNorm without affine (the JAX package's 1.0
+    and 0.0, whose product and sum change nothing)."""
     def c(v):
         return v[:, None, None]
-    return (x - c(mean)) * c(torch.rsqrt(var + eps)) * c(gamma) + c(beta)
+    y = (x - c(mean)) * c(torch.rsqrt(var + eps))
+    if gamma is None:
+        return y
+    return y * c(gamma) + c(beta)
 
 
-def instance_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
-    """Affine-free InstanceNorm2d of NCHW x: statistics over H, W per
-    sample and channel, biased variance, in the JAX package's order
-    (x - mean) * rsqrt(var + eps)."""
+def instance_norm(x: torch.Tensor, gamma=None, beta=None,
+                  eps: float = 1e-5) -> torch.Tensor:
+    """InstanceNorm2d of NCHW x: statistics over H, W per sample and
+    channel, biased variance, in the JAX package's order
+    (x - mean) * rsqrt(var + eps), then * gamma + beta where given."""
     mean = x.mean((-2, -1), keepdim=True)
     var = x.var((-2, -1), unbiased=False, keepdim=True)
-    return (x - mean) * torch.rsqrt(var + eps)
+    y = (x - mean) * torch.rsqrt(var + eps)
+    if gamma is not None:
+        y = y * gamma[:, None, None] + beta[:, None, None]
+    return y
 
 
 def max_pool(x: torch.Tensor, k: int) -> torch.Tensor:
@@ -73,6 +109,40 @@ def avg_pool(x: torch.Tensor, k: int) -> torch.Tensor:
 
 def relu(x: torch.Tensor) -> torch.Tensor:
     return torch.clamp_min(x, 0)
+
+
+def prelu(x: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
+    """PReLU of NCHW x with per-channel alpha [C]."""
+    return torch.where(x >= 0, x, x * alpha[:, None, None])
+
+
+def _depthwise(xp: torch.Tensor, k: np.ndarray) -> torch.Tensor:
+    """One [kh, kw] kernel applied to every channel of the padded NCHW
+    xp (a VALID cross-correlation)."""
+    c = xp.shape[1]
+    w = torch.from_numpy(np.ascontiguousarray(
+        np.broadcast_to(k, (c, 1, *k.shape)))).to(xp.device, xp.dtype)
+    return F.conv2d(xp, w, groups=c)
+
+
+_SOBEL_X = np.array([[-1, 0, 1], [-2, 0, 2], [-1, 0, 1]], np.float32) / 8.0
+
+
+def sobel_gradients(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Kornia-style normalized Sobel (kernel / 8) with replicate padding
+    of NCHW x -> (dx, dy), each NCHW (KeyNet's handcrafted block)."""
+    xp = F.pad(x, (1, 1, 1, 1), mode="replicate")
+    return _depthwise(xp, _SOBEL_X), _depthwise(xp, _SOBEL_X.T.copy())
+
+
+_PYR = np.array([1., 4., 6., 4., 1.], np.float32)
+
+
+def gaussian_pyr_blur(x: torch.Tensor) -> torch.Tensor:
+    """5 x 5 [1,4,6,4,1]^2 / 256 blur of NCHW x with reflect padding
+    (torch's reflect is REFLECT_101, as jnp.pad's; KeyNet's pyrdown)."""
+    xp = F.pad(x, (2, 2, 2, 2), mode="reflect")
+    return _depthwise(xp, np.outer(_PYR, _PYR) / 256.0)
 
 
 def l2_normalize(x: torch.Tensor, dim: int = -1,

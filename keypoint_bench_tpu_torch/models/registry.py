@@ -1,7 +1,12 @@
 """String-keyed model registry (mirrors keypoint_bench_tpu/models/registry.py)."""
 from __future__ import annotations
 
+import importlib
+
 _REGISTRY: dict[str, type] = {}
+_MODULES = ("alike", "letnet", "goodpoint", "superpoint", "xfeat",
+            "edgepoint", "keynet", "harris", "disk", "r2d2", "sfd2", "d2net",
+            "orb", "sift")
 
 
 def register(name: str):
@@ -12,12 +17,19 @@ def register(name: str):
 
 
 def get_model(name: str):
-    """The model class registered under `name`; build it with its params."""
+    """The model class registered under `name`; build it with its params
+    (the torch-layout weights, or `model_params` for Harris, ORB and
+    SIFT)."""
     if name not in _REGISTRY:
-        import keypoint_bench_tpu_torch.models.alike  # noqa: F401 (registers)
-        import keypoint_bench_tpu_torch.models.superpoint  # noqa: F401
-        import keypoint_bench_tpu_torch.models.xfeat  # noqa: F401
+        # import the model modules lazily, so that one broken model does
+        # not take the registry down
+        for mod in _MODULES:
+            full = f"keypoint_bench_tpu_torch.models.{mod}"
+            try:
+                importlib.import_module(full)
+            except ModuleNotFoundError as e:
+                if e.name != full:   # a real dependency failure inside
+                    raise
     if name not in _REGISTRY:
-        raise KeyError(f"unknown model {name!r}; have {sorted(_REGISTRY)} "
-                       f"(other models are still to port, see ROADMAP.md)")
+        raise KeyError(f"unknown model {name!r}; have {sorted(_REGISTRY)}")
     return _REGISTRY[name]

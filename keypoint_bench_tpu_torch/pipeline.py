@@ -5,6 +5,14 @@ of bench.py's default extract_match step, bench.py:594-622, at float32):
 features -> detection_batch (NMS kernel A) -> y-ordered sparse descriptors
 (sampler kernel B) -> mutual_nn_match (kernel D) -> take_rows.
 
+`dense_extract_match`: any descriptor model's extract + brute-force
+mutual-NN match from its dense descriptor map (counterpart of bench.py's
+`pair_step` for `KBT_BENCH_MODEL`, bench.py:626-640, batched over the
+pairs, at float32): forward -> detection_batch (kernel A) ->
+sample_at_points of the dense map -> mutual_nn_match (kernel D) ->
+take_rows. `dense_detect` is its forward + detection, the step of the
+detector-only models (KeyNet, Harris, ORB, SIFT).
+
 `superpoint_mha_step`: SuperPoint -> brute-force or LightGlue matching ->
 RANSAC-H MHA (counterpart of bench.py:98-218 `bench_superpoint_mha`, at
 float32): SuperPoint x2 -> detection_batch (kernel A) -> covisibility warp
@@ -64,7 +72,12 @@ MATCHERS = ("brute_force", "light_glue")
 
 
 def _check_weights(params: dict, dev: torch.device):
-    w_dev = next(iter(params.values())).device
+    """Raise unless the tensors of `params` are on `dev` (a model
+    configured by `model_params`, such as Harris, holds none)."""
+    tensors = [v for v in params.values() if isinstance(v, torch.Tensor)]
+    if not tensors:
+        return
+    w_dev = tensors[0].device
     if w_dev.type != dev.type or (dev.index is not None
                                   and w_dev.index != dev.index):
         raise ValueError(f"params are on {w_dev}, the step runs on {dev}: "
@@ -98,6 +111,52 @@ def extract_match(model, params: dict, imgs0, imgs1,
     d0, k0, v0 = extract(model, params, imgs0, detect_params)
     d1, k1, v1 = extract(model, params, imgs1, detect_params)
     nn01, ok = mutual_nn_match(d0, d1, v0, v1, max_distance)
+    return ok.sum(), k0, take_rows(k1, nn01)
+
+
+def _images(imgs, dev: torch.device) -> torch.Tensor:
+    """imgs [B,H,W,3] on `dev`; H and W must be multiples of 32 (the
+    runner's _crop32), which every model's strides divide."""
+    imgs = torch.as_tensor(imgs, device=dev)
+    if imgs.dim() != 4 or imgs.shape[1] % 32 or imgs.shape[2] % 32:
+        raise ValueError(f"expected [B,H,W,3] images with H and W multiples "
+                         f"of 32, got {tuple(imgs.shape)}")
+    return imgs
+
+
+@torch.inference_mode()
+def dense_detect(model, imgs, detect_params: DetectParams,
+                 device: str | torch.device = "cuda"):
+    """imgs [B,H,W,3] (float in [0,1] or uint8; H, W multiples of 32) ->
+    (kpts [B,K,3], valid [B,K], desc map [B,H/s,W/s,D] or None for a
+    detector-only model). The model must already be on `device`."""
+    dev = resolve_device(device)
+    _check_weights(model.params, dev)
+    score, desc = model(_images(imgs, dev))
+    kpts, valid = detection_batch(score, detect_params)
+    return kpts, valid, desc
+
+
+@torch.inference_mode()
+def dense_extract_match(model, imgs0, imgs1, detect_params: DetectParams,
+                        max_distance: float = 5.0,
+                        device: str | torch.device = "cuda"):
+    """B pairs imgs0/imgs1 [B,H,W,3] (float in [0,1] or uint8; H, W
+    multiples of 32) -> (n_matches 0-d tensor, k0 [B,K,3], m1 [B,K,3]), as
+    `extract_match` returns them: m1 holds the keypoints of imgs1 that
+    each row of k0 matched (rows of unmatched keypoints are padding).
+    Descriptors are sampled from the model's dense map at the keypoints;
+    a detector-only model raises ValueError (time it with
+    `dense_detect`)."""
+    k0, v0, dm0 = dense_detect(model, imgs0, detect_params, device)
+    if dm0 is None:
+        raise ValueError(f"dense_extract_match matches descriptors; "
+                         f"{type(model).__name__} is a detector without "
+                         f"them (use dense_detect)")
+    k1, v1, dm1 = dense_detect(model, imgs1, detect_params, device)
+    nn01, ok = mutual_nn_match(sample_at_points(dm0, k0),
+                               sample_at_points(dm1, k1), v0, v1,
+                               max_distance)
     return ok.sum(), k0, take_rows(k1, nn01)
 
 
@@ -234,20 +293,21 @@ def xfeat_auc_step(model, lightglue_params: dict, imgs0, imgs1, Ks,
             mask)
 
 
-def detect_frames(model, frames, dp: DetectParams, sparse: bool = False,
-                  chunk: int = 8):
+def detect_frames(model, frames, dp: DetectParams, device: torch.device,
+                  sparse: bool = False, chunk: int = 8):
     """Batched detection over equal-shape frames [n,H,W,3] (float in
-    [0,1] or uint8; numpy, or a tensor on the model's device): one batched
+    [0,1] or uint8; numpy, or a tensor on `device`, where the model is):
+    one batched
     forward + detection_batch per chunk of `chunk` frames, each chunk moved
     to the device as it is (uint8 frames are normalized there). Returns
     stacked (scores [n,H,W,1], descs, kpts [n,K,3], valids [n,K]), equal
     to detecting frame by frame. descs is the dense map [n,H/s,W/s,D], or
     with sparse=True (ALIKE) the per-keypoint vectors [n,K,64] from the
-    sparse sampler (kernel B on CUDA), with no dense map built."""
-    dev = next(iter(model.params.values())).device
+    sparse sampler (kernel B on CUDA), with no dense map built; None for
+    a detector-only model."""
     parts = []
     for i0 in range(0, len(frames), chunk):
-        imgs = torch.as_tensor(frames[i0:i0 + chunk], device=dev)
+        imgs = torch.as_tensor(frames[i0:i0 + chunk], device=device)
         if sparse:
             h, w = imgs.shape[1], imgs.shape[2]
             score, feats = model.feats(imgs)
@@ -258,7 +318,8 @@ def detect_frames(model, frames, dp: DetectParams, sparse: bool = False,
             score, desc = model(imgs)
             kpts, valid = detection_batch(score, dp)
         parts.append((score, desc, kpts, valid))
-    return tuple(torch.cat([p[j] for p in parts]) for j in range(4))
+    return tuple(None if parts[0][j] is None
+                 else torch.cat([p[j] for p in parts]) for j in range(4))
 
 
 @torch.inference_mode()
@@ -290,8 +351,11 @@ def vo_step(model, frames, K, scales, detect_params: DetectParams,
     frames = torch.as_tensor(frames, device=dev)
     K = np.asarray(K, np.float32)
     h, w = frames.shape[1], frames.shape[2]
-    _, descs, kpts, valid = detect_frames(model, frames, detect_params,
+    _, descs, kpts, valid = detect_frames(model, frames, detect_params, dev,
                                           sparse)
+    if descs is None:
+        raise ValueError(f"vo_step matches descriptors; "
+                         f"{type(model).__name__} is a detector without them")
     if not sparse:
         descs = sample_at_points(descs, kpts)
 

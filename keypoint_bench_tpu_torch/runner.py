@@ -8,9 +8,12 @@ FundamentalMatrixRansac, and visual_odometer (`_run_vo` pair by pair, and
 `_run_vo_pipelined`, brute force through `pipeline.vo_step`, with
 `task_params.ba_refine` windowed bundle adjustment), with the
 brute-force, LightGlue (deterministic only), optical_flow and
-optical_flow_cv matchers (`_match`). Other tasks, adaptive LightGlue, the
-five-point solver, the LETNet / GoodPoint flow sources, save_images, the
-resume journal, bf16, debug_nans, the distributed BA
+optical_flow_cv matchers (`_match`), for every model of the registry:
+Harris, ORB and SIFT take `model_params`, and LETNet / GoodPoint track on
+their descriptor maps. Detector-only models (KeyNet, Harris, ORB, SIFT)
+raise ValueError on every step that needs descriptors, where the JAX
+runner fails. Other tasks, adaptive LightGlue, the five-point solver,
+save_images, the resume journal, bf16, debug_nans, the distributed BA
 (`task_params.ba_distributed`) and the sharded batch paths (brute-force
 MHA and AUC, repeatability) raise NotImplementedError (ROADMAP.md).
 """
@@ -93,6 +96,8 @@ _LIGHTGLUE_WEIGHTS = {"SuperPoint": "lightglue_superpoint",
 _MATCHERS = ("brute_force", "light_glue", "optical_flow", "optical_flow_cv")
 # models that track on their 3-channel local descriptor maps
 _DESC_FLOW_MODELS = ("LETNet", "GoodPoint")
+# models configured by `model_params` instead of weights
+_PARAM_MODELS = ("Harris", "ORB", "SIFT")
 
 
 def _not_ported(what: str):
@@ -111,8 +116,11 @@ class Evaluator:
             raise _not_ported("resume")
         if cfg.debug_nans:
             raise _not_ported("debug_nans")
-        self.params = load_params(cfg.model_type, cfg.weights_dir,
-                                  self.device)
+        if cfg.model_type in _PARAM_MODELS:
+            self.params = dict(cfg.model_params or {})
+        else:
+            self.params = load_params(cfg.model_type, cfg.weights_dir,
+                                      self.device)
         self.model = get_model(cfg.model_type)(self.params).eval()
         ep = cfg.extractor_params
         self.detect_params = DetectParams(
@@ -178,13 +186,25 @@ class Evaluator:
     @torch.inference_mode()
     def detect(self, image):
         """One HWC image (float in [0,1] or uint8; numpy, or a tensor on
-        the device) -> (score [H,W,1], desc map [H/s,W/s,D], kpts [K,3],
-        valid [K])."""
+        the device) -> (score [H,W,1], desc map [H/s,W/s,D] or None for a
+        detector-only model, kpts [K,3], valid [K])."""
         img = image if isinstance(image, torch.Tensor) else torch.as_tensor(
             np.ascontiguousarray(image), device=self.device)
         score, desc = self.model(img[None])
         kpts, valid = detection(score[0], self.detect_params)
-        return score[0], desc[0], kpts, valid
+        return score[0], None if desc is None else desc[0], kpts, valid
+
+    def _descriptors(self, *descs):
+        """`descs` as they are; raises ValueError, naming the model, where
+        one is None (a detector-only model on a step that matches
+        descriptors, which the JAX runner fails on)."""
+        if any(d is None for d in descs):
+            raise ValueError(
+                f"model_type={self.cfg.model_type!r} is a detector without "
+                f"descriptors; {self.cfg.task_type} with matcher "
+                f"{self.matcher_type!r} needs descriptors (use "
+                f"optical_flow on a sequence task, or repeatability)")
+        return descs
 
     def _warp(self, kpts, valid, wp):
         return warp_points(kpts, valid, wp)
@@ -199,7 +219,8 @@ class Evaluator:
             return lightglue_match(self.lightglue_params, kpts0, valid0,
                                    kpts1, valid1, desc0, desc1, w, h,
                                    self.desc_scale)
-        src0, src1 = imgs if imgs is not None else (desc0, desc1)
+        src0, src1 = imgs if imgs is not None else self._descriptors(
+            desc0, desc1)
         if self.matcher_type == "optical_flow":
             tracked, _ = optical_flow(src0, src1, kpts0[:, 0:2],
                                       kpts0[:, 0:2], self.generator,
@@ -213,6 +234,7 @@ class Evaluator:
                 levels=self.lk_params.levels)
             return kpts0, torch.as_tensor(tracked, device=self.device), \
                 valid0 & torch.as_tensor(status == 1, device=self.device)
+        desc0, desc1 = self._descriptors(desc0, desc1)
         return brute_force_match(kpts0, valid0, kpts1, valid1, desc0, desc1,
                                  self.bf_max_distance)
 
@@ -392,10 +414,10 @@ class Evaluator:
 
     def _flow_sources(self, img0, img1, d0, d1):
         """LK tracks on the raw images, except for the models that track
-        on their 3-channel local descriptor maps."""
+        on their 3-channel local descriptor maps (reference
+        model_interface.py:261-273)."""
         if self.cfg.model_type in _DESC_FLOW_MODELS:
-            raise _not_ported(f"optical flow on {self.cfg.model_type} "
-                              f"descriptor maps")
+            return d0, d1
         return img0, img1
 
     def _fundamental_result(self, errs, radios, nums):
@@ -430,14 +452,15 @@ class Evaluator:
                   and self.matcher_type != "optical_flow"
                   and bool(self.cfg.task_params.get("sparse_desc", True)))
         _, descs, kpts, valids = detect_frames(self.model, raw,
-                                               self.detect_params, sparse)
+                                               self.detect_params,
+                                               self.device, sparse)
         h, w = raw.shape[1:3]
         scale = torch.tensor([w - 1.0, h - 1.0], device=self.device)
 
         def shift1(x):
             """The previous frame's operand of every frame (frame 0 pairs
-            with itself)."""
-            return torch.cat([x[:1], x[:-1]])
+            with itself); None stays None (a detector-only model)."""
+            return None if x is None else torch.cat([x[:1], x[:-1]])
 
         k0 = shift1(kpts)[:, :, 0:2]
         if self.matcher_type == "optical_flow":
@@ -450,7 +473,7 @@ class Evaluator:
             out = fundamental_metrics(k0 * scale, tracked * scale,
                                       shift1(valids), Fs, th)
         else:
-            d0, d1 = shift1(descs), descs
+            d0, d1 = self._descriptors(shift1(descs), descs)
             if not sparse:
                 d0 = sample_at_points(d0, shift1(kpts))
                 d1 = sample_at_points(d1, kpts)

@@ -7,8 +7,9 @@ in HWIO and linears in [in, out] (the JAX layout); `params_from_jax`
 `tests/golden/<name>.npz` fixtures hold the same layout under `param:`
 keys: full-width parameters with randomized values for the models whose
 upstream checkpoints are not in the repository (SuperPoint, XFeat,
-LightGlue). `load_golden_params` reads them; `stage_golden_weights` writes
-them into a `weights_dir` under the names the runner loads;
+LightGlue, D2Net, DISK, sfd2). `load_golden_params` reads them;
+`stage_golden_weights` writes them into a `weights_dir` under the names
+the runner loads;
 `lightglue_input_proj_params` adds the 64 -> 256 input projection that the
 AUC step's XFeat descriptors need.
 """
@@ -26,11 +27,14 @@ REPO_DIR = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
 WEIGHTS_DIR = os.path.join(REPO_DIR, "weights_npz")
 GOLDEN_DIR = os.path.join(REPO_DIR, "tests", "golden")
 
-# Alike_s2d is a TPU layout variant of the same checkpoint and forward
-_ALIASES = {"Alike_s2d": "Alike"}
+# the *_s2d models are TPU layout variants of the same checkpoint and
+# forward (the JAX package transforms the weights; the port needs not)
+_ALIASES = {"Alike_s2d": "Alike", "LETNet_s2d": "LETNet",
+            "GoodPoint_s2d": "GoodPoint"}
 # golden fixture -> the weights_dir file name the runner loads
 GOLDEN_STAGE_NAMES = {"SuperPoint": "SuperPoint", "XFeat": "XFeat",
-                      "lightglue": "lightglue_superpoint"}
+                      "lightglue": "lightglue_superpoint", "D2Net": "D2Net",
+                      "DISK": "DISK", "sfd2": "sfd2"}
 _PREFIX = "param:"
 
 
@@ -77,10 +81,10 @@ def lightglue_input_proj_params(device: str | torch.device = "cpu") -> dict:
 
 
 def stage_golden_weights(weights_dir: str) -> str:
-    """Write the golden SuperPoint, XFeat and LightGlue parameters into
-    `weights_dir` as `SuperPoint.npz`, `XFeat.npz` and
-    `lightglue_superpoint.npz` (JAX layout, as weights_npz/ holds them);
-    returns `weights_dir`."""
+    """Write the golden parameters of GOLDEN_STAGE_NAMES into
+    `weights_dir` under the runner's names (`SuperPoint.npz`, `XFeat.npz`,
+    `lightglue_superpoint.npz`, `D2Net.npz`, `DISK.npz`, `sfd2.npz`; JAX
+    layout, as weights_npz/ holds them); returns `weights_dir`."""
     os.makedirs(weights_dir, exist_ok=True)
     for name, stage in GOLDEN_STAGE_NAMES.items():
         np.savez(os.path.join(weights_dir, f"{stage}.npz"), **golden_npz(name))

@@ -236,10 +236,15 @@ def test_unported_parts_raise(tmp_path, change, what):
 
 
 def test_desc_map_flow_sources_raise_and_pipelined_matchers(tmp_path):
+    """LETNet tracks on its descriptor maps, ALIKE-t on the frames (the
+    LETNet / GoodPoint runs against the JAX runner are in
+    tests/test_torch_sweep.py); the pipelined run serves optical_flow
+    and brute_force only."""
     ev = Evaluator(EvalConfig(**_cfg(tmp_path)), "cpu")
+    imgs, descs = ("img0", "img1"), ("d0", "d1")
+    assert ev._flow_sources(*imgs, *descs) == imgs
     ev.cfg.model_type = "LETNet"
-    with pytest.raises(NotImplementedError, match="LETNet"):
-        ev._flow_sources(None, None, None, None)
+    assert ev._flow_sources(*imgs, *descs) == descs
     cfg = _cfg(tmp_path, "optical_flow_cv", True)
     with pytest.raises(ValueError, match="pipelined"):
         Evaluator(EvalConfig(**cfg), "cpu").run()

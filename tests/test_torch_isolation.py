@@ -82,7 +82,10 @@ def _default_device_calls(tmp_path):
     from keypoint_bench_tpu_torch.models import get_model
     from keypoint_bench_tpu_torch.ops.detect import DetectParams
     from keypoint_bench_tpu_torch.ops.lk import LKParams
-    from keypoint_bench_tpu_torch.pipeline import (extract_match,
+    from keypoint_bench_tpu_torch import sweep
+    from keypoint_bench_tpu_torch.pipeline import (dense_detect,
+                                                   dense_extract_match,
+                                                   extract_match,
                                                    lk_fundamental_step,
                                                    vo_step, xfeat_auc_step)
     from keypoint_bench_tpu_torch.weights import (load_golden_params,
@@ -96,6 +99,9 @@ def _default_device_calls(tmp_path):
            "output_dir": str(tmp_path)}
     cfg_path = tmp_path / "cfg.yaml"
     cfg_path.write_text(__import__("yaml").safe_dump(cfg))
+    sweep_path = tmp_path / "sweep.yaml"
+    sweep_path.write_text(__import__("yaml").safe_dump(
+        {"base": cfg, "models": ["KeyNet"]}))
     imgs = np.zeros((1, 64, 64, 3), np.float32)
     params = load_params("Alike")
     return {
@@ -120,13 +126,21 @@ def _default_device_calls(tmp_path):
             np.zeros((2, 3)), np.eye(3)),
         "Evaluator": lambda: Evaluator(EvalConfig.from_dict(cfg)),
         "cli": lambda: cli.main(["-c", str(cfg_path)]),
+        "dense_extract_match": lambda: dense_extract_match(
+            get_model("LETNet")(load_params("LETNet")), imgs, imgs,
+            DetectParams()),
+        "dense_detect": lambda: dense_detect(
+            get_model("Harris")({}), imgs, DetectParams()),
+        "run_sweep": lambda: sweep.run_sweep(cfg, ["Harris", "DISK"]),
+        "sweep_cli": lambda: sweep.main(["-c", str(sweep_path)]),
     }
 
 
 @pytest.mark.parametrize("entry", ["resolve_device", "extract_match",
                                    "lk_fundamental_step", "xfeat_auc_step",
                                    "vo_step", "refine_window", "Evaluator",
-                                   "cli"])
+                                   "cli", "dense_extract_match",
+                                   "dense_detect", "run_sweep", "sweep_cli"])
 def test_default_device_raises_without_cuda(tmp_path, entry):
     if torch.cuda.is_available():
         pytest.skip("this host has CUDA")

@@ -117,7 +117,18 @@ def _nms_cases():
         "rounds_differ": (_blurred((6, 256, 256), 4, 6), 2, 30),
         "beyond_grid": (_blurred((24, 512, 512), 4, 7), 2, 30),
         "constant": (torch.full((2, 200, 200), 0.25), 6, 30),
-        "ties_bf16": (ties, 2, 30)}
+        "ties_bf16": (ties, 2, 30),
+        "nan": (_with_nan(_blurred((3, 128, 160), 2, 8)), 4, 30)}
+
+
+def _with_nan(maps):
+    """sfd2's randomized golden weights overflow its exp-normalized head
+    to NaN on about half of the pixels: scattered NaNs and a NaN block."""
+    rng = np.random.default_rng(10)
+    maps = maps.clone()
+    maps[torch.from_numpy(rng.random(maps.shape) < 0.05)] = float("nan")
+    maps[:, 40:70, 90:130] = float("nan")
+    return maps
 
 
 @pytest.mark.parametrize("case", sorted(_nms_cases()))
@@ -128,7 +139,8 @@ def test_nms_kernel_bit_equal_per_map_rounds(dev, case):
     stopping in different rounds, more tiles (24 x 256) than the resident
     grid holds blocks, on maps that need 20-30 rounds (values other blocks
     wrote before a grid barrier must be read fresh), a constant map and a
-    tie-heavy bf16 map."""
+    tie-heavy bf16 map, and maps with NaNs (a window holding one has no
+    local maximum; NaN pixels keep their bits)."""
     maps, d, max_iter = _nms_cases()[case]
     maps = maps.to(dev)
     b = maps.shape[0]
@@ -322,6 +334,62 @@ def test_match_kernel_matches_plain(dev, b, m, n, d, integer):
             assert torch.equal(g, w)
     else:
         _check_nn(got, want, a, bb)
+
+
+def _width_case(b, k, d, seed, exact):
+    """[b, k, d] descriptors of the detector family's widths: D = 3 as
+    LETNet's / GoodPoint's sigmoid maps (exact: multiples of 1/8, so many
+    distances tie exactly), else unit vectors (exact: small integers)."""
+    rng = np.random.default_rng(seed)
+    if exact:
+        x = (rng.integers(0, 9, (b, k, d)) / 8.0 if d == 3
+             else rng.integers(-2, 3, (b, k, d)))
+    else:
+        x = rng.normal(size=(b, k, d))
+        x = (1 / (1 + np.exp(-x)) if d == 3
+             else x / np.linalg.norm(x, axis=-1, keepdims=True))
+    return torch.from_numpy(x.astype(np.float32))
+
+
+@pytest.mark.parametrize("d", [3, 64, 128, 512])
+@pytest.mark.parametrize("exact", [True, False])
+def test_match_kernel_at_detector_widths(dev, d, exact):
+    """Kernel D at the widths this slice's models give it (3: LETNet,
+    GoodPoint; 64: EdgePoint; 128: r2d2, DISK, sfd2; 512: D2Net), with
+    the penalty column of mutual_nn_fused. Exact sums: indices equal,
+    ties to the lowest index, distances equal; float sums: the near-tie
+    rule of _check_nn. Then the whole match against the plain one."""
+    from keypoint_bench_tpu_torch.ops.matching import penalized
+    x0, x1 = (_width_case(4, 1000, d, s, exact) for s in (d, d + 1))
+    rng = np.random.default_rng(d)
+    v0, v1 = (torch.from_numpy(exact | (rng.random((4, 1000)) > 0.15))
+              for _ in range(2))
+    a, bb = (penalized(x, v)[0].to(dev) for x, v in ((x0, v0), (x1, v1)))
+    got = cuda_match.nn_dists_cuda(a, bb)
+    want = nn_dists(a, bb)
+    if exact:
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+        # exact ties do occur at D = 3, and the lowest index wins them
+        s = nn_dists(a.cpu(), bb.cpu())
+        full = ((a.cpu()[..., None, :] - bb.cpu()[:, None]) ** 2).sum(-1) \
+            if d == 3 else None
+        if full is not None:
+            assert int((full == full.min(-1, keepdim=True).values).sum(-1)
+                       .gt(1).sum()) > 100
+            first = (full == full.min(-1, keepdim=True).values).float()
+            assert torch.equal(s[0].long(), first.argmax(-1))
+    else:
+        _check_nn(got, want, a, bb)
+    ok_args = (x0.to(dev), x1.to(dev), v0.to(dev), v1.to(dev), 5.0)
+    nn, ok = mutual_nn_match(*ok_args)
+    nn_c, ok_c = mutual_nn_fused(*(t.cpu() if torch.is_tensor(t) else t
+                                   for t in ok_args))
+    if exact:
+        assert torch.equal(ok.cpu(), ok_c)
+        assert torch.equal(nn.cpu()[ok_c], nn_c[ok_c])
+    else:   # near ties may part a few rows
+        assert float((ok.cpu() != ok_c).float().mean()) <= 0.005
 
 
 @pytest.mark.parametrize("integer", [True, False])
@@ -542,6 +610,44 @@ def test_lk_kernel_start_moves_every_iteration(dev, win, c):
     err = (got - want).abs().amax(-1)
     assert float((err <= 5e-3).float().mean()) >= 0.97, float(err.max())
     assert torch.equal(got, cuda_lk.lk_level_cuda(*args, win, 12))
+
+
+@pytest.mark.parametrize("win", [3, 11, 21])
+def test_lk_kernel_on_letnet_descriptor_maps(dev, win):
+    """Kernel F at C = 3 on what LETNet's flow source feeds it: the
+    sigmoid descriptor maps of two consecutive synthetic-sequence frames,
+    on the model's own keypoints; the protocol's pyramid through
+    optical_flow_batch_from_angles against the plain levels."""
+    from keypoint_bench_tpu_torch.datasets.synthetic import \
+        SyntheticSequenceDataset
+    from keypoint_bench_tpu_torch.models import get_model
+    from keypoint_bench_tpu_torch.weights import load_params
+    ds = SyntheticSequenceDataset(3, 256, 0)
+    frames = torch.from_numpy(np.stack([ds[i]["image0"] for i in range(3)]))
+    model = get_model("LETNet")(load_params("LETNet", device=dev))
+    with torch.no_grad():
+        score, desc = model(frames.to(dev))
+    kpts, _ = detection_batch(score, DetectParams(nms_dist=4, top_k=300))
+    assert cuda_lk.smem_bytes(win, 3) <= 48 * 1024
+    pts = kpts[:2, :, 0:2]
+    angles = torch.rand(pts.shape[:2], generator=torch.Generator(
+        device=dev).manual_seed(0), device=dev) * 6.2832
+    lkp = tlk.LKParams(distance=3.0, win_size=win, levels=3, iterations=20)
+    before = cuda_lk.KERNEL.launches
+    got = tlk.optical_flow_batch_from_angles(desc[:2], desc[1:], pts, pts,
+                                             angles, lkp)[0]
+    assert cuda_lk.KERNEL.launches == before + 3
+    from contextlib import ExitStack
+    with ExitStack() as stack:
+        stack.callback(setattr, cuda_lk, "lk_level_cuda",
+                       cuda_lk.lk_level_cuda)
+        cuda_lk.lk_level_cuda = tlk._lk_level
+        want = tlk.optical_flow_batch_from_angles(desc[:2], desc[1:], pts,
+                                                  pts, angles, lkp)[0]
+    assert bool(torch.isfinite(got).all())
+    # chip_smoke's protocol rule: 99% of the points within 1e-2 px
+    close = (((got - want) * 255).abs() <= 1e-2).all(-1)
+    assert float(close.float().mean()) >= 0.99
 
 
 def test_lk_kernel_takes_windows_above_48_kb(dev):
