@@ -175,9 +175,45 @@ Phases, each fatal on failure:
      per pair and pipelined: F's launches, F within 1e-2 px of
      `_lk_level` on 99% of the points of its own calls, the result
      against the plain-twin run as in phase 15;
- 28. an `xfeat_auc_step` JSON line, a `vo_step` JSON line, a
-     `dense_extract_match` JSON line, the card's name and power limit, a
-     `kernels` JSON line and, last, the device JSON line.
+ 28. bf16 mode (bench.py's default precision; `bf16_phases`): every
+     weighted model's bf16 forward on the card against the CPU at 64^2,
+     within `BF16_TOL`'s bf16 ulps of each map's largest value (a cap, and
+     a share of the values beyond 4 ulps; sfd2's NaN positions may part
+     on 1% of the pixels);
+ 29. kernel B's bf16 instantiation on ALIKE-t's bf16 branch maps (16
+     maps, K = 1000, original and y-sorted order) against the plain bf16
+     sampler within 1e-5 of the largest sample; timed in turns with the
+     f32 instantiation on the same values, its device time, the bounds of
+     the distinct values and of the 32-byte sectors at 2 bytes a value;
+ 30. every step in bf16 at 512^2 (the params' dtype selects the mode),
+     launch counts reset just before each and read just after:
+     `extract_match` (16 pairs; A twice, B-bf16 twice, D once on the
+     exact f32 upcast of the bf16 descriptors, no f32 B),
+     `superpoint_mha_step` (brute force, 16 pairs), `dense_extract_match`
+     for r2d2, DISK and D2Net (4 pairs), `lk_fundamental_step` (8 pairs),
+     `xfeat_auc_step` (8 pairs), the AUC runner (ALIKE-t + brute force, 4
+     SE3 pairs) and `vo_step` (32 frames; A and B-bf16 a chunk, D once);
+     each against its plain-twin run (keypoints equal, match counts
+     within 0.5% of the valid keypoints) and against its f32 run:
+     repeatability on the homography pairs within 0.02 and its mean
+     error within 0.05 px (tests/test_precision.py's bounds); keypoint
+     sets (Jaccard >= 0.7) for the LK, AUC and VO steps; the LK step's
+     mean epipolar error within 0.05 px; the AUC step's match count
+     within 15% (its randomized LightGlue matches nothing, so its poses
+     fail in both runs); the AUC runner's inlier count within 15%, with
+     the f32 runner's own gates; the VO step's inlier count within 15%
+     and its ATE under twice the f32 step's (the VO runner's rule
+     against the JAX runner); each
+     timed in turns with its f32 run in the same call (windows of both),
+     with each one's device busy time, host window, device activities
+     and top kernels from the profiler;
+ 31. the runner on configs/repeatability_synthetic.yaml with precision
+     bfloat16 set in code: equal to its plain-twin run and within 0.02 /
+     0.05 of phase 6's f32 run;
+ 32. an `xfeat_auc_step` JSON line, a `vo_step` JSON line, a
+     `dense_extract_match` JSON line, a `bf16` JSON line, the card's name
+     and power limit, a `kernels` JSON line and, last, the device JSON
+     line.
 Exits non-zero without CUDA, or without the port's package beside it.
 """
 from __future__ import annotations
@@ -353,13 +389,15 @@ def recording(module, name):
 
 
 def kernel_handles():
-    """The six kernels' launch counters, by the names in the JSON line."""
+    """The kernels' launch counters (the six kernels and the bf16
+    instantiation of B), by the names in the JSON line."""
     from keypoint_bench_tpu_torch.ops import (cuda_attention, cuda_lk,
                                               cuda_match, cuda_nms,
                                               cuda_sample)
     return {"nms": cuda_nms.KERNEL, "sample": cuda_sample.KERNEL,
             "nn_match": cuda_match.KERNEL, "attention": cuda_attention.KERNEL,
-            "lk": cuda_lk.KERNEL, "peel": cuda_nms.PEEL_KERNEL}
+            "lk": cuda_lk.KERNEL, "peel": cuda_nms.PEEL_KERNEL,
+            "sample_bf16": cuda_sample.KERNEL_BF16}
 
 
 def reset_launches():
@@ -423,11 +461,12 @@ def close_scores(got, want):
     return rel
 
 
-def profile_step(step, top=6):
+def profile_step(step, top=6, count=False):
     """One step under torch.profiler: (device busy ms, host window ms,
-    [(kernel, device ms)] of the `top` kernels by device time). Busy time
-    is the union of the device activity intervals; the window spans every
-    recorded event, host and device."""
+    [(kernel, device ms)] of the `top` kernels by device time), with
+    count=True also the number of device activities (kernels, copies,
+    sets). Busy time is the union of the device activity intervals; the
+    window spans every recorded event, host and device."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -448,6 +487,8 @@ def profile_step(step, top=6):
     window = (max(e.time_range.end for e in events)
               - min(e.time_range.start for e in events)) if events else 0.0
     kernels = sorted(per_kernel.items(), key=lambda kt: -kt[1])[:top]
+    if count:
+        return busy / 1e3, window / 1e3, kernels, len(device)
     return busy / 1e3, window / 1e3, kernels
 
 
@@ -600,14 +641,16 @@ def sample_taps_used(feats, px, py, h, w):
 
 def sample_bound(feats, px, py, h, w):
     """(ms, bound_by): the feature values this run's keypoints need (taps
-    with non-zero weight, distinct per map, all channels), the coordinates
-    read once and the samples written once; 2 flops per tap product."""
+    with non-zero weight, distinct per map, all channels; at the maps'
+    bytes a value), the coordinates read once and the samples written
+    once; 2 flops per tap product."""
     import torch
     b, k = px.shape
     nbytes = 2 * px.numel() * 4
     flops = 0
+    size = feats[0].element_size()
     for c, hi, wi, bi, r, q, t in sample_taps_used(feats, px, py, h, w):
-        nbytes += int(torch.unique((bi * hi + r) * wi + q).numel()) * c * 4
+        nbytes += int(torch.unique((bi * hi + r) * wi + q).numel()) * c * size
         nbytes += b * c * k * 4                          # the samples out
         flops += 2 * b * c * k * (t * t + t)
     t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_F32
@@ -625,10 +668,11 @@ def sample_sector_bound(feats, px, py, h, w):
     b, k = px.shape
     nbytes = 2 * px.numel() * 4
     feat_bytes, flops = 0, 0
+    per_sector = 32 // feats[0].element_size()       # values a sector
     for c, hi, wi, bi, r, q, t in sample_taps_used(feats, px, py, h, w):
         ch = torch.arange(c, device=px.device)[:, None]
         addr = ((bi[None] * c + ch) * hi + r[None]) * wi + q[None]
-        feat_bytes += int(torch.unique(addr // 8).numel()) * 32
+        feat_bytes += int(torch.unique(addr // per_sector).numel()) * 32
         nbytes += b * c * k * 4                          # the samples out
         flops += 2 * b * c * k * (t * t + t)
     nbytes += feat_bytes
@@ -785,12 +829,34 @@ def timed_windows(step, windows=7, per_window=3, warmup=2):
     return out
 
 
+def timed_in_turns(step, other, rounds=4, per_window=3):
+    """Host seconds per step of `step` and of `other`: `rounds` windows of
+    `per_window` steps each, taken in turns (step, other, other, step,
+    ...), each ending in a device synchronize, after two warm-up steps of
+    each."""
+    import torch
+    for f in (step, other, step, other):
+        f()
+    out = ([], [])
+    for r in range(rounds):
+        for i in ((0, 1) if r % 2 == 0 else (1, 0)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(per_window):
+                (step, other)[i]()
+            torch.cuda.synchronize()
+            out[i].append((time.perf_counter() - t0) / per_window)
+    return out
+
+
 def auc_phases(dev, dp, card, errs):
     """The AUC path at bench.py's shapes (phases 16-18): the step with
     kernels A and E held on its own calls and against its plain-twin run,
     timed; RANSAC-E + recoverPose on the card against the CPU on
     ground-truth correspondences; the runner's AUC task and SE3
     repeatability. Returns the numbers for the kernels JSON line."""
+    from dataclasses import replace
+
     import numpy as np
     import torch
 
@@ -830,6 +896,7 @@ def auc_phases(dev, dp, card, errs):
         Ks, poses = wp["intrinsics0"], wp["pose01"]
     xf = get_model("XFeat")(load_golden_params("XFeat", dev)).eval()
     lg = lightglue_input_proj_params(device=dev)
+    out["data"] = (imgs0, imgs1, Ks, poses, lg)     # for the bf16 phases
 
     with phase(f"xfeat_auc_step: {AUC_PAIRS} pairs at {SIZE}^2, n_hyp "
                f"{AUC_NHYP}"):
@@ -1031,10 +1098,13 @@ def auc_phases(dev, dp, card, errs):
         with plain_twins():
             res_p = Evaluator(cfg, DEVICE).run()
         e, e_p = (np.asarray(r["per_pair_error"]) for r in (res, res_p))
+        out["runner_cfg"] = replace(cfg)          # for the bf16 phases
         cfg.task_type, cfg.task_params = "repeatability", {"th": 3}
         rep = Evaluator(cfg, DEVICE).run()["repeatability"]
         out["runner"] = {"per_pair_error": e.tolist(),
-                         "AUC@20": res["AUC@20"], "repeatability": rep}
+                         "AUC@20": res["AUC@20"],
+                         "AUC_inliers": res["AUC_inliers"],
+                         "repeatability": rep}
         log(f"  per-pair error {e.tolist()} (plain {e_p.tolist()}); AUC@5/"
             f"10/20 {[res[f'AUC@{t}'] for t in (5, 10, 20)]}; inliers "
             f"{res['AUC_inliers']}; launches {got}; SE3 repeatability {rep}")
@@ -1124,6 +1194,7 @@ def vo_phases(dev, dp, card, errs):
         K_cam = np.array([[seq.fx, 0, seq.cx], [0, seq.fy, seq.cy],
                           [0, 0, 1]], np.float32)
         gt = np.stack([p[:3, 3] for p in seq.poses])
+        out["data"] = (frames, K_cam, scales, gt)   # for the bf16 phases
         splat = SyntheticSplatSequenceDataset(VO_SPLAT_FRAMES, SIZE, 0)
         splat_items = [splat[i] for i in range(VO_SPLAT_FRAMES)]
     model = get_model("Alike_s2d")(load_params("Alike_s2d", device=dev))
@@ -1829,6 +1900,629 @@ def detector_phases(dev, card, errs):
             errs["lk"] = max(errs["lk"], lk_err)
     out["seconds"] = time.perf_counter() - t_start
     log(f"the detector family's phases: {out['seconds']:.1f} s")
+    return out
+
+
+# bf16 mode (phases 28-31): the card-vs-CPU gate of the bf16 forwards, and
+# the phases themselves
+# (cap ulps, share beyond 4 ulps) of the score and the descriptor map of
+# each weighted model's bf16 forward, card against CPU: twice
+# tests/test_torch_bf16_models.py's bounds (port against JAX on the CPU)
+BF16_TOL = {
+    "Alike": ((24, 0.006), (12, 0.001)),
+    "SuperPoint": ((512, 0.004), (8, 0.001)),
+    "XFeat": ((80, 0.04), (20, 0.002)),
+    "EdgePoint": ((8, 0.001), (12, 0.001)),
+    "GoodPoint": ((8, 0.001), (8, 0.001)),
+    "LETNet": ((40, 0.01), (8, 0.001)),
+    "KeyNet": ((8, 0.001), None),
+    "r2d2": ((20, 0.002), (12, 0.002)),
+    "DISK": ((56, 0.12), (16, 0.002)),
+    "sfd2": ((8, 0.001), (12, 0.001)),
+    "D2Net": ((12, 0.002), (8, 0.001)),
+}
+BF16_DENSE = ("r2d2", "DISK", "D2Net")   # the forwards that lead (PERF.md)
+# a bf16 step against its f32 run: repeatability and its mean error in px
+# (tests/test_precision.py's bounds), the keypoint sets' Jaccard overlap,
+# the mean epipolar error in px, a match or inlier count's share
+# (tests/test_torch_bf16_steps.py's COUNT_REL), the VO ATE's ratio (the
+# VO runner's rule against the JAX runner, phase 22)
+BF16_SHIFT, BF16_JACCARD, BF16_EPI = (0.02, 0.05), 0.7, 0.05
+BF16_COUNT, BF16_ATE = 0.15, 2.0
+
+
+def bf16_ulps(got, want):
+    """(max, share beyond 4) of |got - want| in bf16 ulps of want's
+    largest finite magnitude (2^(floor(log2 max) - 7)), over the values
+    finite on both sides; a map of zeros must be matched exactly."""
+    import math
+
+    import torch
+    g, w = got.double().cpu(), want.double().cpu()
+    fin = torch.isfinite(g) & torch.isfinite(w)
+    top = float(w[fin].abs().max()) if bool(fin.any()) else 0.0
+    ulp = 2.0 ** (math.floor(math.log2(top)) - 7) if top > 0 else 1e-38
+    e = (g - w).abs()[fin] / ulp
+    return (float(e.max()) if e.numel() else 0.0,
+            float((e > 4).double().mean()) if e.numel() else 0.0)
+
+
+def device_turns(fn, other, calls=20):
+    """(device ms a call of fn, of other, the four readings): the
+    profiler's device time of `calls` calls, in turns fn, other, other,
+    fn, each the mean of its two."""
+    t = []
+    for f in (fn, other, other, fn):
+        busy, _, _ = profile_step(lambda: [f() for _ in range(calls)])
+        t.append(busy / calls)
+    return (t[0] + t[3]) / 2, (t[1] + t[2]) / 2, t
+
+
+def homography_repeatability(k0, v0, k1, v1, items, th=3.0):
+    """The runner's repeatability of B detections on homography pairs
+    (`tasks.repeatability.repeatability_pair` on each): (mean
+    repeatability, mean of the finite mean errors)."""
+    import numpy as np
+
+    from keypoint_bench_tpu_torch.geometry.warp import warp_points
+    from keypoint_bench_tpu_torch.tasks.repeatability import \
+        repeatability_pair
+    reps, errs_ = [], []
+    for i, it in enumerate(items):
+        wp01, wp10 = it["warp01_params"], it["warp10_params"]
+        a0, a01, va = warp_points(k0[i], v0[i], wp01)
+        b0, b10, vb = warp_points(k1[i], v1[i], wp10)
+        out = repeatability_pair(k0[i], v0[i], k1[i], v1[i], a0, a01, va, b0,
+                                 b10, vb, float(wp01.get("resize",
+                                                         wp01["width"])), th)
+        reps.append(float(out["repeatability"]))
+        errs_.append(float(out["mean_error"]))
+    e = np.asarray(errs_)
+    return float(np.mean(reps)), float(np.mean(e[~np.isnan(e)]))
+
+
+def keypoint_jaccard(k_a, v_a, k_b, v_b, h, w):
+    """Per image, |A & B| / |A | B| of the valid keypoints' pixels."""
+    import torch
+    size = torch.tensor([w, h], device=k_a.device)
+    out = []
+    for ka, va, kb, vb in zip(k_a, v_a, k_b, v_b):
+        a = {tuple(p) for p in torch.round(ka[va][:, :2] * size - 0.5)
+             .long().tolist()}
+        b = {tuple(p) for p in torch.round(kb[vb][:, :2] * size - 0.5)
+             .long().tolist()}
+        out.append(len(a & b) / max(len(a | b), 1))
+    return out
+
+
+def bf16_phases(dev, card, errs, ctx):
+    """bf16 mode, bench.py's default precision (phases 28-31): the bf16
+    forwards card vs CPU; kernel B's bf16 instantiation against its plain
+    version, timed beside the f32 instantiation and its bounds; every step
+    in bf16 at 512^2 with its launch counts read, gated against its
+    plain-twin run and against its f32 run, timed in turns with it; the
+    runners on configs/repeatability_synthetic.yaml and the AUC config
+    with precision bfloat16. `ctx` holds the f32 phases' data, models and
+    runner results. Returns the numbers for the bf16 and kernels JSON
+    lines."""
+    from dataclasses import replace
+
+    import numpy as np
+    import torch
+
+    from keypoint_bench_tpu_torch.models import get_model
+    from keypoint_bench_tpu_torch.models.common import (cast_params_bf16,
+                                                        to_float_image)
+    from keypoint_bench_tpu_torch.ops import cuda_sample
+    from keypoint_bench_tpu_torch.ops.detect import (DetectParams,
+                                                     detection_batch)
+    from keypoint_bench_tpu_torch.ops.sparse_desc import (row_tap_keys,
+                                                          sample_branches)
+    from keypoint_bench_tpu_torch.pipeline import (
+        dense_detect, dense_extract_match, extract, extract_match,
+        lk_fundamental_step, superpoint_mha_step, vo_step, xfeat_auc_step)
+    from keypoint_bench_tpu_torch.runner import EvalConfig, Evaluator
+    from keypoint_bench_tpu_torch.tasks.trajectory import ate_rmse
+    from keypoint_bench_tpu_torch.weights import (load_golden_params,
+                                                  load_params)
+
+    bf = torch.bfloat16
+    out = {"steps": {}}
+    t_start = time.perf_counter()
+    dp = DetectParams(nms_dist=6, border_dist=8, top_k=K)
+    imgs0, imgs1, items = ctx["imgs0"], ctx["imgs1"], ctx["items"]
+
+    def weights(name, device, precision="bfloat16"):
+        gold = name in ("SuperPoint", "XFeat") + GOLDEN_MODELS
+        p = (load_golden_params(name, device) if gold
+             else load_params(name, device=device))
+        return cast_params_bf16(p) if precision == "bfloat16" else p
+
+    def bf_model(name, device=dev):
+        return get_model(name)(weights(name, device)).eval()
+
+    with phase("bf16 forwards: every weighted model, card vs CPU at 64^2"):
+        img = torch.from_numpy(np.random.default_rng(0).random(
+            (1, 64, 64, 3), np.float32))
+        gaps = {}
+        for name, ((sc, sf), dtol) in BF16_TOL.items():
+            with torch.inference_mode():
+                s_g, d_g = bf_model(name)(img.to(dev))
+                s_c, d_c = bf_model(name, torch.device("cpu"))(img)
+            rec = {"score": bf16_ulps(s_g, s_c)}
+            ok = (s_g.dtype == s_c.dtype and rec["score"][0] <= sc
+                  and rec["score"][1] <= sf)
+            if name == "sfd2":
+                parted = float((torch.isnan(s_g.cpu()) != torch.isnan(s_c))
+                               .float().mean())
+                rec["nan_parted"] = parted
+                ok = ok and parted <= 0.01
+            if dtol is not None:
+                rec["desc"] = bf16_ulps(d_g, d_c)
+                ok = ok and (d_g.dtype == d_c.dtype
+                             and rec["desc"][0] <= dtol[0]
+                             and rec["desc"][1] <= dtol[1])
+            gaps[name] = rec
+            log(f"  {name}: {s_g.dtype} score {rec['score'][0]:.2f} ulps "
+                f"(share beyond 4: {rec['score'][1]:.5f}; cap {sc}, {sf})"
+                + ("" if dtol is None else
+                   f", {d_g.dtype} desc {rec['desc'][0]:.2f} ulps "
+                   f"({rec['desc'][1]:.5f}; cap {dtol[0]}, {dtol[1]})")
+                + (f", NaN parted {rec['nan_parted']:.4f}"
+                   if "nan_parted" in rec else ""))
+            if not ok:
+                raise AssertionError(f"{name} bf16 forward card vs CPU: "
+                                     f"{rec}")
+        out["forward_ulps_card_vs_cpu"] = gaps
+
+    params = weights("Alike", dev)
+    model = get_model("Alike")(params).eval()
+    with torch.inference_mode():
+        score0, feats0 = model.feats(imgs0)
+        kpts0, valid0 = detection_batch(score0, dp)
+    if not all(f.dtype == bf for f in feats0) or score0.dtype != bf:
+        raise AssertionError("ALIKE-t's bf16 feats are not bf16")
+
+    with phase("kernel B bf16 instantiation vs plain sampler (ALIKE-t's "
+               "bf16 branch maps, 16 maps, K=1000)"):
+        px = (kpts0[..., 0] * (SIZE - 1.0)).contiguous()
+        py = (kpts0[..., 1] * (SIZE - 1.0)).contiguous()
+        order = torch.sort(row_tap_keys(kpts0, SIZE), dim=1, stable=True)[1]
+        pxs, pys = px.gather(1, order), py.gather(1, order)
+        err = 0.0
+        for name, (x, y) in (("original order", (px, py)),
+                             ("y-sorted order", (pxs, pys))):
+            got = cuda_sample.sample_cuda(feats0, x, y, SIZE, SIZE)
+            want = sample_branches(feats0, x, y, SIZE, SIZE)
+            rel = float((got - want).abs().max() / want.abs().max())
+            err = max(err, float((got - want).abs().max()))
+            log(f"  {name}: max abs err {float((got - want).abs().max()):.3g}"
+                f", {rel:.3g} of the largest sample")
+            if not rel <= 1e-5:
+                raise AssertionError(f"kernel B bf16 differs ({name}): {rel}")
+        feats32 = tuple(f.float() for f in feats0)
+        ms, ms32, turns = in_turns(
+            lambda: cuda_sample.sample_cuda(feats0, pxs, pys, SIZE, SIZE),
+            lambda: cuda_sample.sample_cuda(feats32, pxs, pys, SIZE, SIZE),
+            iters=20, other_iters=20)
+        ms_orig = cuda_ms(lambda: cuda_sample.sample_cuda(
+            feats0, px, py, SIZE, SIZE))
+        plain_ms = cuda_ms(lambda: sample_branches(feats0, pxs, pys, SIZE,
+                                                   SIZE), iters=3, warmup=1)
+        bound_ms, bound_by = sample_bound(feats0, pxs, pys, SIZE, SIZE)
+        sector_ms, sector_by, sector_bytes = sample_sector_bound(
+            feats0, pxs, pys, SIZE, SIZE)
+        dev_t = {}
+        dev_t["bf16"], dev_t["f32"], dev_turns = device_turns(
+            lambda: cuda_sample.sample_cuda(feats0, pxs, pys, SIZE, SIZE),
+            lambda: cuda_sample.sample_cuda(feats32, pxs, pys, SIZE, SIZE))
+        busy, _, _ = profile_step(lambda: [cuda_sample.sample_cuda(
+            feats0, px, py, SIZE, SIZE) for _ in range(20)])
+        dev_t["bf16 original"] = busy / 20
+        log(f"  [16 maps, K={K}, y-sorted]: bf16 kernel {ms:.4f} ms, f32 "
+            f"kernel on the same values {ms32:.4f} ms (in turns bf16, f32, "
+            f"f32, bf16: {[round(t, 4) for t in turns]}); device time a "
+            f"call in turns bf16, f32, f32, bf16 "
+            f"{[round(t, 4) for t in dev_turns]}: bf16 "
+            f"{dev_t['bf16']:.4f} ms, original order "
+            f"{dev_t['bf16 original']:.4f} ms (events {ms_orig:.4f}), f32 "
+            f"{dev_t['f32']:.4f} ms; plain {plain_ms:.4f} ms; bound "
+            f"{bound_ms:.4f} ms ({bound_by}; distinct values), sector bound "
+            f"{sector_ms:.4f} ms ({sector_by}; {sector_bytes} bytes of "
+            f"32-byte bf16 feature sectors) on {card}")
+        out["sample_bf16"] = {
+            "max_abs_err": err, "ms": ms, "f32_ms_same_values": ms32,
+            "device_ms": dev_t["bf16"], "f32_device_ms": dev_t["f32"],
+            "ms_original_order": ms_orig,
+            "device_ms_original_order": dev_t["bf16 original"],
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "sector_bound_ms": sector_ms, "sector_bound_by": sector_by}
+
+    def rates(step, step32, n, unit, per_window=3):
+        """The bf16 step's rate and its f32 run's (`n` items a step), timed
+        in turns in one call with their windows, and each one's device
+        busy time, host window, device activities and top kernels under
+        the profiler."""
+        w, w32 = timed_in_turns(step, step32, per_window=per_window)
+        rec = {unit: n / statistics.median(w),
+               f"{unit}_windows": [n / x for x in w],
+               f"f32_{unit}": n / statistics.median(w32),
+               f"f32_{unit}_windows": [n / x for x in w32]}
+        for pre, f in (("", step), ("f32_", step32)):
+            busy, span, top, count = profile_step(f, top=4, count=True)
+            rec.update({f"{pre}device_busy_ms": busy,
+                        f"{pre}host_window_ms": span,
+                        f"{pre}device_activities": count,
+                        f"{pre}top_kernels": [(k[:60], round(t, 4))
+                                              for k, t in top]})
+        return rec
+
+    def forward_turns(fwd, fwd32, iters=5):
+        with torch.inference_mode():
+            ms, ms32, _ = in_turns(fwd, fwd32, iters=iters,
+                                   other_iters=iters)
+        return {"forward_ms": ms, "f32_forward_ms": ms32}
+
+    def shifted(rep, rep32, err, err32):
+        """True if the repeatability or its mean error moved beyond
+        BF16_SHIFT from the f32 run's."""
+        return not (abs(rep - rep32) < BF16_SHIFT[0]
+                    and abs(err - err32) < BF16_SHIFT[1])
+
+    def count_moved(n, n32):
+        """True if a count moved beyond BF16_COUNT of the f32 run's."""
+        return abs(int(n) - int(n32)) > BF16_COUNT * max(int(n32), 20)
+
+    def gate_steps(name, rec):
+        log(f"  {name}: " + "; ".join(
+            f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
+            for k, v in rec.items()))
+        out["steps"][name] = rec
+
+    with phase(f"bf16 extract_match: {PAIRS} pairs at {SIZE}^2 (the main "
+               f"path in bf16)"):
+        reset_launches()
+        n, k0, m1 = extract_match(model, params, imgs0, imgs1, dp, 5.0,
+                                  device=DEVICE)
+        torch.cuda.synchronize()
+        got = read_launches()
+        log(f"  launches in one run: {got}")
+        want_l = {"nms": 2, "sample_bf16": 2, "nn_match": 2, "sample": 0}
+        if any(got[k] != v for k, v in want_l.items()):
+            raise AssertionError(f"bf16 extract_match launches {got}, want "
+                                 f"{want_l}")
+        out["launches"] = {k: got[k] for k in want_l}
+        with torch.inference_mode():
+            ext_k = [extract(model, params, im, dp) for im in (imgs0, imgs1)]
+            with plain_twins():
+                ext_p = [extract(model, params, im, dp)
+                         for im in (imgs0, imgs1)]
+                n_p, k0_p, _ = extract_match(model, params, imgs0, imgs1, dp,
+                                             5.0, device=DEVICE)
+        n_valid = int(sum(e[2].sum() for e in ext_k))
+        for (dk, kk, vk), (dp_, kp, vp) in zip(ext_k, ext_p):
+            if not (torch.equal(kk, kp) and torch.equal(vk, vp)):
+                raise AssertionError("bf16 keypoints differ from plain")
+        if not (torch.equal(k0, k0_p)
+                and abs(int(n) - int(n_p)) <= 0.005 * n_valid / 2
+                and bool(torch.isfinite(m1).all())):
+            raise AssertionError(f"bf16 extract_match vs plain: {int(n)} vs "
+                                 f"{int(n_p)}")
+        rep, rep_err = homography_repeatability(
+            ext_k[0][1], ext_k[0][2], ext_k[1][1], ext_k[1][2], items)
+        m32, p32 = ctx["model"], ctx["params"]
+        with torch.inference_mode():
+            e32 = [extract(m32, p32, im, dp) for im in (imgs0, imgs1)]
+        n32 = int(extract_match(m32, p32, imgs0, imgs1, dp, 5.0,
+                                device=DEVICE)[0])
+        rep32, rep_err32 = homography_repeatability(
+            e32[0][1], e32[0][2], e32[1][1], e32[1][2], items)
+        jac = keypoint_jaccard(ext_k[0][1], ext_k[0][2], e32[0][1],
+                               e32[0][2], SIZE, SIZE)
+        rec = rates(
+            lambda: extract_match(model, params, imgs0, imgs1, dp, 5.0,
+                                  device=DEVICE),
+            lambda: extract_match(m32, p32, imgs0, imgs1, dp, 5.0,
+                                  device=DEVICE), 2 * PAIRS, "frames_per_s")
+        rec.update(forward_turns(lambda: model.feats(imgs0),
+                                 lambda: m32.feats(imgs0)))
+        rec.update({"matches": int(n), "matches_plain": int(n_p),
+                    "matches_f32": n32, "repeatability": rep,
+                    "repeatability_f32": rep32, "rep_mean_err": rep_err,
+                    "rep_mean_err_f32": rep_err32,
+                    "keypoint_jaccard_vs_f32_min": min(jac)})
+        gate_steps("extract_match", rec)
+        if shifted(rep, rep32, rep_err, rep_err32):
+            raise AssertionError("bf16 extract_match's repeatability moved "
+                                 "beyond test_precision.py's bounds")
+
+    with phase(f"bf16 superpoint_mha_step: brute force, {PAIRS} pairs at "
+               f"{SIZE}^2"):
+        sp, sp32 = bf_model("SuperPoint"), ctx["sp_model"]
+        args = (imgs0, imgs1, ctx["Hs"], ctx["Hinvs"], dp)
+
+        def mha(m=sp, seed=0):
+            return superpoint_mha_step(
+                m, *args, torch.Generator(device=dev).manual_seed(seed),
+                "brute_force", None, 5.0, 512, device=DEVICE)
+
+        reset_launches()
+        hits, m0, m1, ok = mha()
+        torch.cuda.synchronize()
+        got = read_launches()
+        if got["nms"] != 2 or got["nn_match"] != 2:
+            raise AssertionError(f"bf16 MHA step launches {got}")
+        with plain_twins():
+            hits_p, m0_p, _, ok_p = mha()
+        with torch.inference_mode():
+            det = [detection_batch(sp(im)[0], dp) for im in (imgs0, imgs1)]
+            det32 = [detection_batch(sp32(im)[0], dp)
+                     for im in (imgs0, imgs1)]
+        n_valid = int(det[0][1].sum() + det[1][1].sum())
+        if not (torch.equal(m0, m0_p) and abs(int(ok.sum()) - int(ok_p.sum()))
+                <= 0.005 * n_valid / 2):
+            raise AssertionError("bf16 MHA step vs plain twins")
+        rep, rep_err = homography_repeatability(*det[0], *det[1], items)
+        rep32, rep_err32 = homography_repeatability(*det32[0], *det32[1],
+                                                    items)
+        hits32, _, _, ok32 = mha(sp32)
+        rec = rates(mha, lambda: mha(sp32), PAIRS, "pairs_per_s")
+        rec.update({"matches": int(ok.sum()), "matches_plain": int(ok_p.sum()),
+                    "matches_f32": int(ok32.sum()),
+                    "mha": hits.float().mean(0).tolist(),
+                    "mha_f32": hits32.float().mean(0).tolist(),
+                    "repeatability": rep, "repeatability_f32": rep32,
+                    "rep_mean_err": rep_err, "rep_mean_err_f32": rep_err32})
+        gate_steps("superpoint_mha_step", rec)
+        if shifted(rep, rep32, rep_err, rep_err32):
+            raise AssertionError("bf16 SuperPoint's repeatability moved "
+                                 "beyond test_precision.py's bounds")
+
+    with phase(f"bf16 dense_extract_match: {', '.join(BF16_DENSE)}, "
+               f"{DENSE_PAIRS} pairs at {SIZE}^2"):
+        h0, h1 = imgs0[:DENSE_PAIRS], imgs1[:DENSE_PAIRS]
+        for name in BF16_DENSE:
+            mb = bf_model(name)
+            m32 = get_model(name)(weights(name, dev, "float32")).eval()
+
+            def step(m=mb):
+                return dense_extract_match(m, h0, h1, dp, 5.0, device=DEVICE)
+
+            reset_launches()
+            n, k0, _ = step()
+            torch.cuda.synchronize()
+            got = read_launches()
+            if got["nms"] != 2 or got["nn_match"] != 2:
+                raise AssertionError(f"bf16 {name} step launches {got}")
+            with plain_twins():
+                n_p, k0_p, _ = step()
+            with torch.inference_mode():
+                det = [dense_detect(mb, im, dp, device=DEVICE)[:2]
+                       for im in (h0, h1)]
+                det32 = [dense_detect(m32, im, dp, device=DEVICE)[:2]
+                         for im in (h0, h1)]
+            n_valid = int(det[0][1].sum() + det[1][1].sum())
+            if not (bits_equal(k0, k0_p) and abs(int(n) - int(n_p))
+                    <= 0.005 * n_valid / 2 + 1):
+                raise AssertionError(f"bf16 {name} step vs plain twins")
+            rep, rep_err = homography_repeatability(*det[0], *det[1],
+                                                    items[:DENSE_PAIRS])
+            rep32, rep_err32 = homography_repeatability(
+                *det32[0], *det32[1], items[:DENSE_PAIRS])
+            n32 = int(step(m32)[0])
+            rec = rates(step, lambda: step(m32), DENSE_PAIRS, "pairs_per_s")
+            rec.update(forward_turns(lambda: mb(h0), lambda: m32(h0),
+                                     iters=3))
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            step()
+            torch.cuda.synchronize()
+            rec.update({"peak_memory_gb":
+                        torch.cuda.max_memory_allocated() / 2 ** 30,
+                        "matches": int(n), "matches_plain": int(n_p),
+                        "matches_f32": n32, "repeatability": rep,
+                        "repeatability_f32": rep32, "rep_mean_err": rep_err,
+                        "rep_mean_err_f32": rep_err32})
+            gate_steps(f"dense_extract_match {name}", rec)
+            if shifted(rep, rep32, rep_err, rep_err32):
+                raise AssertionError(f"bf16 {name}'s repeatability moved "
+                                     f"beyond test_precision.py's bounds")
+
+    with phase(f"bf16 lk_fundamental_step: {LK_PAIRS} pairs at {SIZE}^2"):
+        lk_imgs0, lk_imgs1, lk_Fs, lk = ctx["lk"]
+
+        def lk_step(m=model, p=params):
+            return lk_fundamental_step(
+                m, p, lk_imgs0, lk_imgs1, lk_Fs,
+                torch.Generator(device=dev).manual_seed(0), dp, lk,
+                device=DEVICE)
+
+        reset_launches()
+        res, k0, v0, tracked = lk_step()
+        torch.cuda.synchronize()
+        got = read_launches()
+        if got["nms"] != 1 or got["lk"] != lk.levels:
+            raise AssertionError(f"bf16 LK step launches {got}")
+        with plain_twins():
+            res_p, k0_p, v0_p, _ = lk_step()
+        res32, k32, v32, _ = lk_step(ctx["model"], ctx["params"])
+        e, e_p, e32 = (r["fundamental_error"] for r in (res, res_p, res32))
+        jac = keypoint_jaccard(k0, v0, k32, v32, SIZE, SIZE)
+        if not (torch.equal(k0, k0_p) and torch.equal(v0, v0_p)
+                and bool((torch.abs(e - e_p) <= 1e-3 * e_p.abs() + 1e-5)
+                         .all())):
+            raise AssertionError("bf16 LK step vs plain twins")
+        rec = rates(lk_step, lambda: lk_step(ctx["model"], ctx["params"]),
+                    LK_PAIRS, "frames_per_s")
+        with torch.inference_mode():
+            lk_f = to_float_image(torch.as_tensor(lk_imgs0, device=dev))
+        rec.update(forward_turns(lambda: model(lk_f),
+                                 lambda: ctx["model"](lk_f)))
+        rec.update({"fundamental_error": float(e.mean()),
+                    "fundamental_error_f32": float(e32.mean()),
+                    "fundamental_num": res["fundamental_num"].tolist(),
+                    "fundamental_num_f32": res32["fundamental_num"].tolist(),
+                    "keypoint_jaccard_vs_f32_min": min(jac)})
+        gate_steps("lk_fundamental_step", rec)
+        if not (abs(rec["fundamental_error"]
+                    - rec["fundamental_error_f32"]) < BF16_EPI
+                and min(jac) >= BF16_JACCARD):
+            raise AssertionError("bf16 LK step moved from its f32 run")
+
+    with phase(f"bf16 xfeat_auc_step: {AUC_PAIRS} pairs at {SIZE}^2, n_hyp "
+               f"{AUC_NHYP}"):
+        a0, a1, Ks, poses, lg = ctx["auc"]
+        xf = bf_model("XFeat")
+        xf32 = get_model("XFeat")(weights("XFeat", dev, "float32")).eval()
+
+        def auc_step(m=xf):
+            return xfeat_auc_step(
+                m, lg, a0, a1, Ks, poses, dp,
+                torch.Generator(device=dev).manual_seed(0), AUC_NHYP,
+                device=DEVICE)
+
+        reset_launches()
+        err, n_in, k0, k1, _, mask = auc_step()
+        torch.cuda.synchronize()
+        got = read_launches()
+        if got["nms"] != 2 or got["attention"] != 18:
+            raise AssertionError(f"bf16 AUC step launches {got}")
+        with plain_twins():
+            err_p, _, k0_p, k1_p, _, _ = auc_step()
+        if not (torch.equal(k0, k0_p) and torch.equal(k1, k1_p)
+                and bool(((err - err_p).abs() <= 1e-3).all())):
+            raise AssertionError("bf16 AUC step vs plain twins")
+        err32, n_in32, k32, _, _, mask32 = auc_step(xf32)
+        jac = keypoint_jaccard(k0, k0[..., 2] > 0, k32, k32[..., 2] > 0,
+                               SIZE, SIZE)
+        rec = rates(auc_step, lambda: auc_step(xf32), AUC_PAIRS,
+                    "pairs_per_s")
+        rec.update({"matches": int(mask.sum()),
+                    "matches_f32": int(mask32.sum()),
+                    "inliers": n_in.tolist(), "inliers_f32": n_in32.tolist(),
+                    "pose_error_deg": err.tolist(),
+                    "pose_error_deg_f32": err32.tolist(),
+                    "keypoint_jaccard_vs_f32_min": min(jac)})
+        gate_steps("xfeat_auc_step", rec)
+        # LightGlue's randomized weights match no keypoint in either run
+        # (180 degrees a pair, 0 inliers): the pose path in bf16 is held
+        # on the AUC runner's matches below
+        if (min(jac) < BF16_JACCARD or count_moved(mask.sum(), mask32.sum())
+                or not bool(torch.isfinite(err).all())):
+            raise AssertionError("bf16 AUC step moved from its f32 run")
+
+    with phase(f"bf16 AUC runner: ALIKE-t + brute force, 4 SE3 pairs at "
+               f"{SIZE}^2"):
+        cfg = replace(ctx["auc_cfg"], precision="bfloat16",
+                      output_dir=os.path.join(ROOT, "output",
+                                              "chip_smoke_auc_bf16"))
+        reset_launches()
+        res = Evaluator(cfg, DEVICE).run()
+        got = read_launches()
+        with plain_twins():
+            res_p = Evaluator(cfg, DEVICE).run()
+        run32 = ctx["auc_runner"]
+        e, e_p = (np.asarray(r["per_pair_error"]) for r in (res, res_p))
+        rec = {"per_pair_error": e.tolist(),
+               "per_pair_error_plain": e_p.tolist(),
+               "per_pair_error_f32": run32["per_pair_error"],
+               "AUC@20": res["AUC@20"], "AUC@20_f32": run32["AUC@20"],
+               "inliers": res["AUC_inliers"],
+               "inliers_f32": run32["AUC_inliers"],
+               "launches": {k: got[k] for k in ("nms", "nn_match")}}
+        gate_steps("runner AUC", rec)
+        # the f32 runner's own gates, and its inlier count within
+        # BF16_COUNT
+        if not (got["nms"] > 0 and got["nn_match"] > 0
+                and np.median(e) < 10.0 and res["AUC@20"] > 0.3
+                and np.abs(e - e_p).max() <= 1e-3
+                and not count_moved(res["AUC_inliers"],
+                                    run32["AUC_inliers"])):
+            raise AssertionError("bf16 AUC runner vs plain twins or its f32 "
+                                 "run")
+
+    with phase(f"bf16 vo_step: {VO_FRAMES} frames at {SIZE}^2, n_hyp "
+               f"{VO_NHYP}"):
+        frames, K_cam, scales, gt = ctx["vo"]
+        vm = get_model("Alike_s2d")(weights("Alike", dev)).eval()
+        vm32 = get_model("Alike_s2d")(ctx["params"])
+
+        def vo(m=vm):
+            return vo_step(m, frames, K_cam, scales, dp,
+                           torch.Generator(device=dev).manual_seed(0),
+                           VO_MAXD, VO_NHYP, device=DEVICE)
+
+        reset_launches()
+        res = vo()
+        torch.cuda.synchronize()
+        got = read_launches()
+        n_chunks = -(-VO_FRAMES // 8)
+        if not (got["nms"] == n_chunks and got["sample_bf16"] == n_chunks
+                and got["nn_match"] == 2 and got["sample"] == 0):
+            raise AssertionError(f"bf16 vo_step launches {got}")
+        out["launches_vo_step"] = got["sample_bf16"]
+        with plain_twins():
+            res_p = vo()
+        n_valid = int(res["valid"].sum())
+        if not (torch.equal(res["kpts"], res_p["kpts"])
+                and abs(int(res["match_mask"].sum())
+                        - int(res_p["match_mask"].sum()))
+                <= 0.005 * n_valid):
+            raise AssertionError("bf16 vo_step vs plain twins")
+        res32 = vo(vm32)
+        jac = keypoint_jaccard(res["kpts"], res["valid"], res32["kpts"],
+                               res32["valid"], SIZE, SIZE)
+        ate, ate32 = (ate_rmse(r["t_est"][1:, :, 0], gt)
+                      for r in (res, res32))
+        rec = rates(vo, lambda: vo(vm32), VO_FRAMES, "frames_per_s",
+                    per_window=1)
+        rec.update({"matches": int(res["match_mask"].sum()),
+                    "matches_plain": int(res_p["match_mask"].sum()),
+                    "matches_f32": int(res32["match_mask"].sum()),
+                    "pairs_ok": int(res["ok"].sum()),
+                    "pairs_ok_f32": int(res32["ok"].sum()),
+                    "inliers": int(res["n_inliers"].sum()),
+                    "inliers_f32": int(res32["n_inliers"].sum()),
+                    "ate": ate, "ate_f32": ate32,
+                    "keypoint_jaccard_vs_f32_min": min(jac)})
+        gate_steps("vo_step", rec)
+        if not (min(jac) >= BF16_JACCARD
+                and np.isfinite(res["t_est"]).all()
+                and ate <= BF16_ATE * ate32
+                and not count_moved(rec["inliers"], rec["inliers_f32"])
+                and rec["pairs_ok"] >= rec["pairs_ok_f32"] - 1):
+            raise AssertionError("bf16 vo_step moved from its f32 run")
+
+    with phase("bf16 runner: configs/repeatability_synthetic.yaml, "
+               "precision bfloat16 (4 pairs at 512^2)"):
+        cfg = EvalConfig.from_yaml(os.path.join(
+            ROOT, "configs", "repeatability_synthetic.yaml"))
+        cfg.precision = "bfloat16"
+        cfg.output_dir = os.path.join(ROOT, "output", "chip_smoke_rep_bf16")
+        reset_launches()
+        ev = Evaluator(cfg, DEVICE)
+        res = ev.run()
+        got = read_launches()
+        with plain_twins():
+            res_p = Evaluator(cfg, DEVICE).run()
+        rep32 = ctx["rep"]
+        rec = {"repeatability": res["repeatability"],
+               "repeatability_plain": res_p["repeatability"],
+               "repeatability_f32": rep32["repeatability"],
+               "rep_mean_err": res["rep_mean_err"],
+               "rep_mean_err_f32": rep32["rep_mean_err"],
+               "launches": {k: got[k] for k in ("nms", "sample_bf16")}}
+        gate_steps("runner repeatability", rec)
+        if not (all(v.dtype == bf for v in ev.params.values()
+                    if v.dim() >= 2) and got["nms"] > 0
+                and res["per_pair_repeatability"]
+                == res_p["per_pair_repeatability"]
+                and not shifted(res["repeatability"], rep32["repeatability"],
+                                res["rep_mean_err"], rep32["rep_mean_err"])):
+            raise AssertionError("bf16 runner vs plain twins or its f32 run")
+
+    errs["sample_bf16"] = out["sample_bf16"]["max_abs_err"]
+    out["seconds"] = time.perf_counter() - t_start
     return out
 
 
@@ -2788,6 +3482,14 @@ def main() -> int:
     vo = vo_phases(dev, dp, card, errs)
     det = detector_phases(dev, card, errs)
     d4, d513 = det["match_widths"][4], det["match_widths"][513]
+    bf = bf16_phases(dev, card, errs, {
+        "imgs0": imgs0, "imgs1": imgs1, "items": items, "Hs": Hs,
+        "Hinvs": Hinvs, "model": model, "params": params,
+        "sp_model": sp_model, "rep": rep,
+        "lk": (lk_imgs0, lk_imgs1, lk_Fs, lk), "auc": auc["data"],
+        "auc_cfg": auc["runner_cfg"], "auc_runner": auc["runner"],
+        "vo": vo["data"]})
+    sb = bf["sample_bf16"]
 
     kernels = [
         {"name": "nms_fixpoint", "route": "cuda",
@@ -2869,6 +3571,21 @@ def main() -> int:
          "library_device_ms": topk_dev_ms,
          "detection_batch_ms": det_ms,
          "detection_batch_fused_ms": det_fused_ms},
+        {"name": "sparse_sample_bf16", "route": "cuda",
+         "source": "keypoint_bench_tpu_torch/csrc/sample.cu",
+         "replaces": "keypoint_bench_tpu/ops/pallas_sample.py:107",
+         "launches": bf["launches"]["sample_bf16"],
+         "max_abs_err": errs["sample_bf16"], "ms": sb["ms"],
+         "plain_ms": sb["plain_ms"], "bound_ms": sb["bound_ms"],
+         "bound_by": sb["bound_by"], "library_ms": None,
+         "device_ms": sb["device_ms"],
+         "f32_kernel_ms_same_values": sb["f32_ms_same_values"],
+         "f32_kernel_device_ms": sb["f32_device_ms"],
+         "ms_original_order": sb["ms_original_order"],
+         "device_ms_original_order": sb["device_ms_original_order"],
+         "sector_bound_ms": sb["sector_bound_ms"],
+         "sector_bound_by": sb["sector_bound_by"],
+         "launches_vo_step": bf["launches_vo_step"]},
     ]
     log(json.dumps({"xfeat_auc_step": {k: auc[k] for k in (
         "pairs_per_s", "stages_ms", "idle_share", "ransac_ms",
@@ -2882,6 +3599,8 @@ def main() -> int:
         "sweep_repeatability_jax_cpu": JAX_CPU_SWEEP,
         "sfd2_stability_flips": det["sfd2_stability_flips"],
         "seconds": det["seconds"]}}, default=float))
+    log(json.dumps({"bf16": {k: bf[k] for k in (
+        "steps", "forward_ulps_card_vs_cpu", "seconds")}}, default=float))
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -48,8 +48,18 @@
 // acc = ((wr0 t0) + wr1 t1) + wr2 t2 (tests/test_torch_sample_taps.py
 // mirrors the windows and this order on the CPU).
 //
-// C interface (ctypes): kbt_sample returns cudaGetLastError() or 0.
+// bf16 branch features (bf16 mode): the same kernel instantiated on
+// __nv_bfloat16 maps, reading half the bytes. As the TPU kernel does
+// (`wcv.astype(f_vm[i].dtype)` in `_kernel` / `_sorted_kernel`), each
+// merged column weight is rounded to bf16 and the row weights stay f32;
+// a bf16 value times a bf16 weight is exact in f32, and the sums and the
+// output stay f32 (ops/sparse_desc.py `sample_branches` is the plain
+// version).
+//
+// C interface (ctypes): kbt_sample and kbt_sample_bf16 return
+// cudaGetLastError() or 0.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -59,7 +69,7 @@
 #define CPT 4       // channels whose loads a thread issues before it sums
 
 struct SampleArgs {
-  const float* f[MAX_BRANCHES];   // [B, C, h_i, w_i] channel-major
+  const void* f[MAX_BRANCHES];    // [B, C, h_i, w_i] channel-major, f32 or bf16
   int h[MAX_BRANCHES];
   int w[MAX_BRANCHES];
   float sy[MAX_BRANCHES];         // (h_i - 1) / (H - 1) rounded to f32
@@ -77,11 +87,16 @@ __device__ __forceinline__ void taps_direct(float p, int n, int* base,
   wt[2] = 0.0f;
 }
 
+// The tap arithmetic rounds every product and difference on its own
+// (__fmul_rn, __fsub_rn: never contracted into an FMA), as the plain taps
+// and the reference's do: a merged weight one f32 ulp off would round to
+// another bf16 column weight where it lies at a bf16 midpoint, which the
+// pixel-centred keypoints hit often.
 __device__ __forceinline__ void lo_frac(int y, float s, int n_lo, int* lo,
                                         float* frac) {
-  const float src = (float)y * s;
+  const float src = __fmul_rn((float)y, s);
   *lo = min(max((int)floorf(src), 0), n_lo - 2);
-  *frac = src - (float)*lo;
+  *frac = __fsub_rn(src, (float)*lo);
 }
 
 // The composite taps la, la+1, lb, lb+1 collapsed onto rows base..base+2.
@@ -95,8 +110,9 @@ __device__ __forceinline__ void taps_up(float p, int n_hi, int n_lo, float s,
   lo_frac(y0, s, n_lo, &la, &fa);
   // min(y0 + 1, n_hi - 1), written so that a saturated y0 cannot overflow
   lo_frac(min(y0, n_hi - 2) + 1, s, n_lo, &lb, &fb);
-  const float a0 = (1.0f - dy) * (1.0f - fa), a1 = (1.0f - dy) * fa;
-  const float b0 = dy * (1.0f - fb), b1 = dy * fb;
+  const float a0 = __fmul_rn(1.0f - dy, 1.0f - fa);
+  const float a1 = __fmul_rn(1.0f - dy, fa);
+  const float b0 = __fmul_rn(dy, 1.0f - fb), b1 = __fmul_rn(dy, fb);
   *base = la;
   if (lb == la + 1) {   // then la + 2 <= n_lo - 1
     wt[0] = a0;
@@ -109,11 +125,31 @@ __device__ __forceinline__ void taps_up(float p, int n_hi, int n_lo, float s,
   }
 }
 
+__device__ __forceinline__ float load_value(const float* p) {
+  return __ldg(p);
+}
+
+__device__ __forceinline__ float load_value(const __nv_bfloat16* p) {
+  const unsigned short u = __ldg(reinterpret_cast<const unsigned short*>(p));
+  return __uint_as_float((unsigned)u << 16);
+}
+
+// A column weight as the map's dtype holds it: f32 as it is, bf16 rounded
+// to nearest even.
+__device__ __forceinline__ float column_weight(float w, const float*) {
+  return w;
+}
+
+__device__ __forceinline__ float column_weight(float w,
+                                               const __nv_bfloat16*) {
+  return __bfloat162float(__float2bfloat16_rn(w));
+}
+
 // Up to CPT channels of one keypoint's T x T window (T = 2 on branch 0,
 // 3 on the others): every load first, then the sums. f points at the
 // window's top-left value of the first channel; plane is h * w.
-template <int T>
-__device__ __forceinline__ void sample_window(const float* __restrict__ f,
+template <int T, typename F>
+__device__ __forceinline__ void sample_window(const F* __restrict__ f,
                                               size_t plane, int w,
                                               int channels, const float* wr,
                                               const float* wc,
@@ -127,7 +163,7 @@ __device__ __forceinline__ void sample_window(const float* __restrict__ f,
 #pragma unroll
       for (int q = 0; q < T; ++q)
         v[cc][r][q] = (cc < channels && wr[r] != 0.0f && wc[q] != 0.0f)
-                          ? __ldg(f + cc * plane + r * w + q)
+                          ? load_value(f + cc * plane + r * w + q)
                           : 0.0f;
 #pragma unroll
   for (int cc = 0; cc < CPT; ++cc) {
@@ -145,7 +181,8 @@ __device__ __forceinline__ void sample_window(const float* __restrict__ f,
   }
 }
 
-// grid (ceil(K / KT), B), WARPS * 32 threads.
+// grid (ceil(K / KT), B), WARPS * 32 threads; F the maps' element type.
+template <typename F>
 __global__ void __launch_bounds__(WARPS * 32)
     sample_kernel(SampleArgs a, const float* __restrict__ px,
                   const float* __restrict__ py, float* __restrict__ out) {
@@ -175,7 +212,7 @@ __global__ void __launch_bounds__(WARPS * 32)
 #pragma unroll
       for (int r = 0; r < 3; ++r) {
         s_wr[i][r][lane] = wr[r];
-        s_wc[i][r][lane] = wc[r];
+        s_wc[i][r][lane] = column_weight(wc[r], (const F*)nullptr);
       }
     }
   }
@@ -196,7 +233,8 @@ __global__ void __launch_bounds__(WARPS * 32)
     }
     const int wi = a.w[i];
     const size_t plane = (size_t)a.h[i] * wi;
-    const float* fk = a.f[i] + (size_t)b * a.C * plane + s_off[i][lane];
+    const F* fk = static_cast<const F*>(a.f[i]) + (size_t)b * a.C * plane +
+                  s_off[i][lane];
     float* ok = out + ((size_t)b * a.nb + i) * a.C * a.K + k;
     for (int g = ((warp - i * groups) % WARPS + WARPS) % WARPS; g < groups;
          g += WARPS) {
@@ -216,17 +254,15 @@ extern "C" const char* kbt_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
-// feats: nb device pointers; hs/ws/sys/sxs: nb host values; px/py [B,K]
-// f32 full-resolution pixel coordinates; out [B, nb*C, K] f32.
-extern "C" int kbt_sample(const void* const* feats, const int* hs,
-                          const int* ws, const float* sys, const float* sxs,
-                          int nb, int C, int H, int W, const float* px,
-                          const float* py, float* out, int B, int K,
-                          void* stream) {
+template <typename F>
+static int sample(const void* const* feats, const int* hs, const int* ws,
+                  const float* sys, const float* sxs, int nb, int C, int H,
+                  int W, const float* px, const float* py, float* out, int B,
+                  int K, void* stream) {
   if (nb < 1 || nb > MAX_BRANCHES) return (int)cudaErrorInvalidValue;
   SampleArgs a;
   for (int i = 0; i < nb; ++i) {
-    a.f[i] = (const float*)feats[i];
+    a.f[i] = feats[i];
     a.h[i] = hs[i];
     a.w[i] = ws[i];
     a.sy[i] = sys[i];
@@ -238,7 +274,28 @@ extern "C" int kbt_sample(const void* const* feats, const int* hs,
   a.W = W;
   a.K = K;
   const dim3 grid((K + KT - 1) / KT, B);
-  sample_kernel<<<grid, WARPS * 32, 0, (cudaStream_t)stream>>>(a, px, py,
-                                                               out);
+  sample_kernel<F><<<grid, WARPS * 32, 0, (cudaStream_t)stream>>>(a, px, py,
+                                                                  out);
   return (int)cudaGetLastError();
+}
+
+// feats: nb device pointers to f32 maps; hs/ws/sys/sxs: nb host values;
+// px/py [B,K] f32 full-resolution pixel coordinates; out [B, nb*C, K] f32.
+extern "C" int kbt_sample(const void* const* feats, const int* hs,
+                          const int* ws, const float* sys, const float* sxs,
+                          int nb, int C, int H, int W, const float* px,
+                          const float* py, float* out, int B, int K,
+                          void* stream) {
+  return sample<float>(feats, hs, ws, sys, sxs, nb, C, H, W, px, py, out, B,
+                       K, stream);
+}
+
+// kbt_sample on bf16 maps (the column weights rounded to bf16); out f32.
+extern "C" int kbt_sample_bf16(const void* const* feats, const int* hs,
+                               const int* ws, const float* sys,
+                               const float* sxs, int nb, int C, int H, int W,
+                               const float* px, const float* py, float* out,
+                               int B, int K, void* stream) {
+  return sample<__nv_bfloat16>(feats, hs, ws, sys, sxs, nb, C, H, W, px, py,
+                               out, B, K, stream);
 }

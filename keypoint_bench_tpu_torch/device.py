@@ -7,7 +7,11 @@ the CPU on its own.
 Float32 parity: cuDNN convolutions default to TF32 on Hopper (about three
 decimal digits), which would break parity with the JAX reference's
 HIGHEST-precision f32 convs. Importing this module turns TF32 off for
-both convolutions and matmuls; a bf16 / TF32 mode is later work.
+both convolutions and matmuls.
+
+bf16 parity: cuBLAS may reduce a bf16 matrix product in bf16 (split-K
+partial sums) unless told not to; XLA accumulates bf16 products in f32,
+so importing this module also turns that reduced-precision reduction off.
 """
 from __future__ import annotations
 
@@ -15,6 +19,7 @@ import torch
 
 torch.backends.cudnn.allow_tf32 = False
 torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 
 def resolve_device(device: str | torch.device | None = "cuda") -> torch.device:

@@ -4,6 +4,13 @@ for the port's detector and descriptor models.
 These helpers work on NCHW tensors (torch's native conv layout); the model
 classes convert at their public boundary, which keeps the JAX package's
 NHWC layout. Parameter dicts hold torch-layout tensors (weights/convert.py).
+
+bf16 mode (`cast_params_bf16`) rounds where the JAX package rounds: a conv
+with bf16 weights casts its input to bf16 and stores its output in bf16
+(f32 accumulation), and an f32 bias is added after it, which promotes the
+activation to f32 as jnp's bf16 + f32 does; BatchNorm computes in f32 and
+stores back in its input's dtype; bilinear resizes of bf16 maps use bf16
+interpolation matrices.
 """
 from __future__ import annotations
 
@@ -55,11 +62,29 @@ def gray_mean(image: torch.Tensor, scale: float = 1.0) -> torch.Tensor:
     return total * np.float32(scale / image.shape[-1])
 
 
+def cast_params_bf16(params: dict) -> dict:
+    """bf16 mode's parameters (JAX `models/common.cast_params_bf16`): conv
+    and linear weights (rank >= 2) in bf16; BatchNorm statistics, biases
+    and other vectors stay f32."""
+    return {k: v.to(torch.bfloat16) if v.dim() >= 2 else v
+            for k, v in params.items()}
+
+
+def _with_bias(conv, x: torch.Tensor, w: torch.Tensor, b, *args):
+    """`conv` of x with w, in w's dtype (x is cast to it, as the JAX
+    package's conv2d does), then the bias. A bias of w's dtype goes into
+    the conv; an f32 bias of a bf16 conv is added after it in f32."""
+    x = x.to(w.dtype)
+    if b is None or b.dtype == w.dtype:
+        return conv(x, w, b, *args)
+    return conv(x, w, None, *args) + b[:, None, None]
+
+
 def conv2d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None,
            stride: int = 1, padding: int = 0, dilation: int = 1,
            groups: int = 1) -> torch.Tensor:
     """x [B,Ci,H,W], w [Co,Ci/groups,kh,kw] (OIHW)."""
-    return F.conv2d(x, w, b, stride, padding, dilation, groups)
+    return _with_bias(F.conv2d, x, w, b, stride, padding, dilation, groups)
 
 
 def conv_transpose2d(x: torch.Tensor, w: torch.Tensor,
@@ -67,21 +92,22 @@ def conv_transpose2d(x: torch.Tensor, w: torch.Tensor,
                      stride: int = 2) -> torch.Tensor:
     """nn.ConvTranspose2d(k, stride, padding=0): w is torch's own
     [I, O, kh, kw], which the converter's OIHW round trip gives back."""
-    return F.conv_transpose2d(x, w, b, stride)
+    return _with_bias(F.conv_transpose2d, x, w, b, stride)
 
 
 def bn_eval(x: torch.Tensor, gamma, beta, mean, var,
             eps: float = 1e-5) -> torch.Tensor:
     """BatchNorm inference transform, in the JAX package's operation order:
-    (x - mean) * rsqrt(var + eps) * gamma + beta, per channel of NCHW.
-    gamma and beta None: BatchNorm without affine (the JAX package's 1.0
-    and 0.0, whose product and sum change nothing)."""
+    (x - mean) * rsqrt(var + eps) * gamma + beta, per channel of NCHW, in
+    f32 and stored back in x's dtype. gamma and beta None: BatchNorm
+    without affine (the JAX package's 1.0 and 0.0, whose product and sum
+    change nothing)."""
     def c(v):
         return v[:, None, None]
-    y = (x - c(mean)) * c(torch.rsqrt(var + eps))
-    if gamma is None:
-        return y
-    return y * c(gamma) + c(beta)
+    y = (x.float() - c(mean)) * c(torch.rsqrt(var + eps))
+    if gamma is not None:
+        y = y * c(gamma) + c(beta)
+    return y.to(x.dtype)
 
 
 def instance_norm(x: torch.Tensor, gamma=None, beta=None,
@@ -117,12 +143,13 @@ def prelu(x: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
 
 
 def _depthwise(xp: torch.Tensor, k: np.ndarray) -> torch.Tensor:
-    """One [kh, kw] kernel applied to every channel of the padded NCHW
-    xp (a VALID cross-correlation)."""
+    """One f32 [kh, kw] kernel applied to every channel of the padded NCHW
+    xp (a VALID cross-correlation, in f32 as the JAX package's f32 kernel
+    makes it)."""
     c = xp.shape[1]
-    w = torch.from_numpy(np.ascontiguousarray(
-        np.broadcast_to(k, (c, 1, *k.shape)))).to(xp.device, xp.dtype)
-    return F.conv2d(xp, w, groups=c)
+    w = torch.from_numpy(np.array(np.broadcast_to(k, (c, 1, *k.shape)),
+                                  np.float32)).to(xp.device)
+    return F.conv2d(xp.float(), w, groups=c)
 
 
 _SOBEL_X = np.array([[-1, 0, 1], [-2, 0, 2], [-1, 0, 1]], np.float32) / 8.0
@@ -200,10 +227,12 @@ def _interp_matrix_half(n_out: int, n_in: int) -> np.ndarray:
 def _interp_apply(x: torch.Tensor, ah: np.ndarray,
                   aw: np.ndarray) -> torch.Tensor:
     """Two dense interpolation products over NCHW x, rows then columns,
-    as the JAX package computes a bilinear resize."""
-    y = torch.einsum("oh,bchw->bcow", torch.from_numpy(ah).to(x.device), x)
-    return torch.einsum("pw,bcow->bcop", torch.from_numpy(aw).to(x.device),
-                        y)
+    as the JAX package computes a bilinear resize: in x's dtype, with
+    bf16 matrices (and each product stored in bf16) for a bf16 x."""
+    def mat(a):
+        return torch.from_numpy(a).to(x.device, x.dtype)
+    y = torch.einsum("oh,bchw->bcow", mat(ah), x)
+    return torch.einsum("pw,bcow->bcop", mat(aw), y)
 
 
 def resize_bilinear_align(x: torch.Tensor, out_h: int,

@@ -15,6 +15,10 @@ it per shape with the kernel's own f32 arithmetic).
 The per-shape work of a launch (the shape checks, the f32 ratios, the
 ctypes arrays) is done once per shape and cached, so back-to-back calls
 cost little host time beside the kernel.
+
+bf16 branch features (bf16 mode) launch the kernel's bf16 instantiation,
+`KERNEL_BF16`, which rounds the column tap weights to bf16 as the TPU
+kernel does; every branch of a call has one dtype, and the output is f32.
 """
 from __future__ import annotations
 
@@ -29,14 +33,17 @@ from keypoint_bench_tpu_torch.ops._build import Kernel
 
 MAX_BRANCHES = 4
 _P, _I = ctypes.c_void_p, ctypes.c_int
-KERNEL = Kernel("sample", "kbt_sample",
-                [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _I, _I, _P])
+_ARGS = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _I, _I, _P]
+KERNEL = Kernel("sample", "kbt_sample", _ARGS)
+KERNEL_BF16 = Kernel("sample", "kbt_sample_bf16", _ARGS)
+_KERNELS = {torch.float32: KERNEL, torch.bfloat16: KERNEL_BF16}
 
 
 def fused_samples_batch(feats_b, px_b: torch.Tensor, py_b: torch.Tensor,
                         h: int, w: int) -> torch.Tensor:
-    """feats_b: tuple of channel-major [B,C,H_i,W_i] (branch 0 at h x w);
-    px_b/py_b [B,K] f32 pixel coordinates -> [B, sum C_i, K] f32."""
+    """feats_b: tuple of channel-major [B,C,H_i,W_i] f32 or bf16 (branch 0
+    at h x w); px_b/py_b [B,K] f32 pixel coordinates -> [B, sum C_i, K]
+    f32."""
     if not px_b.is_cuda:
         from keypoint_bench_tpu_torch.ops.sparse_desc import sample_branches
         return sample_branches(feats_b, px_b, py_b, h, w)
@@ -93,8 +100,12 @@ def launch_args(shapes, pshape, qshape, h: int, w: int):
 
 def sample_cuda(feats_b, px_b: torch.Tensor, py_b: torch.Tensor,
                 h: int, w: int) -> torch.Tensor:
-    """Launch kernel B once for the whole batch."""
-    KERNEL.function()   # builds, or raises, before any check
+    """Launch kernel B (its f32 or bf16 instantiation, by the branches'
+    dtype) once for the whole batch."""
+    kernel = _KERNELS.get(feats_b[0].dtype if feats_b else None)
+    if kernel is None:
+        raise ValueError("branch features must be float32 or bfloat16")
+    kernel.function()   # builds, or raises, before any check
     nb = len(feats_b)
     if not 1 <= nb <= MAX_BRANCHES:
         raise ValueError(f"1..{MAX_BRANCHES} branches, got {nb}")
@@ -102,8 +113,12 @@ def sample_cuda(feats_b, px_b: torch.Tensor, py_b: torch.Tensor,
     for t in (*feats_b, px_b, py_b):
         if not t.is_cuda or t.device != dev:
             raise ValueError("all inputs must be CUDA tensors on one device")
-        if t.dtype != torch.float32 or not t.is_contiguous():
-            raise ValueError("inputs must be contiguous float32")
+        if not t.is_contiguous():
+            raise ValueError("inputs must be contiguous")
+    if any(f.dtype != feats_b[0].dtype for f in feats_b) or (
+            px_b.dtype != torch.float32 or py_b.dtype != torch.float32):
+        raise ValueError("branch features of one dtype and float32 "
+                         "coordinates expected")
     b, k, c, hs, ws, sy, sx = launch_args(
         tuple(f.shape for f in feats_b), px_b.shape, py_b.shape, h, w)
     out = torch.empty((b, nb * c, k), dtype=torch.float32, device=dev)
@@ -115,7 +130,7 @@ def sample_cuda(feats_b, px_b: torch.Tensor, py_b: torch.Tensor,
               if dev.index == torch.cuda.current_device()
               else torch.cuda.device(dev))
     with on_dev:
-        KERNEL.launch(1, ptrs, hs, ws, sy, sx, nb, c, h, w, px_b.data_ptr(),
+        kernel.launch(1, ptrs, hs, ws, sy, sx, nb, c, h, w, px_b.data_ptr(),
                       py_b.data_ptr(), out.data_ptr(), b, k,
                       torch.cuda.current_stream().cuda_stream)
     return out

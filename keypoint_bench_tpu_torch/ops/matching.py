@@ -4,6 +4,13 @@ neighbours (counterpart of keypoint_bench_tpu/ops/matching.py).
 Fixed-K descriptors with validity masks; invalid rows and columns are
 pushed to 1e30 so they never match. Every function takes optional leading
 batch dimensions.
+
+bf16 descriptors (bf16 mode's sparse path, bench.py's bf16 match) are
+matched as the JAX package's `pairwise_sqdist` matches them: f32 norms of
+the bf16 values and their products accumulated in f32 (exact products),
+here the f32 arithmetic on the upcast values. The upcast is exact, so
+kernel D takes them through its f32 path with the validity penalty kept
+in f32.
 """
 from __future__ import annotations
 
@@ -19,7 +26,8 @@ _PEN = 1e8  # kernel D: penalty per invalid endpoint, via a sqrt feature
 
 def pairwise_sqdist(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """[..., M, D] x [..., N, D] -> [..., M, N] squared euclidean
-    distances, |a|^2 + |b|^2 - 2ab in f32 (TF32 off, device.py)."""
+    distances, |a|^2 + |b|^2 - 2ab in f32 (TF32 off, device.py); bf16
+    inputs are upcast, which keeps every product exact."""
     a = a.float()
     b = b.float()
     a2 = (a * a).sum(-1, keepdim=True)
@@ -87,7 +95,8 @@ def mutual_nn_fused(desc0: torch.Tensor, desc1: torch.Tensor,
     pallas_match.pallas_mutual_nn): an appended sqrt(_PEN) feature on
     invalid rows and columns keeps them out of every valid minimum; the
     penalties come off the winning distance before the cut-off. CUDA
-    tensors launch kernel D, CPU tensors take `nn_dists`."""
+    tensors launch kernel D, CPU tensors take `nn_dists`; bf16
+    descriptors are upcast first (exact)."""
     from keypoint_bench_tpu_torch.ops.cuda_match import nearest_neighbours
     a, pen0 = penalized(desc0, valid0)
     b, pen1 = penalized(desc1, valid1)

@@ -13,6 +13,15 @@ two low-resolution entries, so one axis touches at most 4 consecutive
 low-resolution rows (`_axis_taps_up`). The gathers here are the plain
 version of kernel B (ops/cuda_sample.py), which the batched channel-major
 entry points launch on CUDA tensors.
+
+bf16 branch features round where the JAX package rounds. The batched
+channel-major sampler is kernel B's semantics (JAX `pallas_sample._kernel`
+and `_sorted_kernel`): column tap weights rounded to bf16, row weights,
+sums and output f32. The per-map samplers `sample_direct` /
+`sample_upsampled` are JAX's "mm" sampler on bf16 maps
+(`_apply_weight_mats`): row and column weights rounded to bf16, the row
+contraction stored in bf16, the column contraction f32. The aggregation
+head stays f32 on both.
 """
 from __future__ import annotations
 
@@ -31,6 +40,11 @@ ROWS0 = 80
 
 def _onehot4(idx: torch.Tensor) -> torch.Tensor:
     return (idx[..., None] == torch.arange(4, device=idx.device)).float()
+
+
+def _bf16(w: torch.Tensor) -> torch.Tensor:
+    """f32 weights rounded to bf16 (to nearest even), held in f32."""
+    return w.to(torch.bfloat16).float()
 
 
 def _axis_taps_up(p: torch.Tensor, n_hi: int, n_lo: int):
@@ -69,18 +83,70 @@ def _axis_taps_direct(p: torch.Tensor, n: int):
     return y0, torch.stack([1.0 - dy, dy], dim=-1)
 
 
+def _axis_taps_merged(p: torch.Tensor, n_hi: int, n_lo: int):
+    """Kernel B's composite taps along one axis (csrc/sample.cu `taps_up`):
+    the taps la, la+1, lb, lb+1 with lb == la or la + 1 merged onto rows
+    la..la+2 of the low-resolution axis (n_lo >= 2). Returns (la [...]
+    long, w [..., 3]), each weight equal to `_axis_taps_up`'s in f32."""
+    y0f = torch.floor(p)
+    dy = p - y0f
+    y0 = y0f.long()
+    s = (n_lo - 1.0) / (n_hi - 1.0)
+
+    def lo_frac(y):
+        src = y.float() * s
+        lo = torch.clamp(torch.floor(src).long(), 0, n_lo - 2)
+        return lo, src - lo
+
+    la, fa = lo_frac(y0)
+    lb, fb = lo_frac(torch.clamp_max(y0, n_hi - 2) + 1)
+    a0, a1 = (1.0 - dy) * (1.0 - fa), (1.0 - dy) * fa
+    b0, b1 = dy * (1.0 - fb), dy * fb
+    three = lb == la + 1
+    return la, torch.stack([torch.where(three, a0, a0 + b0),
+                            torch.where(three, a1 + b0, a1 + b1),
+                            torch.where(three, b1, torch.zeros_like(b1))],
+                           -1)
+
+
+def _patches(f: torch.Tensor, rbase, cbase, t: int) -> torch.Tensor:
+    """The [B,C,K,T,T] f32 windows of f [B,C,h,w] at rows rbase.. and
+    columns cbase.. [B,K]; a row or column past the map (a merged tap of
+    weight 0) reads the last one."""
+    b, c, h, w = f.shape
+    k = rbase.shape[1]
+    ar = torch.arange(t, device=f.device)
+    idx = ((rbase[..., None] + ar).clamp_max(h - 1)[..., :, None] * w
+           + (cbase[..., None] + ar).clamp_max(w - 1)[..., None, :])
+    patch = f.reshape(b, c, h * w).gather(
+        2, idx.reshape(b, 1, k * t * t).expand(b, c, k * t * t))
+    return patch.reshape(b, c, k, t, t).float()
+
+
 def _sample_cm(f: torch.Tensor, rbase, wr, cbase, wc) -> torch.Tensor:
     """Patch gather + tap contraction. f [B,C,h,w] channel-major; rbase/
     cbase [B,K]; wr/wc [B,K,T] -> [B,C,K] f32."""
-    b, c, h, w = f.shape
-    k, t = rbase.shape[1], wr.shape[-1]
-    ar = torch.arange(t, device=f.device)
-    idx = ((rbase[..., None] + ar)[..., :, None] * w
-           + (cbase[..., None] + ar)[..., None, :])               # [B,K,T,T]
-    patch = f.reshape(b, c, h * w).gather(
-        2, idx.reshape(b, 1, k * t * t).expand(b, c, k * t * t))
     return torch.einsum("bka,bkq,bckaq->bck", wr, wc,
-                        patch.reshape(b, c, k, t, t).float())
+                        _patches(f, rbase, cbase, wr.shape[-1]))
+
+
+def _sample_mm(f: torch.Tensor, rbase, wr, cbase, wc) -> torch.Tensor:
+    """`_sample_cm` as JAX's "mm" sampler computes it on a bf16 map
+    (`_apply_weight_mats`): weights rounded to bf16, the row contraction
+    stored in bf16, the column contraction f32 -> [B,C,K] f32."""
+    patch = _patches(f, rbase, cbase, wr.shape[-1])
+    t = torch.einsum("bka,bckaq->bckq", _bf16(wr), patch)
+    return torch.einsum("bkq,bckq->bck", _bf16(wc),
+                        t.to(torch.bfloat16).float())
+
+
+def _per_map(feat: torch.Tensor, rbase, wr, cbase, wc) -> torch.Tensor:
+    """One NHWC map [h,w,C] sampled at [K] taps -> [K,C] f32: the mm
+    sampler's rounding for a bf16 map, f32 otherwise."""
+    sample = _sample_mm if feat.dtype == torch.bfloat16 else _sample_cm
+    out = sample(feat.permute(2, 0, 1)[None], rbase[None], wr[None],
+                 cbase[None], wc[None])
+    return out[0].T
 
 
 def sample_direct(feat: torch.Tensor, px: torch.Tensor,
@@ -89,9 +155,7 @@ def sample_direct(feat: torch.Tensor, px: torch.Tensor,
     [K,C] (sample_bilinear_pixels for in-bounds points)."""
     rbase, wr = _axis_taps_direct(py, feat.shape[0])
     cbase, wc = _axis_taps_direct(px, feat.shape[1])
-    out = _sample_cm(feat.permute(2, 0, 1)[None], rbase[None], wr[None],
-                     cbase[None], wc[None])
-    return out[0].T
+    return _per_map(feat, rbase, wr, cbase, wc)
 
 
 def sample_upsampled(feat: torch.Tensor, px: torch.Tensor, py: torch.Tensor,
@@ -106,9 +170,7 @@ def sample_upsampled(feat: torch.Tensor, px: torch.Tensor, py: torch.Tensor,
         return sample_bilinear_pixels(up, px, py)
     rbase, wr = _axis_taps_up(py, h_hi, h_lo)
     cbase, wc = _axis_taps_up(px, w_hi, w_lo)
-    out = _sample_cm(feat.permute(2, 0, 1)[None], rbase[None], wr[None],
-                     cbase[None], wc[None])
-    return out[0].T
+    return _per_map(feat, rbase, wr, cbase, wc)
 
 
 def sample_branches(feats_b, px_b: torch.Tensor, py_b: torch.Tensor,
@@ -116,6 +178,8 @@ def sample_branches(feats_b, px_b: torch.Tensor, py_b: torch.Tensor,
     """Plain version of kernel B: feats_b tuple of channel-major
     [B,C,H_i,W_i] (branch 0 at full res h x w); px_b/py_b [B,K] pixel
     coords -> branch-stacked samples [B, sum C_i, K] f32."""
+    if feats_b[0].dtype == torch.bfloat16:
+        return _sample_branches_bf16(feats_b, px_b, py_b, h, w)
     outs = []
     for i, f in enumerate(feats_b):
         h_lo, w_lo = f.shape[-2], f.shape[-1]
@@ -134,10 +198,28 @@ def sample_branches(feats_b, px_b: torch.Tensor, py_b: torch.Tensor,
     return torch.cat(outs, dim=1)
 
 
+def _sample_branches_bf16(feats_b, px_b: torch.Tensor, py_b: torch.Tensor,
+                          h: int, w: int) -> torch.Tensor:
+    """`sample_branches` on bf16 maps, as kernel B's bf16 instantiation
+    computes it: the merged windows of every branch (2- and 3-row maps
+    too), the column weights rounded to bf16, f32 sums."""
+    outs = []
+    for i, f in enumerate(feats_b):
+        if i == 0:
+            rb, wr = _axis_taps_direct(py_b, f.shape[-2])
+            cb, wc = _axis_taps_direct(px_b, f.shape[-1])
+        else:
+            rb, wr = _axis_taps_merged(py_b, h, f.shape[-2])
+            cb, wc = _axis_taps_merged(px_b, w, f.shape[-1])
+        outs.append(_sample_cm(f, rb, wr, cb, _bf16(wc)))
+    return torch.cat(outs, dim=1)
+
+
 def _apply_head(params: dict, o: torch.Tensor) -> torch.Tensor:
     """Branch-stacked samples [..., 64, K] -> descriptors [..., K, 64]
-    through the aggregation head's descriptor rows."""
-    wd = params["convhead2.weight"][:-1, :, 0, 0]                 # [64, 64]
+    through the aggregation head's descriptor rows, in f32 (bf16 mode's
+    head weights are upcast)."""
+    wd = params["convhead2.weight"][:-1, :, 0, 0].float()         # [64, 64]
     desc = torch.einsum("...qk,dq->...kd", o, wd)
     bh = params.get("convhead2.bias")
     if bh is not None:
@@ -153,7 +235,7 @@ def alike_sparse_descriptors(params: dict, feats, kpts: torch.Tensor,
     a1, a2, a3, a4 = feats
     px = kpts[:, 0] * (w - 1.0)
     py = kpts[:, 1] * (h - 1.0)
-    wd = params["convhead2.weight"][:-1, :, 0, 0]
+    wd = params["convhead2.weight"][:-1, :, 0, 0].float()
     per = a2.shape[-1]
     samples = [sample_direct(a1, px, py)] + [
         sample_upsampled(a, px, py, h, w) for a in (a2, a3, a4)]

@@ -41,6 +41,14 @@ sparse descriptors) -> shift-by-one pairing -> mutual_nn_match over all
 pairs at once (kernel D) -> vo_pair_pose (essential RANSAC +
 recoverPose) over all pairs -> chain_poses on the host; with ba_refine,
 the world-to-camera chain -> chain_tracks -> refine_window (LM / Schur).
+
+Every step runs in its model's precision, read from the weights: float32,
+or bfloat16 (bench.py's default, `KBT_BENCH_PRECISION`) for weights from
+`load_params(..., precision="bfloat16")`; the step casts no weights. In
+bf16 the forwards run on bf16 weights (models/common.py) and
+`extract_match` matches bf16 descriptors, as bench.py:616-618 does; every
+other step matches the descriptors the reference's step matches, sampled
+in f32. LightGlue's params stay f32 in both modes, as in the JAX runner.
 """
 from __future__ import annotations
 
@@ -69,19 +77,34 @@ from keypoint_bench_tpu_torch.tasks.vo_ba import (chain_tracks, chain_w2c,
                                                   refine_window)
 
 MATCHERS = ("brute_force", "light_glue")
+_PRECISIONS = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
 
 
-def _check_weights(params: dict, dev: torch.device):
-    """Raise unless the tensors of `params` are on `dev` (a model
-    configured by `model_params`, such as Harris, holds none)."""
+def _check_weights(params: dict, dev: torch.device) -> str:
+    """The precision of `params`: "bfloat16" where its weights (rank >= 2)
+    are bf16, else "float32" (a model configured by `model_params`, such
+    as Harris, holds none). Raises unless its tensors are on `dev` and its
+    weights all in one of the two dtypes."""
     tensors = [v for v in params.values() if isinstance(v, torch.Tensor)]
     if not tensors:
-        return
+        return "float32"
     w_dev = tensors[0].device
     if w_dev.type != dev.type or (dev.index is not None
                                   and w_dev.index != dev.index):
         raise ValueError(f"params are on {w_dev}, the step runs on {dev}: "
                          f"load them with load_params(..., device=)")
+    dtypes = {v.dtype for v in tensors if v.dim() >= 2}
+    if len(dtypes) > 1 or not dtypes <= _PRECISIONS.keys():
+        raise ValueError(f"a step takes weights all in float32 or all in "
+                         f"bfloat16, got {sorted(map(str, dtypes))}: load "
+                         f"them with load_params(..., precision=)")
+    return _PRECISIONS[dtypes.pop()] if dtypes else "float32"
+
+
+def _check_lightglue(params: dict, dev: torch.device):
+    """LightGlue's params stay f32 in both modes, as in the JAX runner."""
+    if _check_weights(params, dev) != "float32":
+        raise ValueError("LightGlue's params stay float32")
 
 
 def extract(model, params: dict, imgs: torch.Tensor, dp: DetectParams):
@@ -103,13 +126,17 @@ def extract_match(model, params: dict, imgs0, imgs1,
     0-d tensor, k0 [B,K,3], m1 [B,K,3]): k0 in the sampler's y order, m1 the
     keypoints of imgs1 that each row of k0 matched (rows of unmatched
     keypoints are padding). The model and params must already be on
-    `device` (`load_params(..., device=)`): the step moves no weights."""
+    `device` (`load_params(..., device=)`): the step moves and casts no
+    weights. With bf16 weights the f32 descriptors are rounded to bf16
+    for the match (bench.py:616-618)."""
     dev = resolve_device(device)
-    _check_weights(params, dev)
+    precision = _check_weights(params, dev)
     imgs0 = torch.as_tensor(imgs0, device=dev)
     imgs1 = torch.as_tensor(imgs1, device=dev)
     d0, k0, v0 = extract(model, params, imgs0, detect_params)
     d1, k1, v1 = extract(model, params, imgs1, detect_params)
+    if precision == "bfloat16":
+        d0, d1 = d0.to(torch.bfloat16), d1.to(torch.bfloat16)
     nn01, ok = mutual_nn_match(d0, d1, v0, v1, max_distance)
     return ok.sum(), k0, take_rows(k1, nn01)
 
@@ -145,8 +172,9 @@ def dense_extract_match(model, imgs0, imgs1, detect_params: DetectParams,
     multiples of 32) -> (n_matches 0-d tensor, k0 [B,K,3], m1 [B,K,3]), as
     `extract_match` returns them: m1 holds the keypoints of imgs1 that
     each row of k0 matched (rows of unmatched keypoints are padding).
-    Descriptors are sampled from the model's dense map at the keypoints;
-    a detector-only model raises ValueError (time it with
+    Descriptors are sampled in f32 from the model's dense map at the
+    keypoints (of a bf16 map too, as bench.py's dense pair step samples
+    them); a detector-only model raises ValueError (time it with
     `dense_detect`)."""
     k0, v0, dm0 = dense_detect(model, imgs0, detect_params, device)
     if dm0 is None:
@@ -202,12 +230,12 @@ def superpoint_mha_step(model, imgs0, imgs1, Hs, Hinvs,
     """B homography pairs imgs0/imgs1 [B,S,S,3] (float in [0,1] or uint8)
     with Hs / Hinvs [B,3,3] -> (hits [B, len(thresholds)], m_kpts0 [B,K,3],
     m_kpts1 [B,K,3], ok [B,K]). RANSAC's minimal samples come from
-    `generator` (on `device`). The model, and LightGlue's params for
+    `generator` (on `device`). The model, and LightGlue's f32 params for
     matcher="light_glue", must already be on `device`."""
     dev = resolve_device(device)
     _check_weights(model.params, dev)
     if matcher == "light_glue":
-        _check_weights(lightglue_params, dev)
+        _check_lightglue(lightglue_params, dev)
     imgs0 = torch.as_tensor(imgs0, device=dev)
     imgs1 = torch.as_tensor(imgs1, device=dev)
     Hs = torch.as_tensor(Hs, dtype=torch.float32, device=dev)
@@ -263,11 +291,12 @@ def xfeat_auc_step(model, lightglue_params: dict, imgs0, imgs1, Ks,
     ground-truth poses01 [B,4,4] -> (errors [B] in degrees, 180 where
     the pose failed; n_inliers [B]; k0, k1 [B,K,3]; m0 [B,K]; match_mask
     [B,K]). RANSAC's minimal samples come from `generator` (on `device`),
-    or are given as `samples` [B, n_hyp, 8]. The model and LightGlue's
-    params (with `input_proj`) must already be on `device`."""
+    or are given as `samples` [B, n_hyp, 8]. The model, and
+    LightGlue's f32 params (with `input_proj`), must already be on
+    `device`. The descriptor maps go to LightGlue in f32 (bench.py:284)."""
     dev = resolve_device(device)
     _check_weights(model.params, dev)
-    _check_weights(lightglue_params, dev)
+    _check_lightglue(lightglue_params, dev)
     imgs0 = torch.as_tensor(imgs0, device=dev)
     imgs1 = torch.as_tensor(imgs1, device=dev)
     Ks = torch.as_tensor(Ks, dtype=torch.float32, device=dev)
@@ -280,8 +309,8 @@ def xfeat_auc_step(model, lightglue_params: dict, imgs0, imgs1, Ks,
     scale = torch.tensor([w - 1.0, h - 1.0], device=dev)
     p0, p1 = k0[..., 0:2] * scale, k1[..., 0:2] * scale
     m0, _, ok = lightglue_forward(
-        lightglue_params, p0, v0, sample_descriptors_lg(p0, dm0, 8), p1, v1,
-        sample_descriptors_lg(p1, dm1, 8))
+        lightglue_params, p0, v0, sample_descriptors_lg(p0, dm0.float(), 8),
+        p1, v1, sample_descriptors_lg(p1, dm1.float(), 8))
     mp1 = take_rows(p1, m0.clamp_min(0))
     mask = ok & v0
     R, t, _, n_in, okp = estimate_pose_pair(p0, mp1, mask, Ks, Ks,
@@ -336,7 +365,9 @@ def vo_step(model, frames, K, scales, detect_params: DetectParams,
     ALIKE's sparse ones with `sparse` (the model must have `feats`), else
     sampled from the dense map. RANSAC's minimal samples come from
     `generator` (on `device`), or are given as `samples` [T, n_hyp, 8].
-    The model must already be on `device`.
+    The model must already be on `device`; the f32 descriptors are
+    matched in f32 in both precisions, as the JAX runner's
+    `_run_vo_pipelined` matches them.
 
     Returns a dict: the relative poses `R_rel` [T,3,3], `t_rel` [T,3],
     `n_inliers` [T], `ok` [T]; the detections `kpts` [T,K,3], `valid`

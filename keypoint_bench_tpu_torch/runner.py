@@ -12,8 +12,12 @@ optical_flow_cv matchers (`_match`), for every model of the registry:
 Harris, ORB and SIFT take `model_params`, and LETNet / GoodPoint track on
 their descriptor maps. Detector-only models (KeyNet, Harris, ORB, SIFT)
 raise ValueError on every step that needs descriptors, where the JAX
-runner fails. Other tasks, adaptive LightGlue, the five-point solver,
-save_images, the resume journal, bf16, debug_nans, the distributed BA
+runner fails. `precision: bfloat16` casts the model's weights
+(`models.common.cast_params_bf16`) as the JAX runner does; LightGlue's
+stay f32, and every path matches the descriptors the JAX runner's
+per-pair and pipelined paths match (its bf16 `match_dtype` serves only
+the sharded batch paths). Other tasks, adaptive LightGlue, the five-point
+solver, save_images, the resume journal, debug_nans, the distributed BA
 (`task_params.ba_distributed`) and the sharded batch paths (brute-force
 MHA and AUC, repeatability) raise NotImplementedError (ROADMAP.md).
 """
@@ -50,6 +54,7 @@ from keypoint_bench_tpu_torch.tasks.repeatability import repeatability_pair
 from keypoint_bench_tpu_torch.tasks.vo import (chain_poses, vo_pair_pose,
                                                write_kitti_trajectory)
 from keypoint_bench_tpu_torch.weights import load_params
+from keypoint_bench_tpu_torch.weights.io import check_precision
 
 
 def _crop32(img: np.ndarray) -> np.ndarray:
@@ -110,8 +115,7 @@ class Evaluator:
     def __init__(self, cfg: EvalConfig, device: str | torch.device = "cuda"):
         self.cfg = cfg
         self.device = resolve_device(device)
-        if cfg.precision != "float32":
-            raise _not_ported(f"precision {cfg.precision!r}")
+        check_precision(cfg.precision)
         if cfg.resume:
             raise _not_ported("resume")
         if cfg.debug_nans:
@@ -120,7 +124,7 @@ class Evaluator:
             self.params = dict(cfg.model_params or {})
         else:
             self.params = load_params(cfg.model_type, cfg.weights_dir,
-                                      self.device)
+                                      self.device, cfg.precision)
         self.model = get_model(cfg.model_type)(self.params).eval()
         ep = cfg.extractor_params
         self.detect_params = DetectParams(

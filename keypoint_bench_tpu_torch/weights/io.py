@@ -46,10 +46,28 @@ def load_npz(name: str, weights_dir: str | None = None) -> dict:
         return {k: data[k] for k in data.files}
 
 
+PRECISIONS = ("float32", "bfloat16")
+
+
+def check_precision(precision: str) -> str:
+    """`precision` if the port runs it; ValueError otherwise."""
+    if precision not in PRECISIONS:
+        raise ValueError(f"precision must be one of {PRECISIONS}, got "
+                         f"{precision!r}")
+    return precision
+
+
 def load_params(name: str, weights_dir: str | None = None,
-                device: str | torch.device = "cpu") -> dict:
-    """Torch-layout parameters of model `name` as float32 tensors."""
-    return params_from_jax(load_npz(name, weights_dir), device)
+                device: str | torch.device = "cpu",
+                precision: str = "float32") -> dict:
+    """Torch-layout parameters of model `name`: float32 tensors, or with
+    precision="bfloat16" the weights of rank >= 2 in bf16
+    (`models.common.cast_params_bf16`)."""
+    params = params_from_jax(load_npz(name, weights_dir), device)
+    if check_precision(precision) == "bfloat16":
+        from keypoint_bench_tpu_torch.models.common import cast_params_bf16
+        params = cast_params_bf16(params)
+    return params
 
 
 def golden_npz(name: str) -> dict:

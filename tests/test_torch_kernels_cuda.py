@@ -25,6 +25,11 @@ valid keypoints, and where the matches are equal the positions within
 on one problem: the mean error within 1e-3 px in float32 and 1e-6 px in
 float64, poses within 1e-3 and 1e-6 after the free scale about camera 0
 (`chip_smoke.gauge_gap`).
+
+bf16 mode: kernel B's bf16 instantiation within 1e-5 of the largest
+output of the plain bf16 sampler (the same rounded column weights, f32
+sums in another order); bf16 descriptors reach kernel D upcast, as the
+CPU path takes them.
 """
 import os
 import runpy
@@ -267,6 +272,62 @@ def test_sample_kernel_rejects_bad_input(dev):
                                    py[:, :0].contiguous(), h, w).numel() == 0
 
 
+@pytest.mark.parametrize("order", ["original", "sorted"])
+@pytest.mark.parametrize("b,k", [(1, 1), (2, 300), (16, 1000)])
+def test_sample_kernel_bf16_matches_plain(dev, b, k, order):
+    """The bf16 instantiation on bf16 branch maps of a 512^2 image (the
+    main path's) and of a 64^2 one (2-row last branch)."""
+    for size in (512, 64):
+        feats, px, py, h, w = _main_path_case(dev, b, k, order, k + b)
+        if size == 64:
+            feats = tuple(f[..., :n, :n].contiguous()
+                          for f, n in zip(feats, (64, 32, 8, 2)))
+            px, py, h, w = px / 8, py / 8, 64, 64
+        feats = tuple(f.to(torch.bfloat16) for f in feats)
+        before = (cuda_sample.KERNEL.launches,
+                  cuda_sample.KERNEL_BF16.launches)
+        got = cuda_sample.fused_samples_batch(feats, px, py, h, w)
+        assert (cuda_sample.KERNEL.launches,
+                cuda_sample.KERNEL_BF16.launches) == (before[0],
+                                                      before[1] + 1)
+        want = sample_branches(tuple(f.cpu() for f in feats), px.cpu(),
+                               py.cpu(), h, w)
+        assert got.dtype == torch.float32 and got.shape == (b, 64, k)
+        top = max(float(want.abs().max()), 1e-30)
+        assert float((got.cpu() - want).abs().max()) <= 1e-5 * top
+
+
+@pytest.mark.parametrize("b", [1, 16])
+def test_sample_kernel_bf16_on_pixel_centred_points(dev, b):
+    """Detected keypoints sit at pixel centres, x = (col + 0.5) / W, which
+    puts many merged tap weights on bf16 rounding midpoints: one f32 ulp
+    in the tap arithmetic (an FMA contraction) then rounds a column
+    weight the other way. Every column and row of a 512^2 map."""
+    feats, _, _, h, w = _main_path_case(dev, b, 1, "original", b)
+    feats = tuple(f.to(torch.bfloat16) for f in feats)
+    grid = (torch.arange(512, device=dev, dtype=torch.float32) + 0.5) / 512
+    k = 1024
+    cols = grid[torch.arange(k, device=dev) % 512]
+    rows = grid[(torch.arange(k, device=dev) * 7) % 512]
+    px = (cols * (w - 1.0)).expand(b, k).contiguous()
+    py = (rows * (h - 1.0)).expand(b, k).contiguous()
+    got = cuda_sample.sample_cuda(feats, px, py, h, w)
+    want = sample_branches(tuple(f.cpu() for f in feats), px.cpu(),
+                           py.cpu(), h, w)
+    top = float(want.abs().max())
+    assert float((got.cpu() - want).abs().max()) <= 1e-5 * top
+
+
+def test_sample_kernel_bf16_rejects_mixed_dtypes(dev):
+    feats, px, py, h, w = _sample_case(dev, 1, 10, 0)
+    mixed = (feats[0].to(torch.bfloat16),) + feats[1:]
+    with pytest.raises(ValueError, match="one dtype"):
+        cuda_sample.sample_cuda(mixed, px, py, h, w)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        cuda_sample.sample_cuda(tuple(f.half() for f in feats), px, py, h,
+                                w)
+
+
 def test_detection_on_card_matches_cpu_and_counts_launches(dev):
     maps = _maps("smooth", (2, 128, 128), 3)
     dp = DetectParams(nms_dist=6, border_dist=8, top_k=300)
@@ -418,6 +479,21 @@ def test_mutual_nn_match_on_card_launches_kernel_d(dev):
     assert cuda_match.KERNEL.launches == before + 2
     nn_c, ok_c = mutual_nn_fused(*(x.cpu() for x in (*desc, *valid)), 3.0)
     # an invalid row's neighbour is rounding noise at the 1e8 penalty
+    v0 = valid[0].cpu()
+    assert torch.equal(nn.cpu()[v0], nn_c[v0]) and torch.equal(ok.cpu(),
+                                                                ok_c)
+
+
+def test_mutual_nn_match_bf16_on_card_launches_kernel_d(dev):
+    rng = np.random.default_rng(1)
+    desc = [torch.from_numpy(rng.integers(-3, 4, (2, 300, 64)).astype(
+        np.float32)).to(dev).to(torch.bfloat16) for _ in range(2)]
+    valid = [torch.from_numpy(rng.random((2, 300)) > 0.2).to(dev)
+             for _ in range(2)]
+    before = cuda_match.KERNEL.launches
+    nn, ok = mutual_nn_match(desc[0], desc[1], valid[0], valid[1], 3.0)
+    assert cuda_match.KERNEL.launches == before + 2
+    nn_c, ok_c = mutual_nn_fused(*(x.cpu() for x in (*desc, *valid)), 3.0)
     v0 = valid[0].cpu()
     assert torch.equal(nn.cpu()[v0], nn_c[v0]) and torch.equal(ok.cpu(),
                                                                 ok_c)

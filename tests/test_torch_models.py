@@ -19,6 +19,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from keypoint_bench_tpu.models import common as jc
 from keypoint_bench_tpu.models import get_model as jax_get_model
@@ -256,3 +257,45 @@ def test_uint8_input_is_scaled():
             su, _ = m(torch.from_numpy(img))
             sf, _ = m(torch.from_numpy(img.astype(np.float32) / 255.0))
         assert torch.equal(su, sf)
+
+
+def _im2col_conv2d(x, w, b=None, stride=1, padding=0, dilation=1, groups=1):
+    """F.conv2d (groups 1) as unfold + matmul: another summation order."""
+    n, _, h, wd = x.shape
+    cols = F.unfold(x, w.shape[-2:], dilation, padding, stride)
+    oh = (h + 2 * padding - dilation * (w.shape[-2] - 1) - 1) // stride + 1
+    y = (w.reshape(w.shape[0], -1) @ cols).reshape(n, w.shape[0], oh, -1)
+    return y if b is None else y + b[:, None, None]
+
+
+@pytest.mark.parametrize("order", ["threads-1", "threads-2", "onednn-off",
+                                   "im2col"])
+def test_d2net_score_spread_over_summation_orders(monkeypatch, order):
+    """D2Net's score in f32 under other conv summation orders (torch
+    threads, oneDNN off, an unfold + matmul conv) against its float64
+    forward, on test_forward_matches_jax's 64x64 input: within 1e-5 of
+    the largest score (5.1e-7 to 8.5e-7 seen), under that test's rtol.
+    Soft detection's channel-max ratio has no 0/0 there: every pixel's
+    largest relu'd conv4_3 feature is far above 0 (6.9e8 seen)."""
+    p = params_from_jax(golden_npz("D2Net"))
+    img = torch.from_numpy(np.random.default_rng(0).random((1, 64, 64, 3),
+                                                           np.float32))
+    model = get_model("D2Net")
+    with torch.no_grad():
+        s64 = model({k: v.double() for k, v in p.items()})(img.double())[0]
+    threads = torch.get_num_threads()
+    if order.startswith("threads-"):
+        torch.set_num_threads(int(order[-1]))
+    elif order == "onednn-off":
+        monkeypatch.setattr(torch.backends.mkldnn, "enabled", False)
+    else:
+        monkeypatch.setattr(F, "conv2d", _im2col_conv2d)
+    try:
+        with torch.no_grad():
+            s = model(p)(img)[0]
+            feat = model(p).features(img)
+    finally:
+        torch.set_num_threads(threads)
+    top = float(s64.abs().max())
+    assert float((s.double() - s64).abs().max()) <= 1e-5 * top
+    assert float(feat.clamp_min(0).amax(1).min()) > 1e3

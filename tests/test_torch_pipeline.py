@@ -137,7 +137,6 @@ def test_runner_normalizes_uint8(tmp_path):
         "task_params": {"solver": "5pt"},
         "data_params": {"type": "synthetic_se3", "num_pairs": 1,
                         "image_size": 64}}, id="task_type-AUC"),
-    pytest.param("precision", "bfloat16", {}, id="precision-bfloat16"),
     pytest.param("resume", True, {}, id="resume-True")])
 def test_unported_options_raise(tmp_path, field, value, extra):
     cfg = {**_config(tmp_path, "x"), field: value, **extra}
