@@ -211,15 +211,64 @@ Phases, each fatal on failure:
      bfloat16 set in code: equal to its plain-twin run and within 0.02 /
      0.05 of phase 6's f32 run;
  32. an `xfeat_auc_step` JSON line, a `vo_step` JSON line, a
-     `dense_extract_match` JSON line, a `bf16` JSON line, the card's name
-     and power limit, a `kernels` JSON line and, last, the device JSON
-     line.
+     `dense_extract_match` JSON line, a `bf16` JSON line, a `file_backed`
+     JSON line, the card's name and power limit, a `kernels` JSON line
+     and, last, the device JSON line (after phases 33-40).
+The file-backed datasets (`file_phases`), before phase 32's lines; each
+writes its tree in a temporary directory (PNGs with this script's own
+zlib encoder, `png_bytes`, every row filter in turn) and runs a shipped
+config on it through the port's CLI, with launch counts reset just before
+and read just after, against its plain-twin run, then run again warm
+for its time a pair and the share of it its dataset's loads took:
+ 33. the native loader (runtime/loader.cpp, built with g++): P5 and P6
+     files with comment lines and odd sizes through `load_pnm_resized`
+     and `NativePrefetcher`, against the numpy decode + `resize_linear`
+     within `loader_tol`; images/s at 512^2 from 700 x 1000 PPMs;
+ 34. HPatches: 3 sequences of 6 PPMs (800 x 600, 1000 x 700), viewpoint
+     homographies H_1_k in the original pixel frame and one illumination
+     sequence; configs/repeatability_hpatches.yaml (kernel A once an
+     image) and configs/mha_hpatches.yaml (A, and D once a pair): per-pair
+     results equal to the plain-twin run, repeatability and MHA@3 within
+     0.02 of the JAX package's CPU run on the same tree (`JAX_CPU_FILE`,
+     tools/file_configs_cpu_reference.py); ms a pair and the loader's
+     share;
+ 35. resume: configs/repeatability_hpatches.yaml over a sub-tree of its
+     first 3 pairs (a journal of 3 records), then over the whole tree
+     with `resume: true`: equal to the uncut run, with forward calls (and
+     kernel A launches) for the remaining pairs only;
+ 36. KITTI: 8 gray PNG frames at 376 x 1241 of the splat scene through
+     KITTI's intrinsics with a pose file; configs/vo_kitti.yaml
+     (optical_flow: A, and F at C = 3 on the 352 x 1216 crop): at LK
+     jitter distance 0, positions within 1e-3 of the trajectory's length
+     of the plain-twin run (as phase 22); as shipped, the median ATE over
+     seeds 0-4 below twice the JAX package's CPU median;
+ 37. TartanAir: 5 RGB PNG frames at 480 x 640 with TUM-format ground
+     truth; configs/fund_tartanair.yaml against the plain twin as in
+     phase 15;
+ 38. image pairs: 4 PNG pairs at 480 x 640 and their list file;
+     configs/long_term.yaml (FundamentalMatrixRansac, brute force: A, D):
+     the inlier ratio within 0.005 of the plain twin's;
+ 39. MegaDepth (2 pairs at 1066 x 1600, JPEG and h5; configs/
+     auc_megadepth.yaml, per-pair errors within 1e-3 degrees of the plain
+     twin's) where h5py and PIL import, and EuRoC's loader and IMU
+     preintegration where cv2 imports; otherwise one line names what is
+     missing;
+ 40. kernels A, B, D and F at these shapes: A bit-equal on the runs' own
+     score maps ([1,512,512], [1,352,1216], [1,480,640], MegaDepth's
+     [1,1056,1600], rendered where MegaDepth did not run), B at batch 1
+     on ALIKE-t's branches of those sizes (within 1e-5), D on the MHA,
+     image-pair and MegaDepth runs' own calls (`check_nn`), F on the
+     KITTI and TartanAir runs' own calls (99% of the points within 1e-2
+     px); each timed (events back to back, and the profiler's device time
+     of a call) beside its plain version and its bound, D beside baddbmm +
+     both minima.
 Exits non-zero without CUDA, or without the port's package beside it.
 """
 from __future__ import annotations
 
 import contextlib
 import ctypes
+import importlib.util
 import json
 import os
 import statistics
@@ -2526,6 +2575,878 @@ def bf16_phases(dev, card, errs, ctx):
     return out
 
 
+# The file-backed datasets (phases 33-40): trees written in each
+# layout the shipped configs read, at the sizes of the real datasets
+HP_SIZES = ((600, 800), (700, 1000), (600, 800))   # (h, w) of v_a, v_b, i_c
+HP_IMAGES = 6
+KITTI_HW, KITTI_FRAMES = (376, 1241), 8
+KITTI_K = ((718.856, 0.0, 607.1928), (0.0, 718.856, 185.2157),
+           (0.0, 0.0, 1.0))                       # datasets/sequences.py
+TARTAN_HW, TARTAN_FRAMES = (480, 640), 5
+TARTAN_K = ((320.0, 0.0, 320.0), (0.0, 320.0, 240.0), (0.0, 0.0, 1.0))
+PAIRS_HW, IMAGE_PAIRS = (480, 640), 4
+MEGADEPTH_HW, MEGADEPTH_PAIRS = (1066, 1600), 2
+EUROC_HW, EUROC_FRAMES = (480, 752), 3
+RESUME_CUT = 3
+
+
+def loader_tol(h, w):
+    """The native loader against the numpy decode + resize_linear on an h x
+    w source (tests/test_torch_native_loader.py): the loader computes its
+    source coordinates in float32, resize_linear in float64 as cv2 does,
+    so a weight may be off by a few float32 ulps of the coordinate."""
+    return 4 * max(h, w) * 2.0 ** -24 + 1e-6
+
+# The JAX package's runners on the CPU on the same trees
+# (tools/file_configs_cpu_reference.py): repeatability and MHA@3 of the
+# HPatches configs, and the median over the RANSAC / LK keys of seeds
+# 0-4 of the KITTI run's ATE. The port's must lie within 0.02 of the
+# first two; its median ATE below twice the third.
+JAX_CPU_FILE = {"repeatability": 0.8593999981880188, "MHA@3": 1.0,
+                "kitti_ate": 0.2575151013768779}
+
+
+def png_bytes(img):
+    """An 8-bit PNG of uint8 img [H,W] (gray) or [H,W,3] (RGB): the
+    stdlib's zlib stream, scanline y filtered with type y % 5 (None, Sub,
+    Up, Average, Paeth), so every decode takes all five filters."""
+    import struct
+    import zlib
+
+    import numpy as np
+    img = np.asarray(img, np.uint8)
+    h, w = img.shape[:2]
+    c = 1 if img.ndim == 2 else img.shape[2]
+    a = img.reshape(h, w * c).astype(np.int32)
+    lines, prev = [], np.zeros(w * c, np.int32)
+    for y in range(h):
+        row, f = a[y], y % 5
+        left = np.concatenate([np.zeros(c, np.int32), row[:-c]])
+        ul = np.concatenate([np.zeros(c, np.int32), prev[:-c]])
+        p = left + prev - ul
+        pa, pb, pc = np.abs(p - left), np.abs(p - prev), np.abs(p - ul)
+        pred = (0, left, prev, (left + prev) >> 1,
+                np.where((pa <= pb) & (pa <= pc), left,
+                         np.where(pb <= pc, prev, ul)))[f]
+        lines.append(bytes([f]) + ((row - pred) % 256).astype(
+            np.uint8).tobytes())
+        prev = row
+
+    def chunk(kind, body):
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body)))
+
+    return (b"\x89PNG\r\n\x1a\n"
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8,
+                                         0 if c == 1 else 2, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(b"".join(lines), 6))
+            + chunk(b"IEND", b""))
+
+
+def write_png(path, img):
+    with open(path, "wb") as f:
+        f.write(png_bytes(img))
+
+
+def write_ppm(path, img):
+    """Binary PPM (P6), as HPatches ships them (no comment line)."""
+    h, w = img.shape[:2]
+    with open(path, "wb") as f:
+        f.write(f"P6\n{w} {h}\n255\n".encode())
+        f.write(img.astype("uint8").tobytes())
+
+
+def to_u8(img):
+    import numpy as np
+    return np.round(np.clip(img, 0.0, 1.0) * 255.0).astype(np.uint8)
+
+
+def texture(h, w, rng):
+    """The synthetic datasets' texture at h x w (made at multiples of its
+    8-pixel blocks, then cropped)."""
+    from keypoint_bench_tpu_torch.datasets.synthetic import _texture
+    return _texture(-(-h // 8) * 8, -(-w // 8) * 8, rng)[:h, :w]
+
+
+def random_homography(h, w, rng, strength=1.0):
+    """A viewpoint homography about the image centre: rotation, scale,
+    shear, perspective and translation of HPatches' order."""
+    import numpy as np
+    a = rng.uniform(-0.12, 0.12) * strength
+    s = 1.0 + rng.uniform(-0.1, 0.1) * strength
+    A = s * np.array([[np.cos(a), -np.sin(a)], [np.sin(a), np.cos(a)]])
+    A = A + rng.uniform(-0.04, 0.04, (2, 2)) * strength
+    H = np.eye(3)
+    H[:2, :2] = A
+    H[2, :2] = rng.uniform(-1.5e-4, 1.5e-4, 2) * strength
+    H[:2, 2] = rng.uniform(-30, 30, 2) * strength
+    c = np.array([[1, 0, w / 2], [0, 1, h / 2], [0, 0, 1.0]])
+    H = c @ H @ np.linalg.inv(c)
+    return H / H[2, 2]
+
+
+def hpatches_tree(root, sizes=None, n_images=None, seed=0):
+    """HPatches' layout: <root>/{v_a,v_b,i_c}/{1..n}.ppm and H_1_k, the k-th
+    image the first warped by H_1_k (in the original pixel frame), the i_
+    sequence with a brightness change instead of a warp; HP_SIZES and
+    HP_IMAGES by default."""
+    import numpy as np
+    from keypoint_bench_tpu_torch.datasets.synthetic import _warp_image
+    sizes, n_images = sizes or HP_SIZES, n_images or HP_IMAGES
+    rng = np.random.default_rng(seed)
+    for name, (h, w) in zip(("v_a", "v_b", "i_c"), sizes):
+        d = os.path.join(root, name)
+        os.makedirs(d, exist_ok=True)
+        base = texture(h, w, rng)
+        write_ppm(os.path.join(d, "1.ppm"), to_u8(base))
+        for k in range(2, n_images + 1):
+            if name.startswith("v_"):
+                H = random_homography(h, w, rng)
+                img = _warp_image(base, np.linalg.inv(H))
+            else:
+                H = np.eye(3)
+                img = base * rng.uniform(0.6, 1.0) + rng.uniform(0, 0.1)
+            write_ppm(os.path.join(d, f"{k}.ppm"), to_u8(img))
+            np.savetxt(os.path.join(d, f"H_1_{k}"), H)
+    return root
+
+
+def splat_frames(h, w, K, poses_cam, seed, n_blobs=900, depth=False):
+    """Frames [h,w,3] in [0,1] of the synthetic splat scene seen through K
+    from the cam-from-world poses, and with depth=True their depths."""
+    import numpy as np
+    from keypoint_bench_tpu_torch.datasets.synthetic import _SplatScene
+    rng = np.random.default_rng(seed)
+    scene = _SplatScene(h, w, np.asarray(K))
+    X = np.concatenate([rng.uniform(-6, 6, (n_blobs, 1)),
+                        rng.uniform(-2, 2, (n_blobs, 1)),
+                        rng.uniform(4, 20, (n_blobs, 1))], axis=1)
+    colors = rng.uniform(0.3, 1.0, (n_blobs, 3)).astype(np.float32)
+    tex = texture(h, w, rng) * 0.15
+    out = [scene._render(X, colors, T[:3, :3], T[:3, 3], tex)
+           for T in poses_cam]
+    return out if depth else [img for img, _ in out]
+
+
+def sequence_poses(n, step=(0.3, 0.02, 0.1), yaw=0.002):
+    """cam-from-world poses of a camera moving along `step` a frame while
+    it turns by `yaw` radians a frame about y."""
+    import numpy as np
+    from keypoint_bench_tpu_torch.datasets.synthetic import rodrigues
+    poses = []
+    for i in range(n):
+        T = np.eye(4)
+        T[:3, :3] = rodrigues([0.0, yaw * i, 0.0])
+        T[:3, 3] = np.asarray(step) * i
+        poses.append(T)
+    return poses
+
+
+def kitti_tree(root, frames=None, hw=None, seed=0, step=(0.3, 0.02, 0.1)):
+    """KITTI odometry's layout: <root>/sequences/00/image_0/NNNNNN.png
+    (8-bit gray) and <root>/poses/00.txt (world-from-cam, 12 numbers a
+    line), the camera moving by `step` a frame. Returns (sequence path
+    with its trailing '/', pose file)."""
+    import numpy as np
+    frames, hw = frames or KITTI_FRAMES, hw or KITTI_HW
+    seq = os.path.join(root, "sequences", "00")
+    os.makedirs(os.path.join(seq, "image_0"), exist_ok=True)
+    os.makedirs(os.path.join(root, "poses"), exist_ok=True)
+    poses = sequence_poses(frames, step)
+    for i, img in enumerate(splat_frames(*hw, KITTI_K, poses, seed)):
+        gray = (0.299 * img[..., 0] + 0.587 * img[..., 1]
+                + 0.114 * img[..., 2])
+        write_png(os.path.join(seq, "image_0", f"{i:06d}.png"), to_u8(gray))
+    gt = os.path.join(root, "poses", "00.txt")
+    with open(gt, "w") as f:
+        for T in poses:
+            f.write(" ".join(repr(float(v))
+                             for v in np.linalg.inv(T)[:3].reshape(-1)) + "\n")
+    return seq + "/", gt
+
+
+def rotmat_to_quat(R):
+    """(x, y, z, w) of a rotation matrix with trace > -1."""
+    import numpy as np
+    w = np.sqrt(max(1.0 + R[0, 0] + R[1, 1] + R[2, 2], 0.0)) / 2
+    return np.array([(R[2, 1] - R[1, 2]) / (4 * w),
+                     (R[0, 2] - R[2, 0]) / (4 * w),
+                     (R[1, 0] - R[0, 1]) / (4 * w), w])
+
+
+def tartanair_tree(root, frames=None, hw=None, seed=0):
+    """TartanAir mono's layout: <root>/mono/ME000/NNNNNN.png (RGB) and
+    <root>/mono_gt/ME000.txt (x y z qx qy qz qw, world-from-cam). Returns
+    (image path with its trailing '/', ground-truth file)."""
+    import numpy as np
+    frames, hw = frames or TARTAN_FRAMES, hw or TARTAN_HW
+    seq = os.path.join(root, "mono", "ME000")
+    os.makedirs(seq, exist_ok=True)
+    os.makedirs(os.path.join(root, "mono_gt"), exist_ok=True)
+    poses = sequence_poses(frames, step=(0.15, 0.03, 0.05))
+    for i, img in enumerate(splat_frames(*hw, TARTAN_K, poses, seed + 1)):
+        write_png(os.path.join(seq, f"{i:06d}.png"), to_u8(img))
+    gt = os.path.join(root, "mono_gt", "ME000.txt")
+    with open(gt, "w") as f:
+        for T in poses:
+            Tw = np.linalg.inv(T)
+            f.write(" ".join(repr(float(v)) for v in np.concatenate(
+                [Tw[:3, 3], rotmat_to_quat(Tw[:3, :3])])) + "\n")
+    return seq + "/", gt
+
+
+def image_pairs_tree(root, pairs=None, hw=None, seed=0):
+    """The image-pair list's layout: RGB PNG pairs (a texture and its
+    warp) and <root>/file.txt with one 'a b' line a pair."""
+    import numpy as np
+    from keypoint_bench_tpu_torch.datasets.synthetic import _warp_image
+    pairs, hw = pairs or IMAGE_PAIRS, hw or PAIRS_HW
+    rng = np.random.default_rng(seed + 2)
+    os.makedirs(root, exist_ok=True)
+    lines = []
+    for i in range(pairs):
+        base = texture(*hw, rng)
+        H = random_homography(*hw, rng, strength=0.7)
+        a, b = (os.path.join(root, f"{i}_{k}.png") for k in "ab")
+        write_png(a, to_u8(base))
+        write_png(b, to_u8(_warp_image(base, np.linalg.inv(H))))
+        lines.append(f"{a} {b}\n")
+    path = os.path.join(root, "file.txt")
+    with open(path, "w") as f:
+        f.writelines(lines)
+    return path
+
+
+def megadepth_tree(root, pairs=None, hw=None, seed=0, n_blobs=2400):
+    """MegaDepth's layout (dataset.json, JPEG images, h5 depths and
+    calibrations); each pair two views of its own splat scene, drawn as
+    SyntheticSE3Dataset draws them (rotation ~0.03 rad, 0.3-0.7 m
+    sideways); needs PIL and h5py."""
+    import json
+
+    import h5py
+    import numpy as np
+    from PIL import Image
+
+    from keypoint_bench_tpu_torch.datasets.synthetic import (_SplatScene,
+                                                             rodrigues)
+    pairs, hw = pairs or MEGADEPTH_PAIRS, hw or MEGADEPTH_HW
+    h, w = hw
+    f = 0.9 * h
+    K = np.array([[f, 0, w / 2], [0, f, h / 2], [0, 0, 1.0]])
+    scene = _SplatScene(h, w, K)
+    for sub in ("imgs", "depths", "calib"):
+        os.makedirs(os.path.join(root, sub), exist_ok=True)
+    names = []
+    for i in range(pairs):
+        rng = np.random.default_rng(seed + 31 * i)
+        X = np.concatenate([rng.uniform(-4 * w / h, 4 * w / h, (n_blobs, 1)),
+                            rng.uniform(-4, 4, (n_blobs, 1)),
+                            rng.uniform(4, 20, (n_blobs, 1))], axis=1)
+        colors = rng.uniform(0.3, 1.0, (n_blobs, 3)).astype(np.float32)
+        R1 = rodrigues(rng.normal(0, 0.03, 3))
+        t1 = np.array([rng.uniform(0.3, 0.7), rng.uniform(-0.2, 0.2),
+                       rng.uniform(-0.1, 0.1)])
+        tex = texture(h, w, rng) * 0.15
+        for k, (R, t) in enumerate(((np.eye(3), np.zeros(3)), (R1, t1))):
+            img, depth = scene._render(X, colors, R, t, tex)
+            name = f"im{2 * i + k}"
+            names.append(name + ".jpg")
+            Image.fromarray(to_u8(img)).save(
+                os.path.join(root, "imgs", names[-1]), quality=95)
+            with h5py.File(os.path.join(root, "depths", name + ".h5"),
+                           "w") as fh:
+                fh.create_dataset("/depth", data=depth.astype("float32"))
+            with h5py.File(os.path.join(root, "calib",
+                                        f"calibration_{name}.h5"), "w") as fh:
+                fh.create_dataset("K", data=K)
+                fh.create_dataset("R", data=R)
+                fh.create_dataset("T", data=t)
+    with open(os.path.join(root, "dataset.json"), "w") as fh:
+        json.dump({"scene0": {
+            "image_path": "imgs", "depth_path": "depths",
+            "calib_path": "calib", "images": names,
+            "tuples": [[2 * i, 2 * i + 1] for i in range(pairs)]}}, fh)
+    return root
+
+
+def euroc_tree(root, frames=None, hw=None, seed=0):
+    """EuRoC MAV's layout: cam0 / cam1 data.csv and PNGs, the ground-truth
+    CSV and an IMU CSV. Returns the root with its trailing '/'."""
+    import numpy as np
+    frames, hw = frames or EUROC_FRAMES, hw or EUROC_HW
+    K = ((435.2046959714599, 0.0, 367.4517211914062),
+         (0.0, 435.2046959714599, 252.2008514404297), (0.0, 0.0, 1.0))
+    poses = sequence_poses(frames, step=(0.1, 0.0, 0.02))
+    imgs = splat_frames(*hw, K, poses, seed + 4)
+    for cam in ("cam0", "cam1"):
+        os.makedirs(os.path.join(root, cam, "data"), exist_ok=True)
+        with open(os.path.join(root, cam, "data.csv"), "w") as f:
+            f.write("#timestamp [ns],filename\n")
+            for i, img in enumerate(imgs):
+                ts = 10 ** 9 + i * 5 * 10 ** 7
+                f.write(f"{ts},{ts}.png\n")
+                write_png(os.path.join(root, cam, "data", f"{ts}.png"),
+                          to_u8(img.mean(-1)))
+    gtd = os.path.join(root, "state_groundtruth_estimate0")
+    os.makedirs(gtd, exist_ok=True)
+    with open(os.path.join(gtd, "data.csv"), "w") as f:
+        f.write("#timestamp,px,py,pz,qw,qx,qy,qz\n")
+        for i, T in enumerate(poses):
+            Tw = np.linalg.inv(T)
+            q = rotmat_to_quat(Tw[:3, :3])
+            f.write(f"{10 ** 9 + i * 5 * 10 ** 7},"
+                    + ",".join(repr(float(v)) for v in
+                               (*Tw[:3, 3], q[3], q[0], q[1], q[2])) + "\n")
+    os.makedirs(os.path.join(root, "imu0"), exist_ok=True)
+    with open(os.path.join(root, "imu0", "data.csv"), "w") as f:
+        f.write("#timestamp,wx,wy,wz,ax,ay,az\n")
+        for k in range(10 * frames):
+            f.write(f"{10 ** 9 + k * 5 * 10 ** 6},0,0.04,0,0.1,0,9.81\n")
+    return root + "/"
+
+
+def file_config(name, output_dir, **data_params):
+    """configs/<name>.yaml with data_params updated (root, gt, ...) and
+    output_dir set: the CLI overrides no config value, so a run on another
+    tree reads a copy of the config."""
+    import yaml
+    with open(os.path.join(ROOT, "configs", f"{name}.yaml")) as f:
+        cfg = yaml.safe_load(f)
+    cfg["data_params"] = {**cfg["data_params"], **data_params}
+    cfg["output_dir"] = output_dir
+    return cfg
+
+
+@contextlib.contextmanager
+def timed_items(cls):
+    """Sum the seconds spent in cls.__getitem__ (the dataset's load) into
+    the yielded list's first entry; restored on exit."""
+    spent, real = [0.0], cls.__getitem__
+
+    def timed(self, i):
+        t0 = time.perf_counter()
+        try:
+            return real(self, i)
+        finally:
+            spent[0] += time.perf_counter() - t0
+
+    cls.__getitem__ = timed
+    try:
+        yield spent
+    finally:
+        cls.__getitem__ = real
+
+
+@contextlib.contextmanager
+def counting_detect():
+    """Count Evaluator.detect calls (one model forward each)."""
+    from keypoint_bench_tpu_torch.runner import Evaluator
+    calls, real = [0], Evaluator.detect
+
+    def detect(self, image):
+        calls[0] += 1
+        return real(self, image)
+
+    Evaluator.detect = detect
+    try:
+        yield calls
+    finally:
+        Evaluator.detect = real
+
+
+def run_config(cfg, plain=False, dataset_cls=None):
+    """Write cfg as YAML, run it through the port's CLI (on the card, or
+    through the plain twins) and return (results.json, seconds, seconds in
+    the dataset's __getitem__)."""
+    import yaml
+
+    from keypoint_bench_tpu_torch import cli
+    os.makedirs(cfg["output_dir"], exist_ok=True)
+    path = os.path.join(cfg["output_dir"], "config.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    load = timed_items(dataset_cls) if dataset_cls else \
+        contextlib.nullcontext([0.0])
+    with (plain_twins() if plain else contextlib.nullcontext()), load as spent:
+        t0 = time.perf_counter()
+        if cli.main(["-c", path]) != 0:
+            raise AssertionError(f"the CLI failed on {path}")
+        import torch
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    with open(os.path.join(cfg["output_dir"], "results.json")) as f:
+        return json.load(f), secs, spent[0]
+
+
+def file_phases(dev, card, errs):
+    """The file-backed datasets (phases 33-40): trees written in each
+    layout under a temporary directory, the shipped configs run on them
+    through the port's CLI, each against its plain-twin run, the native
+    loader, the resume journal, and kernels A, B, D and F at the shapes
+    these configs give them."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from keypoint_bench_tpu_torch.datasets import imageio, pairs, sequences
+    from keypoint_bench_tpu_torch.models import get_model
+    from keypoint_bench_tpu_torch.ops import (cuda_lk, cuda_match, cuda_nms,
+                                              cuda_sample)
+    from keypoint_bench_tpu_torch.ops.detect import (DetectParams,
+                                                     detection_batch,
+                                                     fast_nms_rounds)
+    from keypoint_bench_tpu_torch.ops.lk import _lk_level
+    from keypoint_bench_tpu_torch.ops.matching import nn_dists
+    from keypoint_bench_tpu_torch.ops.sparse_desc import sample_branches
+    from keypoint_bench_tpu_torch.runtime import (NativePrefetcher,
+                                                  load_pnm_resized)
+    from keypoint_bench_tpu_torch.tasks.trajectory import (
+        ate_rmse, read_kitti_trajectory)
+    from keypoint_bench_tpu_torch.weights import load_params
+
+    def device_ms(fn, calls=10):
+        """Device time of one fn() from the profiler (busy time over
+        `calls` calls): at batch 1 back-to-back events time the wrappers'
+        host work."""
+        return profile_step(lambda: [fn() for _ in range(calls)])[0] / calls
+
+    t_start = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="kbt_file_phases_")
+    out = {"configs": {}, "shapes": {}, "launches": {}}
+    rec_calls = {"nms": {}, "nn_match": {}, "lk": {}}
+
+    def run_card(name, cfg, dataset_cls, want, recorded=()):
+        """The config on the card, launch counts reset just before and read
+        just after, the kernels in `recorded` recorded; then run again,
+        timed warm, with the seconds its dataset's loads took. Returns
+        (results, seconds, loader seconds) of the timed run."""
+        reset_launches()
+        with contextlib.ExitStack() as stack:
+            rec = {k: stack.enter_context(recording(*{
+                "nms": (cuda_nms, "nms_cuda"),
+                "nn_match": (cuda_match, "nn_dists_cuda"),
+                "lk": (cuda_lk, "lk_level_cuda")}[k])) for k in recorded}
+            res, cold, _ = run_config(cfg)
+        got = read_launches()
+        for k, calls in rec.items():
+            rec_calls[k][name] = calls
+        bad = {k: (got[k], n) for k, n in want.items() if got[k] != n}
+        timed, secs, load = run_config(cfg, dataset_cls=dataset_cls)
+        log(f"  {name}: launches {got} (want {want}); {cold:.3f} s cold, "
+            f"{secs:.3f} s warm, loader {load:.3f} s ({card})")
+        if bad:
+            raise AssertionError(f"{name}: launch counts differ: {bad}")
+        out["launches"][name] = {k: got[k] for k in
+                                 ("nms", "sample", "nn_match", "lk")}
+        return res, secs, load
+
+    def run_both(name, cfg, dataset_cls, want, recorded=()):
+        """`run_card`, and the config through the plain twins."""
+        res, secs, load = run_card(name, cfg, dataset_cls, want, recorded)
+        res_p, _, _ = run_config(dict(cfg, output_dir=cfg["output_dir"]
+                                      + "_plain"), plain=True)
+        return res, res_p, secs, load
+
+    try:
+        with phase("native loader: P5/P6 with comments and odd sizes"):
+            rng = np.random.default_rng(5)
+            files = []
+            for i, (h, w, c) in enumerate(((601, 803, 3), (377, 499, 1),
+                                           (700, 1000, 3), (64, 37, 1))):
+                img = rng.integers(0, 256, (h, w, c), dtype=np.uint8)
+                p = os.path.join(tmp, f"pnm{i}.{'ppm' if c == 3 else 'pgm'}")
+                with open(p, "wb") as f:
+                    f.write(f"P{6 if c == 3 else 5}\n# a comment\n{w} "
+                            f"{h}\n# another\n255\n".encode())
+                    f.write(img.tobytes())
+                files.append(p)
+            gap, tol, over = 0.0, 0.0, []
+            for p in files:
+                src = imageio.read_image(p)
+                t = loader_tol(*src.shape[:2])
+                tol = max(tol, t)
+                for w, h in ((512, 512), (333, 271), (1000, 37)):
+                    e = float(np.abs(load_pnm_resized(p, w, h)
+                                     - imageio.resize_linear(src, (w, h)))
+                              .max())
+                    gap = max(gap, e)
+                    if e > t:
+                        over.append((p, w, h, e, t))
+            with NativePrefetcher(files * 2, 512, 512, n_threads=4) as pf:
+                seen = []
+                for idx, frame in pf:
+                    seen.append(idx)
+                    if not np.array_equal(frame, load_pnm_resized(
+                            files[idx % 4], 512, 512)):
+                        over.append(("prefetcher", idx))
+            if seen != list(range(8)) or over:
+                raise AssertionError(f"native loader: order {seen}, beyond "
+                                     f"the tolerance or unequal: {over}")
+            rates = {}
+            big = [files[2]] * 32            # 700 x 1000 P6, HPatches' order
+            t0 = time.perf_counter()
+            for p in big:
+                load_pnm_resized(p, 512, 512)
+            rates["load_pnm_resized"] = len(big) / (time.perf_counter() - t0)
+            for threads in (2, 4):
+                t0 = time.perf_counter()
+                with NativePrefetcher(big, 512, 512, n_threads=threads) as pf:
+                    n = sum(1 for _ in pf)
+                rates[f"prefetcher_{threads}_threads"] = \
+                    n / (time.perf_counter() - t0)
+            out["loader"] = {"max_abs_gap_vs_numpy": gap,
+                             "images_per_s_512": rates}
+            log(f"  native vs numpy decode + resize_linear: max abs gap "
+                f"{gap:.3g} (tolerance up to {tol:.3g}); prefetcher (equal "
+                f"to load_pnm_resized) order "
+                f"{seen}; 700x1000 P6 -> 512^2 images/s: {rates} ({card})")
+
+        hp_root = os.path.join(tmp, "hpatches")
+        with phase(f"HPatches: {len(HP_SIZES)} sequences of {HP_IMAGES} "
+                   f"PPM images ({HP_SIZES}); configs/"
+                   f"repeatability_hpatches.yaml and mha_hpatches.yaml"):
+            hpatches_tree(hp_root)
+            for name, metric in (("repeatability_hpatches", "repeatability"),
+                                 ("mha_hpatches", "MHA@3")):
+                cfg = file_config(name, os.path.join(tmp, "out", name),
+                                  root=hp_root)
+                ds = pairs.HPatchesDataset(hp_root, cfg["data_params"][
+                    "alteration"], cfg["data_params"]["image_size"])
+                n = len(ds)
+                mha = name.startswith("mha")
+                res, res_p, secs, load = run_both(
+                    name, cfg, pairs.HPatchesDataset,
+                    {"nms": 2 * n, "sample": 0, "nn_match": 2 * n if mha
+                     else 0, "lk": 0}, recorded=("nms", "nn_match"))
+                per = "per_pair" if mha else "per_pair_repeatability"
+                jax_v = JAX_CPU_FILE[metric]
+                rec = {metric: res[metric], "plain": res_p[metric],
+                       "jax_cpu": jax_v, "pairs": n,
+                       "ms_per_pair": 1e3 * secs / n,
+                       "loader_share": load / secs}
+                out["configs"][name] = rec
+                log(f"  {name}: {rec} ({card})")
+                if res[per] != res_p[per]:
+                    raise AssertionError(f"{name} differs from its plain "
+                                         f"twin run")
+                if jax_v is None or not abs(res[metric] - jax_v) <= 0.02:
+                    raise AssertionError(f"{name}: {metric} {res[metric]} "
+                                         f"against the JAX package's CPU "
+                                         f"{jax_v}")
+                if name == "repeatability_hpatches":
+                    rep_full = res
+
+        with phase("resume: repeatability_hpatches cut after "
+                   f"{RESUME_CUT} pairs, then resumed"):
+            sub = os.path.join(tmp, "hpatches_cut", "v_a")
+            os.makedirs(sub)
+            for k in range(1, RESUME_CUT + 2):
+                shutil.copy(os.path.join(hp_root, "v_a", f"{k}.ppm"), sub)
+                if k > 1:
+                    shutil.copy(os.path.join(hp_root, "v_a", f"H_1_{k}"), sub)
+            out_dir = os.path.join(tmp, "out", "resume")
+            first, _, _ = run_config(file_config(
+                "repeatability_hpatches", out_dir,
+                root=os.path.dirname(sub)))
+            with open(os.path.join(out_dir, "progress.jsonl")) as f:
+                journal = [json.loads(ln) for ln in f if ln.strip()]
+            cfg = dict(file_config("repeatability_hpatches", out_dir,
+                                   root=hp_root), resume=True)
+            reset_launches()
+            with counting_detect() as forwards:
+                res, _, _ = run_config(cfg)
+            n = len(rep_full["per_pair_repeatability"])
+            rec = {"journal_records": len(journal) - 1,
+                   "forward_calls": forwards[0],
+                   "remaining_pairs": n - RESUME_CUT,
+                   "nms_launches": read_launches()["nms"]}
+            log(f"  {rec}; resumed {res['repeatability']} against uncut "
+                f"{rep_full['repeatability']}")
+            if not (len(journal) == RESUME_CUT + 1 and "meta" in journal[0]
+                    and first["per_pair_repeatability"]
+                    == rep_full["per_pair_repeatability"][:RESUME_CUT]
+                    and res["per_pair_repeatability"]
+                    == rep_full["per_pair_repeatability"]
+                    and res["repeatability"] == rep_full["repeatability"]
+                    and forwards[0] == 2 * (n - RESUME_CUT)
+                    and rec["nms_launches"] == 2 * (n - RESUME_CUT)):
+                raise AssertionError(f"the resumed run differs: {rec}")
+            out["resume"] = rec
+
+        with phase(f"KITTI: {KITTI_FRAMES} gray PNG frames at {KITTI_HW}; "
+                   f"configs/vo_kitti.yaml, seeds {list(VO_SEEDS)}"):
+            seq, gt_path = kitti_tree(os.path.join(tmp, "kitti"))
+            gt = np.stack([T[:3, 3] for T in
+                           sequences._read_kitti_poses(gt_path)])
+            want = {"nms": KITTI_FRAMES + 1, "sample": 0, "nn_match": 0,
+                    "lk": 3 * KITTI_FRAMES}
+            # against the plain twins at LK jitter distance 0, as phase 22
+            # does: with the jitter, kernel F's 5e-3 px from _lk_level can
+            # move a track to another minimum, and the pair solve parts
+            lk0 = file_config("vo_kitti", os.path.join(tmp, "out",
+                                                       "vo_kitti_lk0"),
+                              root=seq, gt=gt_path)
+            lk0["matcher_params"]["optical_flow_params"]["distance"] = 0
+            res, res_p, _, _ = run_both("vo_kitti (LK distance 0)", lk0,
+                                        sequences.KittiDataset, want)
+            t = read_kitti_trajectory(res["trajectory_path"])[1]
+            t_p = read_kitti_trajectory(res_p["trajectory_path"])[1]
+            length = float(np.linalg.norm(np.diff(t_p, axis=0),
+                                          axis=1).sum())
+            t_gap = float(np.abs(t - t_p).max())
+            ates = []
+            for seed in VO_SEEDS:
+                cfg = dict(file_config("vo_kitti", os.path.join(
+                    tmp, "out", f"vo_kitti_{seed}"), root=seq, gt=gt_path),
+                    seed=seed)
+                if seed == 0:
+                    res, secs, load = run_card(
+                        "vo_kitti", cfg, sequences.KittiDataset, want,
+                        recorded=("nms", "lk"))
+                else:
+                    res, _, _ = run_config(cfg)
+                t = read_kitti_trajectory(res["trajectory_path"])[1]
+                ates.append(ate_rmse(t[1:], gt))
+            jax_ate = JAX_CPU_FILE["kitti_ate"]
+            rec = {"ate_by_seed": ates, "ate_median": statistics.median(ates),
+                   "jax_cpu_ate_median": jax_ate,
+                   "t_gap_lk_distance_0": t_gap, "length": length,
+                   "frames": KITTI_FRAMES,
+                   "ms_per_frame": 1e3 * secs / KITTI_FRAMES,
+                   "loader_share": load / secs}
+            out["configs"]["vo_kitti"] = rec
+            log(f"  vo_kitti: {rec} ({card})")
+            if not t_gap <= 1e-3 * length:
+                raise AssertionError("vo_kitti at LK distance 0 differs "
+                                     "from its plain twin")
+            if jax_ate is None or not rec["ate_median"] < 2 * jax_ate:
+                raise AssertionError(f"vo_kitti median ATE {ates} against "
+                                     f"twice the JAX package's {jax_ate}")
+
+        with phase(f"TartanAir: {TARTAN_FRAMES} RGB PNG frames at "
+                   f"{TARTAN_HW}; configs/fund_tartanair.yaml"):
+            seq, gt_path = tartanair_tree(os.path.join(tmp, "tartanair"))
+            cfg = file_config("fund_tartanair", os.path.join(
+                tmp, "out", "fund_tartanair"), root=seq, gt=gt_path)
+            res, res_p, secs, load = run_both(
+                "fund_tartanair", cfg, sequences.TartanAirDataset,
+                {"nms": TARTAN_FRAMES + 1, "sample": 0, "nn_match": 0,
+                 "lk": 3 * TARTAN_FRAMES}, recorded=("nms", "lk"))
+            e, e_p = (np.asarray(r["per_frame_error"]) for r in (res, res_p))
+            rec = {"per_frame_error": e.tolist(), "plain": e_p.tolist(),
+                   "fundamental_num": res["fundamental_num"],
+                   "ms_per_frame": 1e3 * secs / TARTAN_FRAMES,
+                   "loader_share": load / secs}
+            out["configs"]["fund_tartanair"] = rec
+            log(f"  fund_tartanair: {rec} ({card})")
+            if not (np.isfinite(e).all() and len(e) == TARTAN_FRAMES
+                    and (np.abs(e - e_p) <= 1e-3 * np.abs(e_p) + 1e-5).all()
+                    and abs(res["fundamental_num"] - res_p["fundamental_num"])
+                    <= 0.005 * 1000):
+                raise AssertionError("fund_tartanair differs from its plain "
+                                     "twin run")
+
+        with phase(f"image pairs: {IMAGE_PAIRS} PNG pairs at {PAIRS_HW}; "
+                   f"configs/long_term.yaml"):
+            lst = image_pairs_tree(os.path.join(tmp, "pairs"))
+            cfg = file_config("long_term", os.path.join(tmp, "out",
+                                                        "long_term"), root=lst)
+            res, res_p, secs, load = run_both(
+                "long_term", cfg, pairs.ImagePairsDataset,
+                {"nms": 2 * IMAGE_PAIRS, "sample": 0,
+                 "nn_match": 2 * IMAGE_PAIRS, "lk": 0},
+                recorded=("nms", "nn_match"))
+            rec = {"fundamental_radio": res["fundamental_radio"],
+                   "plain": res_p["fundamental_radio"],
+                   "ms_per_pair": 1e3 * secs / IMAGE_PAIRS,
+                   "loader_share": load / secs}
+            out["configs"]["long_term"] = rec
+            log(f"  long_term: {rec} ({card})")
+            if not (0.0 < res["fundamental_radio"] <= 1.0 and abs(
+                    res["fundamental_radio"] - res_p["fundamental_radio"])
+                    <= 0.005):
+                raise AssertionError("long_term differs from its plain twin")
+
+        with phase("MegaDepth (configs/auc_megadepth.yaml) and EuRoC, where "
+                   "their readers import"):
+            missing = [m for m in ("h5py", "PIL")
+                       if importlib.util.find_spec(m) is None]
+            if missing:
+                log(f"  MegaDepth did not run: {', '.join(missing)} not "
+                    f"installed")
+                out["configs"]["auc_megadepth"] = {"not_run_missing": missing}
+            else:
+                root = megadepth_tree(os.path.join(tmp, "megadepth"))
+                cfg = file_config("auc_megadepth", os.path.join(
+                    tmp, "out", "auc_megadepth"), root=root)
+                res, res_p, secs, load = run_both(
+                    "auc_megadepth", cfg, pairs.MegaDepthDataset,
+                    {"nms": 2 * MEGADEPTH_PAIRS, "sample": 0,
+                     "nn_match": 2 * MEGADEPTH_PAIRS, "lk": 0},
+                    recorded=("nms", "nn_match"))
+                e, e_p = (np.asarray(r["per_pair_error"])
+                          for r in (res, res_p))
+                rec = {"per_pair_error": e.tolist(), "plain": e_p.tolist(),
+                       "AUC@20": res["AUC@20"],
+                       "ms_per_pair": 1e3 * secs / MEGADEPTH_PAIRS,
+                       "loader_share": load / secs}
+                out["configs"]["auc_megadepth"] = rec
+                log(f"  auc_megadepth: {rec} ({card})")
+                if not (np.abs(e - e_p) <= 1e-3).all():
+                    raise AssertionError("auc_megadepth differs from its "
+                                         "plain twin run")
+            if importlib.util.find_spec("cv2") is None:
+                log("  EuRoC did not run: cv2 not installed (its loader "
+                    "undistorts with cv2.undistort)")
+                out["euroc"] = {"not_run_missing": ["cv2"]}
+            else:
+                ds = sequences.EurocDataset(euroc_tree(os.path.join(
+                    tmp, "euroc")))
+                items = [ds[i] for i in range(len(ds))]
+                pre = ds.imu_between(1)
+                rec = {"frames": len(items),
+                       "shape": list(items[0]["image0"].shape),
+                       "imu_dt": float(pre["dt"])}
+                out["euroc"] = rec
+                log(f"  EuRoC: {rec}")
+                if not (rec["shape"][1] == 736 and rec["imu_dt"] > 0
+                        and all(np.isfinite(it["fundamental"]).all()
+                                for it in items)
+                        and bool(torch.isfinite(pre["dR"]).all())):
+                    raise AssertionError(f"EuRoC loader: {rec}")
+
+        with phase("kernels A, B, D and F at the file-backed shapes"):
+            params = load_params("Alike", device=dev)
+            model = get_model("Alike")(params).eval()
+            dp = DetectParams(nms_dist=6, border_dist=8, top_k=1000)
+            maps_by = {}
+            for name in ("repeatability_hpatches", "vo_kitti",
+                         "fund_tartanair", "auc_megadepth"):
+                calls = rec_calls["nms"].get(name)
+                if calls:
+                    maps_by[name] = calls[0][0][0]
+            if "auc_megadepth" not in maps_by:
+                # MegaDepth's size from a rendered view, where the phase
+                # above could not read the dataset
+                hw = (MEGADEPTH_HW[0] // 32 * 32, MEGADEPTH_HW[1])
+                img = splat_frames(*hw, ((1440.0, 0, 800), (0, 1440.0, 528),
+                                         (0, 0, 1)),
+                                   sequence_poses(1), 3)[0]
+                with torch.inference_mode():
+                    s, _ = model(torch.from_numpy(img).to(dev)[None])
+                maps_by["auc_megadepth (rendered)"] = \
+                    s[..., 0].contiguous()
+            for name, maps in maps_by.items():
+                got = cuda_nms.nms_cuda(maps, 6, 30)
+                want, rounds = fast_nms_rounds(maps, 6, 30)
+                diff = float((got - want).abs().max())
+                errs["nms"] = max(errs["nms"], diff)
+                if not torch.equal(got, want):
+                    raise AssertionError(f"kernel A differs on {name}")
+                bound, by = nms_bound(maps, rounds)
+                shape = "x".join(map(str, maps.shape))
+                out["shapes"][f"nms {shape}"] = r = {
+                    "config": name, "ms": cuda_ms(
+                        lambda: cuda_nms.nms_cuda(maps, 6, 30)),
+                    "device_ms": device_ms(
+                        lambda: cuda_nms.nms_cuda(maps, 6, 30)),
+                    "plain_ms": cuda_ms(lambda: fast_nms_rounds(maps, 6, 30),
+                                        iters=3, warmup=1),
+                    "bound_ms": bound, "bound_by": by,
+                    "rounds": rounds.tolist(), "max_abs_err": diff}
+                log(f"  kernel A [{shape}] ({name}): {r}")
+            # kernel B at batch 1 on ALIKE-t's branches of these frames:
+            # no shipped config samples sparsely (the runner samples the
+            # dense map), so B is held at the shapes a sparse step would
+            # give it
+            for name, maps in maps_by.items():
+                h, w = maps.shape[-2:]
+                img = torch.rand((1, h, w, 3), device=dev,
+                                 generator=torch.Generator(
+                                     device=dev).manual_seed(h))
+                with torch.inference_mode():
+                    score, feats = model.feats(img)
+                    kpts, _ = detection_batch(score, dp)
+                px = (kpts[..., 0] * (w - 1.0)).contiguous()
+                py = (kpts[..., 1] * (h - 1.0)).contiguous()
+                diff = float((cuda_sample.sample_cuda(feats, px, py, h, w)
+                              - sample_branches(feats, px, py, h, w))
+                             .abs().max())
+                errs["sample"] = max(errs["sample"], diff)
+                if not diff <= 1e-5:
+                    raise AssertionError(f"kernel B differs at {h}x{w}")
+                bound, by = sample_bound(feats, px, py, h, w)
+                out["shapes"][f"sample 1x{h}x{w}"] = r = {
+                    "branches": [list(f.shape) for f in feats],
+                    "ms": cuda_ms(lambda: cuda_sample.sample_cuda(
+                        feats, px, py, h, w)),
+                    "device_ms": device_ms(lambda: cuda_sample.sample_cuda(
+                        feats, px, py, h, w)),
+                    "plain_ms": cuda_ms(lambda: sample_branches(
+                        feats, px, py, h, w), iters=3, warmup=1),
+                    "bound_ms": bound, "bound_by": by, "max_abs_err": diff}
+                log(f"  kernel B [1x{h}x{w}]: {r}")
+            for name, calls in rec_calls["nn_match"].items():
+                if not calls:               # repeatability matches nothing
+                    continue
+                a, b = (x.reshape(-1, *x.shape[-2:]) for x in calls[0][0])
+                got, want = cuda_match.nn_dists_cuda(a, b), nn_dists(a, b)
+                near, err_free, _ = check_nn(got, want, a, b)
+                errs["nn_match"] = max(errs["nn_match"], err_free)
+                bound, by = match_bound(a, b)
+                shape = "x".join(map(str, a.shape))
+                out["shapes"][f"nn_match {shape} ({name})"] = r = {
+                    "ms": cuda_ms(lambda: cuda_match.nn_dists_cuda(a, b)),
+                    "device_ms": device_ms(
+                        lambda: cuda_match.nn_dists_cuda(a, b)),
+                    "plain_ms": cuda_ms(lambda: nn_dists(a, b), iters=3,
+                                        warmup=1),
+                    "library_ms": cuda_ms(mm_min(a, b)),
+                    "bound_ms": bound, "bound_by": by, "near_ties": near,
+                    "max_abs_err": err_free}
+                log(f"  kernel D [{shape}] ({name}): {r}")
+            for name, calls in rec_calls["lk"].items():
+                pair = calls[:3]                  # one pair's three levels
+                far, n_pts, lk_err = 0, 0, 0.0
+                for args, kw in calls:
+                    e = (cuda_lk.lk_level_cuda(*args, **kw)
+                         - _lk_level(*args, **kw)).abs().amax(-1)
+                    lk_err = max(lk_err, float(e.max()))
+                    far += int((e > 1e-2).sum())
+                    n_pts += e.numel()
+                errs["lk"] = max(errs["lk"], lk_err)
+                if far > 0.01 * n_pts:
+                    raise AssertionError(f"kernel F differs on {name}: "
+                                         f"{far} of {n_pts} beyond 1e-2 px")
+                fine = max(pair, key=lambda c: c[0][0].shape[1])[0]
+                imgs0 = fine[0]
+                bound, by, _, _ = lk_bound(imgs0, fine[2].shape[1], fine[4],
+                                           len(pair), fine[5])
+                out["shapes"][f"lk_level {'x'.join(map(str, imgs0.shape))} "
+                              f"({name})"] = r = {
+                    "ms_3_levels": sum(cuda_ms(
+                        lambda a=a, k=k: cuda_lk.lk_level_cuda(*a, **k))
+                        for a, k in pair),
+                    "device_ms_3_levels": device_ms(lambda: [
+                        cuda_lk.lk_level_cuda(*a, **k) for a, k in pair],
+                        calls=5),
+                    "plain_ms_3_levels": sum(cuda_ms(
+                        lambda a=a, k=k: _lk_level(*a, **k), iters=2,
+                        warmup=1) for a, k in pair),
+                    "bound_ms": bound, "bound_by": by,
+                    "max_abs_err": lk_err, "beyond_1e-2": far,
+                    "points": n_pts}
+                log(f"  kernel F [{tuple(imgs0.shape)}] ({name}): {r}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_start
+    log(f"the file-backed phases: {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3490,6 +4411,15 @@ def main() -> int:
         "auc_cfg": auc["runner_cfg"], "auc_runner": auc["runner"],
         "vo": vo["data"]})
     sb = bf["sample_bf16"]
+    fl = file_phases(dev, card, errs)
+
+    def file_backed(kernel, prefix):
+        """The kernel's launches on each file-backed config's run and its
+        numbers at those configs' shapes (phases 33-40)."""
+        return {"launches_file_configs": {n: got[kernel] for n, got in
+                                          fl["launches"].items()},
+                "file_shapes": {k: v for k, v in fl["shapes"].items()
+                                if k.startswith(prefix)}}
 
     kernels = [
         {"name": "nms_fixpoint", "route": "cuda",
@@ -3507,7 +4437,8 @@ def main() -> int:
          "launches_vo_step": vo["launches"]["nms"],
          "launches_dense_extract_match":
              det["launches_dense_extract_match"]["nms"],
-         "launches_fund_letnet_lk": det["launches_fund_letnet_lk"]["nms"]},
+         "launches_fund_letnet_lk": det["launches_fund_letnet_lk"]["nms"],
+         **file_backed("nms", "nms ")},
         {"name": "sparse_sample", "route": "cuda",
          "source": "keypoint_bench_tpu_torch/csrc/sample.cu",
          "replaces": "keypoint_bench_tpu/ops/pallas_sample.py:107",
@@ -3518,7 +4449,8 @@ def main() -> int:
          "device_ms_original_order": samp_dev["original"],
          "sector_bound_ms": samp_sector_ms,
          "sector_bound_by": samp_sector_by,
-         "launches_vo_step": vo["launches"]["sample"]},
+         "launches_vo_step": vo["launches"]["sample"],
+         **file_backed("sample", "sample ")},
         {"name": "nn_match", "route": "cuda",
          "source": "keypoint_bench_tpu_torch/csrc/match.cu",
          "replaces": "keypoint_bench_tpu/ops/pallas_match.py:29",
@@ -3536,7 +4468,8 @@ def main() -> int:
              det["launches_dense_extract_match"]["nn_match"],
          **{f"{k}_d{d}": t[k] for d, t in ((4, d4), (513, d513))
             for k in ("ms", "device_ms", "plain_ms", "library_ms",
-                      "bound_ms", "bound_by")}},
+                      "bound_ms", "bound_by")},
+         **file_backed("nn_match", "nn_match ")},
         {"name": "attention", "route": "cuda",
          "source": "keypoint_bench_tpu_torch/csrc/attention.cu",
          "replaces": "keypoint_bench_tpu/ops/pallas_attention.py:33",
@@ -3560,7 +4493,8 @@ def main() -> int:
          "max_abs_err_win3_border": lk_loose_err,
          "ms_per_level": lk_level_ms, "step_frames_per_s": lk_fps,
          "launches_vo_runner_lk": vo["launches_lk"],
-         "launches_fund_letnet_lk": det["launches_fund_letnet_lk"]["lk"]},
+         "launches_fund_letnet_lk": det["launches_fund_letnet_lk"]["lk"],
+         **file_backed("lk", "lk_level ")},
         {"name": "peel_topk", "route": "cuda",
          "source": "keypoint_bench_tpu_torch/csrc/peel.cu",
          "replaces": "keypoint_bench_tpu/ops/pallas_nms.py:127",
@@ -3601,6 +4535,8 @@ def main() -> int:
         "seconds": det["seconds"]}}, default=float))
     log(json.dumps({"bf16": {k: bf[k] for k in (
         "steps", "forward_ulps_card_vs_cpu", "seconds")}}, default=float))
+    log(json.dumps({"file_backed": {k: fl[k] for k in (
+        "configs", "loader", "resume", "seconds")}}, default=float))
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

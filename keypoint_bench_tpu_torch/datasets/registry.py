@@ -1,7 +1,10 @@
 """Dataset factory keyed on params['type'] (counterpart of
-keypoint_bench_tpu/datasets/registry.py). Ported: the synthetic homography
-and SE3 pairs, both synthetic sequences and the in-process `preloaded` type. The
-file-backed loaders are not (ROADMAP.md, Queue 1)."""
+keypoint_bench_tpu/datasets/registry.py): every type it builds, with the
+same parameter names and defaults. File-backed: hpatches, megadepth,
+image_pair (datasets/pairs.py), kitti, tartanair, euroc, uma, video,
+images (datasets/sequences.py); synthetic: the homography and SE3 pairs
+and both sequences (datasets/synthetic.py); and the in-process
+`preloaded` type. An unknown type raises ValueError."""
 from __future__ import annotations
 
 # in-process pre-materialized datasets (benchmarks and tests make the
@@ -18,6 +21,45 @@ def get_dataset(params: dict):
     t = params["type"]
     if t == "preloaded":
         return _PRELOADED[params["name"]]
+    if t == "hpatches":
+        from keypoint_bench_tpu_torch.datasets.pairs import HPatchesDataset
+        return HPatchesDataset(params["root"], params.get("alteration", "all"),
+                               params.get("image_size", 512),
+                               params.get("gray", False))
+    if t == "megadepth":
+        from keypoint_bench_tpu_torch.datasets.pairs import MegaDepthDataset
+        return MegaDepthDataset(params["root"],
+                                params.get("image_size", 512),
+                                params.get("gray", False),
+                                params.get("train", False),
+                                params.get("crop_or_scale", "scale"))
+    if t == "image_pair":
+        from keypoint_bench_tpu_torch.datasets.pairs import ImagePairsDataset
+        resize = ([params["image_size"]] * 2
+                  if "image_size" in params else None)
+        return ImagePairsDataset(params["root"], params.get("gray", False),
+                                 resize)
+    if t == "kitti":
+        from keypoint_bench_tpu_torch.datasets.sequences import KittiDataset
+        return KittiDataset(params["root"], params["gt"],
+                            params.get("gray", False))
+    if t == "tartanair":
+        from keypoint_bench_tpu_torch.datasets.sequences import \
+            TartanAirDataset
+        return TartanAirDataset(params["root"], params["gt"],
+                                params.get("gray", False))
+    if t == "euroc":
+        from keypoint_bench_tpu_torch.datasets.sequences import EurocDataset
+        return EurocDataset(params["root"], params.get("gray", False))
+    if t == "uma":
+        from keypoint_bench_tpu_torch.datasets.sequences import UMADataset
+        return UMADataset(params["root"], params.get("gray", False))
+    if t == "video":
+        from keypoint_bench_tpu_torch.datasets.sequences import VideoDataset
+        return VideoDataset(params["root"], params.get("gray", False))
+    if t == "images":
+        from keypoint_bench_tpu_torch.datasets.sequences import ImagesDataset
+        return ImagesDataset(params["root"], params.get("gray", False))
     if t == "synthetic_homography":
         from keypoint_bench_tpu_torch.datasets.synthetic import \
             SyntheticHomographyDataset
@@ -42,5 +84,4 @@ def get_dataset(params: dict):
         return SyntheticSequenceDataset(params.get("num_frames", 10),
                                         params.get("image_size", 256),
                                         params.get("seed", 0))
-    raise NotImplementedError(
-        f"dataset type {t!r} is not ported yet (ROADMAP.md, Queue 1)")
+    raise ValueError(f"invalid dataset type {t!r}")

@@ -98,43 +98,47 @@ class _SplatScene:
     """The 3D gaussian-splat renderer of SyntheticSE3Dataset (its
     intrinsics, `_plane`, `_background` and `_render`): random blobs
     z-buffer-splatted over two textured planes at different depths, which
-    break the single-plane degeneracy."""
+    break the single-plane degeneracy. Square at image_size with its own
+    intrinsics by default; `width` and `K` render a height x width frame
+    through other intrinsics (the file-backed datasets' cameras)."""
 
     _BG_DEPTHS = (30.0, 14.0)
 
-    def __init__(self, image_size: int):
-        self.s = image_size
+    def __init__(self, image_size: int, width: int | None = None,
+                 K: np.ndarray | None = None):
+        self.h = image_size
+        self.w = image_size if width is None else width
         f = image_size * 0.9
         self.K = np.array([[f, 0, image_size / 2],
-                           [0, f, image_size / 2], [0, 0, 1]], np.float32)
+                           [0, f, image_size / 2], [0, 0, 1]], np.float32) \
+            if K is None else np.asarray(K, np.float32)
 
     def _plane(self, tex, R, t, d):
         """One textured fronto-parallel plane at depth d (cam0 frame)
         rendered into camera (R, t): (image, exact depth, cam0-visibility
         mask)."""
-        s = self.s
+        h, w = self.h, self.w
         n = np.array([0.0, 0.0, 1.0])
         H = self.K @ (R + np.outer(t, n) / d) @ np.linalg.inv(self.K)
         img = _warp_image(tex, np.linalg.inv(H))
-        ys, xs = np.mgrid[0:s, 0:s]
-        p1 = np.stack([xs.ravel(), ys.ravel(), np.ones(s * s)], axis=1)
+        ys, xs = np.mgrid[0:h, 0:w]
+        p1 = np.stack([xs.ravel(), ys.ravel(), np.ones(h * w)], axis=1)
         p0 = p1 @ np.linalg.inv(H).T
         p0 = p0 / p0[:, 2:]
-        inb = ((p0[:, 0] >= 0) & (p0[:, 0] <= s - 1)
-               & (p0[:, 1] >= 0) & (p0[:, 1] <= s - 1)).reshape(s, s)
+        inb = ((p0[:, 0] >= 0) & (p0[:, 0] <= w - 1)
+               & (p0[:, 1] >= 0) & (p0[:, 1] <= h - 1)).reshape(h, w)
         ray0 = p0 @ np.linalg.inv(self.K).T
         X0 = ray0 * (d / ray0[:, 2:])
         X1 = X0 @ R.T + t
-        depth = X1[:, 2].reshape(s, s).astype(np.float32)
-        return img, depth, inb & (p0[:, 0].reshape(s, s) < s / 2)
+        depth = X1[:, 2].reshape(h, w).astype(np.float32)
+        return img, depth, inb & (p0[:, 0].reshape(h, w) < w / 2)
 
     def _background(self, tex, R, t):
-        s = self.s
         d_far, d_near = self._BG_DEPTHS
         img, depth, _ = self._plane(tex, R, t, d_far)
         # the nearer plane takes the left half of the cam0 view, with
         # another crop of the texture
-        tex2 = np.roll(tex, (s // 3, s // 3), axis=(0, 1))
+        tex2 = np.roll(tex, (self.h // 3, self.w // 3), axis=(0, 1))
         img2, depth2, mask2 = self._plane(tex2, R, t, d_near)
         m = mask2[..., None]
         img = np.where(m, img2, img)
@@ -143,8 +147,8 @@ class _SplatScene:
 
     def _render(self, X, colors, R, t, tex):
         """Splat 3D points X [N,3] over the textured planes with a
-        z-buffer. Returns (image [S,S,3], depth [S,S])."""
-        s = self.s
+        z-buffer. Returns (image [H,W,3], depth [H,W]); `tex` is [H,W,3]."""
+        h, w = self.h, self.w
         img, depth = self._background(tex, R, t)
         zbuf = depth.copy()
         Xc = X @ R.T + t
@@ -157,7 +161,7 @@ class _SplatScene:
             if not front[i]:
                 continue
             u, v = uv[i, 0], uv[i, 1]
-            if not (rad <= u < s - rad and rad <= v < s - rad):
+            if not (rad <= u < w - rad and rad <= v < h - rad):
                 continue
             ui, vi = int(u), int(v)
             ys, xs = np.mgrid[vi - rad: vi + rad + 1, ui - rad: ui + rad + 1]

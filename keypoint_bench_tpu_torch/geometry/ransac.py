@@ -45,7 +45,14 @@ def _solve_dlt_h(p0: torch.Tensor, p1: torch.Tensor,
                  w: torch.Tensor) -> torch.Tensor:
     """Weighted homography DLT: p0, p1 [..., N, 2], w [..., N] -> H
     [..., 3, 3] mapping p0 to p1, the right singular vector of the
-    smallest singular value of A^T A for the weighted [2N, 9] design A."""
+    smallest singular value of A^T A for the weighted [2N, 9] design A.
+
+    The hypotheses solve raw pixel coordinates, as the reference does, so
+    A^T A spans 1 to ~1e11 at 800 px. LAPACK's float32 SVD (the CPU, and
+    the JAX package on the CPU) keeps its smallest singular vector;
+    cuSOLVER's batched float32 SVD loses it (no hypothesis with a second
+    inlier on most HPatches-sized pairs), so on CUDA the SVD runs in
+    float64 on the float32 A^T A, and H comes back in float32."""
     x, y = p0[..., 0], p0[..., 1]
     u, v = p1[..., 0], p1[..., 1]
     z = torch.zeros_like(x)
@@ -53,7 +60,11 @@ def _solve_dlt_h(p0: torch.Tensor, p1: torch.Tensor,
     r1 = torch.stack([-x, -y, -o, z, z, z, u * x, u * y, u], dim=-1)
     r2 = torch.stack([z, z, z, -x, -y, -o, v * x, v * y, v], dim=-1)
     a = torch.cat([r1 * w[..., None], r2 * w[..., None]], dim=-2)
-    _, _, vh = torch.linalg.svd(a.transpose(-1, -2) @ a)
+    ata = a.transpose(-1, -2) @ a
+    if ata.is_cuda:
+        vh = torch.linalg.svd(ata.double())[2].to(ata.dtype)
+    else:
+        vh = torch.linalg.svd(ata)[2]
     return vh[..., -1, :].unflatten(-1, (3, 3))
 
 

@@ -17,9 +17,18 @@ runner fails. `precision: bfloat16` casts the model's weights
 stay f32, and every path matches the descriptors the JAX runner's
 per-pair and pipelined paths match (its bf16 `match_dtype` serves only
 the sharded batch paths). Other tasks, adaptive LightGlue, the five-point
-solver, save_images, the resume journal, debug_nans, the distributed BA
+solver, save_images, debug_nans, the distributed BA
 (`task_params.ba_distributed`) and the sharded batch paths (brute-force
 MHA and AUC, repeatability) raise NotImplementedError (ROADMAP.md).
+
+`resume: true` re-enters a run from its `progress.jsonl` journal
+(`MetricLog`) on the paths the JAX runner journals: per-pair
+repeatability, MHA and AUC, and the pair-by-pair visual_odometer. A
+resumed run replays the journal's records and computes only the rest. As
+in the JAX runner, whose RANSAC keys come from `next_key()` only for the
+pairs it computes, the generator's draws are not spent on replayed pairs,
+so the RANSAC draws of the pairs after the cut differ from an uncut run's
+(MHA, AUC and VO; repeatability draws nothing).
 """
 from __future__ import annotations
 
@@ -105,6 +114,74 @@ _DESC_FLOW_MODELS = ("LETNet", "GoodPoint")
 _PARAM_MODELS = ("Harris", "ORB", "SIFT")
 
 
+class MetricLog:
+    """Incremental per-sample metric journal enabling crash resume: the
+    port's copy of the JAX runner's, with the same `progress.jsonl`
+    format (a `{"meta": ...}` line, then one `{"i": ..., ...}` line a
+    pair)."""
+
+    def __init__(self, output_dir: str, resume: bool,
+                 meta: dict | None = None):
+        """`meta` guards resume against config drift: the journal's first
+        line records it, and a resume whose meta differs (e.g. MHA `th` list
+        changed) discards the journal instead of replaying records whose
+        keys/values no longer mean the same thing."""
+        os.makedirs(output_dir, exist_ok=True)
+        self.path = os.path.join(output_dir, "progress.jsonl")
+        self.done: dict[int, dict] = {}
+        keep = False
+        if resume and os.path.exists(self.path):
+            journal_meta = None
+            recs = []
+            with open(self.path) as f:
+                for line in f:
+                    try:
+                        rec = json.loads(line)
+                    except json.JSONDecodeError:
+                        continue
+                    if "meta" in rec:
+                        journal_meta = rec["meta"]
+                    elif "i" in rec:
+                        recs.append(rec)
+            if meta is None or journal_meta == meta:
+                keep = True
+                self.done = {rec["i"]: rec for rec in recs}
+        if not keep and os.path.exists(self.path):
+            os.remove(self.path)
+        self._f = open(self.path, "a")
+        if not keep and meta is not None:
+            self._f.write(json.dumps({"meta": meta}) + "\n")
+            self._f.flush()
+        self._pending: list[tuple[int, dict]] = []
+
+    def get(self, i: int):
+        return self.done.get(i)
+
+    # Values may be device scalars: conversion (float()) waits for the
+    # device, so writes lag by `_FLUSH_DEPTH` pairs and the device runs
+    # ahead while older results drain (a crash loses at most that many
+    # journal lines, which simply recompute on resume).
+    _FLUSH_DEPTH = 8
+
+    def put(self, i: int, rec: dict):
+        self._pending.append((i, rec))
+        while len(self._pending) > self._FLUSH_DEPTH:
+            self._write(*self._pending.pop(0))
+        return rec
+
+    def _write(self, i: int, rec: dict):
+        rec = {"i": i, **{k: (v if isinstance(v, (str, int, list, bool))
+                              else float(v)) for k, v in rec.items()}}
+        self._f.write(json.dumps(rec) + "\n")
+        self._f.flush()
+
+    def close(self):
+        for i, rec in self._pending:
+            self._write(i, rec)
+        self._pending = []
+        self._f.close()
+
+
 def _not_ported(what: str):
     return NotImplementedError(
         f"{what} is not ported to keypoint_bench_tpu_torch yet (ROADMAP.md, "
@@ -116,8 +193,6 @@ class Evaluator:
         self.cfg = cfg
         self.device = resolve_device(device)
         check_precision(cfg.precision)
-        if cfg.resume:
-            raise _not_ported("resume")
         if cfg.debug_nans:
             raise _not_ported("debug_nans")
         if cfg.model_type in _PARAM_MODELS:
@@ -287,7 +362,10 @@ class Evaluator:
         if self.cfg.task_params.get("save_images"):
             raise _not_ported("task_params.save_images")
         th = float(self.cfg.task_params.get("th", 3.0))
-        recs = [self._rep_pair_record(ds[i], th)[0] for i in range(len(ds))]
+        log = MetricLog(self.cfg.output_dir, self.cfg.resume,
+                        meta={"task": "repeatability", "th": th})
+        recs = self._journaled(log, ds, lambda batch: self._rep_pair_record(
+            batch, th)[0])
         reps = [float(r["repeatability"]) for r in recs]
         errs = np.asarray([float(r["mean_error"]) for r in recs])
         result = {
@@ -300,6 +378,22 @@ class Evaluator:
         print("repeatability", result["repeatability"],
               " rep_mean_err", result["rep_mean_err"])
         return result
+
+    @staticmethod
+    def _journaled(log: MetricLog, ds, record) -> list[dict]:
+        """Every pair's record: the journal's where it has one (the pair is
+        not loaded), else `record(ds[i])`, journaled; closes the log, also
+        when a pair raises (what was computed stays for a resume)."""
+        recs = []
+        try:
+            for i in range(len(ds)):
+                rec = log.get(i)
+                if rec is None:
+                    rec = log.put(i, record(ds[i]))
+                recs.append(rec)
+        finally:
+            log.close()
+        return recs
 
     def _pair_maps(self, batch):
         """Detections of one pair; uint8 frames are normalized in the model
@@ -331,8 +425,11 @@ class Evaluator:
         if self.cfg.task_params.get("save_images"):
             raise _not_ported("task_params.save_images")
         ths = tuple(self.cfg.task_params.get("th", [3, 5, 7]))
-        recs = [self._mha_pair_record(ds[i], ths) for i in range(len(ds))]
-        hits = [np.array([r[f"h{t:g}"] for t in ths]) for r in recs]
+        log = MetricLog(self.cfg.output_dir, self.cfg.resume,
+                        meta={"task": "MHA", "th": [float(t) for t in ths]})
+        recs = self._journaled(log, ds, lambda batch: self._mha_pair_record(
+            batch, ths))
+        hits = [np.array([float(r[f"h{t:g}"]) for t in ths]) for r in recs]
         mean = np.mean(np.stack(hits), axis=0)
         result = {f"MHA@{t:g}": float(v) for t, v in zip(ths, mean)}
         for v in mean:
@@ -374,7 +471,11 @@ class Evaluator:
         if self.cfg.task_params.get("save_images"):
             raise _not_ported("task_params.save_images")
         ths = tuple(self.cfg.task_params.get("th", [5, 10, 20]))
-        recs = [self._auc_pair_record(ds[i]) for i in range(len(ds))]
+        log = MetricLog(self.cfg.output_dir, self.cfg.resume,
+                        meta={"task": "AUC",
+                              "solver": self.cfg.task_params.get("solver",
+                                                                 "8pt")})
+        recs = self._journaled(log, ds, self._auc_pair_record)
         errors = [float(r["error"]) for r in recs]
         inliers = [float(r["inliers"]) for r in recs]
         aucs = pose_auc(errors, ths)
@@ -588,34 +689,47 @@ class Evaluator:
         if self.cfg.task_params.get("pipelined") and \
                 self.matcher_type == "brute_force":
             return self._run_vo_pipelined(ds)
+        log = MetricLog(self.cfg.output_dir, self.cfg.resume)
         rel_R, rel_t, oks, scales = [], [], [], []
-        for last, batch in self._iter_sequence(ds):
-            img0, img1, s0, d0, k0, v0, s1, d1, k1, v1 = \
-                self._seq_maps(last, batch)
-            h, w = img1.shape[0], img1.shape[1]
-            if self.matcher_type in ("optical_flow", "optical_flow_cv"):
-                m0, m1, ok = self._match(
-                    k0, v0, k1, v1, d0, d1, w, h,
-                    imgs=self._flow_sources(img0, img1, d0, d1))
-                if self.matcher_type == "optical_flow":
-                    ok = ok & ((m1[:, 0:2] >= 0) & (m1[:, 0:2] <= 1)).all(-1)
-            else:
-                m0, m1, ok = self._match(k0, v0, k1, v1, d0, d1, w, h)
-            scale = torch.tensor([w - 1.0, h - 1.0], device=self.device)
-            R, t, _, okp = vo_pair_pose(
-                m0[:, 0:2] * scale, m1[:, 0:2] * scale, ok,
-                float(batch["fx"]), float(batch["cx"]), float(batch["cy"]),
-                self.generator)
-            rel_R.append(R)
-            rel_t.append(t)
-            oks.append(okp)
-            gt = np.asarray(batch["ground_truth"])
-            gt_prev = np.asarray(batch["last_ground_truth"])
-            scales.append(float(np.linalg.norm(gt[0:3, 3] - gt_prev[0:3, 3])))
-        R_est, t_est = chain_poses(
-            torch.stack(rel_R).cpu().numpy(), torch.stack(rel_t).cpu().numpy(),
-            torch.stack(oks).cpu().numpy(), np.asarray(scales))
+        try:
+            for i, (last, batch) in enumerate(self._iter_sequence(ds)):
+                rec = log.get(i)
+                if rec is None:
+                    rec = log.put(i, self._vo_pair_record(last, batch))
+                rel_R.append(np.asarray(rec["R"]).reshape(3, 3))
+                rel_t.append(np.asarray(rec["t"]))
+                oks.append(bool(rec["ok"]))
+                scales.append(float(rec["scale"]))
+        finally:
+            log.close()
+        R_est, t_est = chain_poses(np.stack(rel_R), np.stack(rel_t),
+                                   np.asarray(oks), np.asarray(scales))
         return self._vo_result(R_est, t_est)
+
+    def _vo_pair_record(self, last, batch) -> dict:
+        """One pair's relative pose (the record the journal keeps) and the
+        ground-truth scale between its frames."""
+        img0, img1, s0, d0, k0, v0, s1, d1, k1, v1 = \
+            self._seq_maps(last, batch)
+        h, w = img1.shape[0], img1.shape[1]
+        if self.matcher_type in ("optical_flow", "optical_flow_cv"):
+            m0, m1, ok = self._match(
+                k0, v0, k1, v1, d0, d1, w, h,
+                imgs=self._flow_sources(img0, img1, d0, d1))
+            if self.matcher_type == "optical_flow":
+                ok = ok & ((m1[:, 0:2] >= 0) & (m1[:, 0:2] <= 1)).all(-1)
+        else:
+            m0, m1, ok = self._match(k0, v0, k1, v1, d0, d1, w, h)
+        scale = torch.tensor([w - 1.0, h - 1.0], device=self.device)
+        R, t, _, okp = vo_pair_pose(
+            m0[:, 0:2] * scale, m1[:, 0:2] * scale, ok,
+            float(batch["fx"]), float(batch["cx"]), float(batch["cy"]),
+            self.generator)
+        gt = np.asarray(batch["ground_truth"])
+        gt_prev = np.asarray(batch["last_ground_truth"])
+        return {"R": R.cpu().numpy().reshape(-1).tolist(),
+                "t": t.cpu().numpy().tolist(), "ok": bool(okp),
+                "scale": float(np.linalg.norm(gt[0:3, 3] - gt_prev[0:3, 3]))}
 
 
 def _iter(ds):

@@ -227,8 +227,7 @@ def test_cli_runs_fund_synthetic_config_on_cpu(tmp_path, capsys):
       "matcher_params": {"type": "brute_force"},
       "task_params": {"pipelined": True, "ba_refine": True,
                       "ba_distributed": True}}, "visual_odometer"),
-    ({"task_type": "VisualizeTrackingError"}, "VisualizeTrackingError"),
-    ({"data_params": {"type": "kitti", "root": "x", "gt": "y"}}, "kitti")])
+    ({"task_type": "VisualizeTrackingError"}, "VisualizeTrackingError")])
 def test_unported_parts_raise(tmp_path, change, what):
     cfg = {**_cfg(tmp_path), **change}
     with pytest.raises(NotImplementedError, match=what):

@@ -162,7 +162,9 @@ def test_registry_sequence_types_and_preloaded():
     np.testing.assert_array_equal(pre[1]["fundamental"], ds.Fs[1])
     with pytest.raises(ValueError):
         tsyn.SyntheticSequenceDataset(num_frames=400, image_size=64)
-    with pytest.raises(NotImplementedError):
+    # the file-backed types are ported: a missing ground-truth file raises
+    # FileNotFoundError, as the JAX package's loader does
+    with pytest.raises(FileNotFoundError):
         get_dataset({"type": "tartanair", "root": "x", "gt": "y"})
 
 

@@ -223,3 +223,51 @@ def test_cpu_tensors_take_the_plain_twin_without_building(monkeypatch):
     lk = _lk_args()
     assert torch.equal(cuda_lk.lk_level(*lk), _lk_level(*lk))
     assert [k.launches for k in kernels] == before
+
+
+_READERS = ("cv2", "PIL", "h5py")
+
+
+@pytest.mark.parametrize("path", _port_files(),
+                         ids=lambda p: os.path.relpath(p, ROOT))
+def test_no_eager_cv2_pil_h5py_imports(path):
+    """The card's machine has no OpenCV, PIL or h5py: a module imports
+    them, if at all, inside the function that reads such a file."""
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    for node in tree.body:
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module]
+        else:
+            continue
+        bad = [n for n in names if n.split(".")[0] in _READERS]
+        assert not bad, f"{path}:{node.lineno} imports {bad} eagerly"
+
+
+def test_the_port_imports_with_cv2_pil_h5py_blocked():
+    """Every module of the port, and chip_smoke.py, import where cv2, PIL
+    and h5py cannot, and the file-backed registry builds its loaders."""
+    code = (
+        "import importlib, sys, runpy\n"
+        f"for m in {_READERS!r} + ('PIL.Image',):\n"
+        "    sys.modules[m] = None\n"
+        f"for m in {_modules()!r}:\n"
+        "    importlib.import_module(m)\n"
+        f"runpy.run_path({os.path.join(ROOT, 'chip_smoke.py')!r}, "
+        "run_name='not_main')\n"
+        "from keypoint_bench_tpu_torch.datasets import registry\n"
+        "for t in ('hpatches', 'image_pair', 'kitti', 'megadepth'):\n"
+        "    try:\n"
+        "        registry.get_dataset({'type': t, 'root': '/nonexistent/',\n"
+        "                              'gt': '/nonexistent.txt'})\n"
+        "    except (OSError, ImportError) as e:\n"
+        "        assert not isinstance(e, ImportError), (t, e)\n"
+        "print('LOADED', sorted(m for m in sys.modules if m.split('.')[0]\n"
+        f"      in {_READERS!r} and sys.modules[m] is not None))\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert "LOADED []" in res.stdout

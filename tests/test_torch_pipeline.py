@@ -136,8 +136,7 @@ def test_runner_normalizes_uint8(tmp_path):
     pytest.param("task_type", "AUC", {
         "task_params": {"solver": "5pt"},
         "data_params": {"type": "synthetic_se3", "num_pairs": 1,
-                        "image_size": 64}}, id="task_type-AUC"),
-    pytest.param("resume", True, {}, id="resume-True")])
+                        "image_size": 64}}, id="task_type-AUC")])
 def test_unported_options_raise(tmp_path, field, value, extra):
     cfg = {**_config(tmp_path, "x"), field: value, **extra}
     with pytest.raises(NotImplementedError, match="ROADMAP"):

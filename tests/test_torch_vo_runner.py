@@ -292,8 +292,7 @@ def test_vo_step_matches_the_pipelined_runner(tmp_path):
 @pytest.mark.parametrize("change,exc,what", [
     ({"task_params": {"pipelined": True, "ba_refine": True,
                       "ba_distributed": True}}, NotImplementedError,
-     "ba_distributed"),
-    ({"resume": True}, NotImplementedError, "resume")])
+     "ba_distributed")])
 def test_vo_runner_raises(tmp_path, change, exc, what):
     cfg = {**_cfg(tmp_path, frames=2), **change}
     with pytest.raises(exc, match=what):
