@@ -212,8 +212,10 @@ Phases, each fatal on failure:
      0.05 of phase 6's f32 run;
  32. an `xfeat_auc_step` JSON line, a `vo_step` JSON line, a
      `dense_extract_match` JSON line, a `bf16` JSON line, a `file_backed`
-     JSON line, the card's name and power limit, a `kernels` JSON line
-     and, last, the device JSON line (after phases 33-40).
+     JSON line, a JSON line of phases 41-44 (`adaptive_lightglue`,
+     `five_point`, `tracking_error`), the card's name and power limit, a
+     `kernels` JSON line and, last, the device JSON line (after phases
+     33-44).
 The file-backed datasets (`file_phases`), before phase 32's lines; each
 writes its tree in a temporary directory (PNGs with this script's own
 zlib encoder, `png_bytes`, every row filter in turn) and runs a shipped
@@ -262,6 +264,49 @@ for its time a pair and the share of it its dataset's loads took:
      px); each timed (events back to back, and the profiler's device time
      of a call) beside its plain version and its bound, D beside baddbmm +
      both minima.
+Adaptive LightGlue, the five-point solver and VisualizeTrackingError,
+after phase 40, each run with the launch counts reset just before it and
+read just after:
+ 41. adaptive LightGlue (`models/lightglue_adaptive.py`) on SuperPoint's
+     keypoints and descriptors of the first 8 homography pairs at 512^2,
+     K = 1000, one pair at a time: in the runner's mode (depth 0.95,
+     width 0.99; the randomized weights stop at layer 4) and in a pruning
+     mode (no early stop, descriptors at the golden fixture's norm 16, so
+     the masks shrink over the layers down to empty sides); each pair on
+     the card against its plain twin: layers run, every layer's keep
+     counts and the matches equal, or parted only where a stop or keep
+     decision lay within 1e-5 of its threshold (the smallest such margin
+     printed); kernel E twice a layer, within 1e-5 of max(1, max |v|) of
+     fused_attention on its own calls; the host reads of `stop`; the
+     adaptive pair timed in turns with the fixed-depth pair, and kernel E
+     on a pair's own calls timed in turns with
+     scaled_dot_product_attention on the same masks, beside the plain
+     twin and the bound of the valid queries and keys; then the MHA
+     runner with `light_glue_params.adaptive` on 4 pairs against its
+     plain twin;
+ 42. kernel E on an emptied side: the pruning run's calls whose mask
+     leaves a slice no valid key (its rows uniform), and [2,4,1000,64]
+     with side 0 all invalid, within 1e-5 of fused_attention;
+ 43. the five-point solver (`geometry/fivepoint.py`) on phase 17's
+     ground-truth correspondences: the candidates of 64 fixed samples a
+     pair, card against the CPU (the share of samples whose best valid
+     candidate recovers the pose within 1 degree, over 75% and within 2%
+     of each other, and the median gap of their poses within 0.1 degree,
+     beside the CPU against itself on inputs moved by 1e-7);
+     `ransac_essential_5pt_from_samples` over 512 samples a pair, card
+     against the CPU: ok equal, inliers equal except at Sampson residuals
+     within 1e-6 of the threshold; `estimate_pose_pair` with solver 5pt
+     timed in turns with the 8-point path, its candidate stage and its
+     host syncs; the AUC runner with solver 5pt (phase 18's ALIKE-t +
+     brute force: XFeat has no LightGlue adapter in the runner) against
+     its plain twin, with phase 18's gates;
+ 44. VisualizeTrackingError through the runner, ALIKE-t (on the frames)
+     and LETNet (on its descriptor maps), 4 homography pairs at 512^2,
+     configs/fund_synthetic.yaml's LK protocol: kernel A twice and F
+     three times a pair, F starting from the warped points and held on
+     its own calls (99% of the points within 1e-2 px); track_error
+     against the plain twin within 1e-3 relative at LK distance 0 and
+     within 1e-3 px at distance 10; ms a pair.
 Exits non-zero without CUDA, or without the port's package beside it.
 """
 from __future__ import annotations
@@ -1086,6 +1131,7 @@ def auc_phases(dev, dp, card, errs):
             samples=samples.cpu())
         e_c64 = pose_error(R, t, poses.double()).cpu()
         e_h64 = pose_error(Rc, tc, poses.double().cpu())
+        out["ground_truth"] = (g0, g1, vw, Ks, poses)   # for phase 43
         out["ransac_card_vs_cpu_deg"] = {
             "float32": float((e_c - e_h).abs().max()),
             "float64": float((e_c64 - e_h64).abs().max())}
@@ -3447,6 +3493,464 @@ def file_phases(dev, card, errs):
     return out
 
 
+ADAPT_PAIRS, TRACK_PAIRS = 8, 4          # adaptive pairs; tracking pairs
+# configs/fund_synthetic.yaml's LK protocol (configs/fund_tartanair.yaml's)
+TRACK_LK = {"distance": 10, "win_size": 21, "levels": 3, "interation": 40}
+
+
+def adaptive_attention_bound(calls):
+    """(ms, bound_by) of kernel E over the calls of one adaptive pair at
+    K0 = K1 (a stacked self call, then a stacked cross call, a layer):
+    q, k, v and the mask read once, the output written once; 4*dh FLOPs
+    per valid query and valid key of a slice (QK^T and PV) at the f32 FMA
+    rate, the count this run's masks need. A self call's queries are its
+    keys; a cross call's queries are the self call's before it."""
+    t_bytes = t_ops = 0.0
+    for j, (args, _) in enumerate(calls):
+        q, k, v, kv = args[:4]
+        qmask = calls[j - j % 2][0][3]
+        t_bytes += (4 * (2 * q.numel() + k.numel() + v.numel())
+                    + kv.numel()) / PEAK_BYTES
+        nq = qmask.reshape(-1, qmask.shape[-1]).sum(-1).double()
+        mk = kv.reshape(-1, kv.shape[-1]).sum(-1).double()
+        t_ops += 4 * q.shape[-1] * float((nq * mk).sum()) / PEAK_F32
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def adaptive_phases(dev, card, errs, ctx):
+    """Adaptive LightGlue at full width (phases 41-42): SuperPoint's
+    keypoints and descriptors of the main path's first ADAPT_PAIRS pairs,
+    one pair at a time, in the runner's default mode and in a pruning
+    mode; kernel E on an emptied side; the MHA runner in adaptive mode.
+    Returns the numbers for the kernels JSON line."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from keypoint_bench_tpu_torch.models.lightglue import (
+        lightglue_forward, sample_descriptors_lg)
+    from keypoint_bench_tpu_torch.models.lightglue_adaptive import \
+        lightglue_forward_adaptive
+    from keypoint_bench_tpu_torch.ops import cuda_attention
+    from keypoint_bench_tpu_torch.ops.attention import fused_attention
+    from keypoint_bench_tpu_torch.runner import EvalConfig, Evaluator
+
+    out = {}
+    sk0, sva, sdm0, sk1, svb, sdm1 = ctx["superpoint"]
+    lg = ctx["lightglue"]
+    # (options, descriptor scale): the runner's mode (the reference's
+    # defaults) on the sampled unit descriptors, where the randomized
+    # weights stop at layer 4 and prune little; and a mode that never
+    # stops early, on descriptors of the golden fixture's norm (16, that of
+    # its Gaussian 256-vectors), where they prune at several layers down
+    # to empty sides
+    modes = {"default": ({}, 1.0),
+             "pruning": ({"depth_confidence": 1.1}, 16.0)}
+    with torch.inference_mode():
+        pairs = []
+        for i in range(ADAPT_PAIRS):
+            p0, p1 = sk0[i, :, :2] * (SIZE - 1.0), sk1[i, :, :2] * (SIZE - 1.0)
+            pairs.append((p0, sva[i], sample_descriptors_lg(p0, sdm0[i], 8),
+                          p1, svb[i], sample_descriptors_lg(p1, sdm1[i], 8)))
+
+    def run(args, mode, plain=False):
+        opts, scale = modes[mode]
+        p0, v0, d0, p1, v1, d1 = args
+        stats = {}
+        with plain_twins() if plain else contextlib.nullcontext():
+            m0, _, ok, i_fin = lightglue_forward_adaptive(
+                lg, p0, v0, d0 * scale, p1, v1, d1 * scale, stats=stats,
+                **opts)
+        return {"m0": m0, "ok": ok, "i_fin": i_fin,
+                "keep": [(int(a), int(b)) for a, b in stats["keep"]],
+                "margin": min((float(m) for m in stats["margin"]),
+                              default=float("inf")),
+                "syncs": stats["syncs"]}
+
+    own_calls = {}
+    with phase(f"adaptive LightGlue: SuperPoint, {ADAPT_PAIRS} pairs at "
+               f"{SIZE}^2, K={K}, one pair at a time, card vs plain twin"):
+        for mode in modes:
+            rows, e_err = [], 0.0
+            for i, args in enumerate(pairs):
+                reset_launches()
+                with recording(cuda_attention, "attention_cuda") as calls:
+                    got = run(args, mode)
+                    torch.cuda.synchronize()
+                n_e = read_launches()["attention"]
+                want = run(args, mode, plain=True)
+                for a, kw in calls:
+                    e = float((cuda_attention.attention_cuda(*a, **kw)
+                               - fused_attention(*a, **kw)).abs().max())
+                    scale = max(1.0, float(a[2].abs().max()))
+                    e_err = max(e_err, e / scale)
+                    if not e <= 1e-5 * scale:
+                        raise AssertionError(f"kernel E differs from "
+                                             f"fused_attention on pair {i}'s "
+                                             f"calls ({mode}): {e}")
+                errs["attention"] = max(errs["attention"], e_err)
+                if i == 0:
+                    own_calls[mode] = list(calls)
+                same = (got["i_fin"] == want["i_fin"]
+                        and got["keep"] == want["keep"]
+                        and torch.equal(got["m0"], want["m0"]))
+                margin = min(got["margin"], want["margin"])
+                log(f"  {mode} pair {i}: i_fin {got['i_fin']} (plain "
+                    f"{want['i_fin']}); keep counts {got['keep']}; smallest "
+                    f"margin {margin:.3g}; kernel E launches {n_e}; host "
+                    f"reads of stop {got['syncs']}; matches "
+                    f"{int(got['ok'].sum())}; equal to the plain twin {same}")
+                if n_e != 2 * got["i_fin"]:
+                    raise AssertionError(f"adaptive pair {i} launched kernel "
+                                         f"E {n_e} times in {got['i_fin']} "
+                                         f"layers")
+                if not same and not margin < 1e-5:
+                    raise AssertionError(f"adaptive pair {i} ({mode}) parted "
+                                         f"from its plain twin at a margin "
+                                         f"of {margin:.3g}")
+                rows.append({"i_fin": got["i_fin"], "keep": got["keep"],
+                             "margin": margin, "launches": n_e,
+                             "syncs": got["syncs"], "plain_equal": same})
+            out[mode] = {"pairs": rows, "e_err_over_v_scale": e_err,
+                         "i_fin_median": statistics.median(
+                             r["i_fin"] for r in rows),
+                         "min_margin": min(r["margin"] for r in rows)}
+        shrunk = [r for r in out["pruning"]["pairs"]
+                  if len(set(r["keep"])) > 2]
+        if not shrunk:
+            raise AssertionError("the pruning mode shrank no pair's masks "
+                                 "layer by layer")
+
+        syncs = host_syncs(lambda: lightglue_forward_adaptive(lg, *pairs[0]))
+        out["host_syncs_per_pair"] = len(syncs)
+        log(f"  synchronizing operations in one default pair: {len(syncs)} "
+            f"{sorted(set(syncs))[:2]}")
+        ad, fx = timed_in_turns(
+            lambda: [lightglue_forward_adaptive(lg, *a) for a in pairs],
+            lambda: [lightglue_forward(lg, *a) for a in pairs])
+        out["ms_adaptive_pair"] = statistics.median(ad) * 1e3 / ADAPT_PAIRS
+        out["ms_fixed_depth_pair"] = statistics.median(fx) * 1e3 / ADAPT_PAIRS
+        log(f"  a pair in turns, host clock: adaptive "
+            f"{out['ms_adaptive_pair']:.4f} ms, fixed depth (9 layers) "
+            f"{out['ms_fixed_depth_pair']:.4f} ms on {card}")
+
+        def sdpa_calls(calls):
+            masks = [torch.where(a[3], 0.0, -1e9)[..., None, :]
+                     for a, _ in calls]
+            return lambda: [F.scaled_dot_product_attention(
+                a[0], a[1], a[2], attn_mask=m, scale=a[4])
+                for (a, _), m in zip(calls, masks)]
+
+        for mode, calls in own_calls.items():
+            n = len(calls)
+            e_ms, lib_ms, turns = in_turns(
+                lambda: [cuda_attention.attention_cuda(*a, **kw)
+                         for a, kw in calls], sdpa_calls(calls))
+            plain_ms = cuda_ms(lambda: [fused_attention(*a, **kw)
+                                        for a, kw in calls], iters=3)
+            bound, by = adaptive_attention_bound(calls)
+            out[mode].update(e_ms_call=e_ms / n, sdpa_ms_call=lib_ms / n,
+                             plain_ms_call=plain_ms / n,
+                             bound_ms_call=bound / n, bound_by=by, calls=n)
+            log(f"  kernel E on pair 0's {n} calls ({mode}, "
+                f"{tuple(calls[0][0][0].shape)}): {e_ms / n:.4f} ms a call, "
+                f"sdpa {lib_ms / n:.4f}, plain {plain_ms / n:.4f}, bound "
+                f"{bound / n:.4f} ({by}); in turns kernel, sdpa, sdpa, "
+                f"kernel {[round(t / n, 4) for t in turns]} on {card}")
+
+    with phase("kernel E on an emptied side"):
+        emptied = [(a, kw) for a, kw in own_calls["pruning"]
+                   if bool((~a[3].flatten(0, -2).any(-1)).any())]
+        for mode in modes:
+            for a, kw in own_calls[mode]:
+                got = cuda_attention.attention_cuda(*a, **kw)
+                dead = ~a[3].any(-1)               # [2, 4]: slices with no key
+                if bool(dead.any()):
+                    uni = a[2].mean(-2, keepdim=True).expand_as(got)
+                    if not torch.allclose(got[dead], uni[dead], atol=1e-5,
+                                          rtol=1e-5):
+                        raise AssertionError("an emptied side's rows are not "
+                                             "uniform")
+        gen = torch.Generator(device=dev).manual_seed(41)
+        q, k, v = (torch.randn((2, 4, K, 64), device=dev, generator=gen)
+                   for _ in range(3))
+        kv = torch.stack([torch.zeros(K, dtype=torch.bool, device=dev),
+                          torch.rand(K, device=dev, generator=gen) > 0.5])
+        got = cuda_attention.masked_attention(
+            q, k, v, cuda_attention.head_mask(kv, 4))
+        want = fused_attention(q, k, v, kv[:, None])
+        err = float((got - want).abs().max())
+        errs["attention"] = max(errs["attention"], err)
+        uniform = torch.allclose(got[0], v[0].mean(-2, keepdim=True)
+                                 .expand_as(got[0]), atol=1e-5, rtol=1e-5)
+        out["emptied_calls"] = len(emptied)
+        log(f"  the pruning run's calls with an emptied side: "
+            f"{len(emptied)}; [2,4,{K},64] with side 0 emptied: max abs err "
+            f"{err:.3g}, rows of the empty side uniform {uniform}")
+        if not (err <= 1e-5 and uniform):
+            raise AssertionError("kernel E differs on an emptied side")
+
+    with phase("MHA runner: SuperPoint + adaptive light_glue, 4 pairs at "
+               f"{SIZE}^2"):
+        cfg = EvalConfig(
+            model_type="SuperPoint", task_type="MHA",
+            data_params={"type": "synthetic_homography", "num_pairs": 4,
+                         "image_size": SIZE},
+            extractor_params={"nms_dist": 6, "border_dist": 8, "top_k": K,
+                              "threshold": 0, "min_score": 0.0},
+            matcher_params={"type": "light_glue",
+                            "light_glue_params": {"adaptive": True}},
+            task_params={"th": [3, 5, 7]}, weights_dir=ctx["weights_dir"],
+            output_dir=os.path.join(ROOT, "output", "chip_smoke_mha_adaptive"))
+        reset_launches()
+        res = Evaluator(cfg, DEVICE).run()
+        got = read_launches()
+        with plain_twins():
+            res_p = Evaluator(cfg, DEVICE).run()
+        out["runner"] = {f"MHA@{t}": res[f"MHA@{t}"] for t in (3, 5, 7)}
+        out["runner_launches"] = got["attention"]
+        log(f"  MHA@3/5/7 {[res[f'MHA@{t}'] for t in (3, 5, 7)]} (plain "
+            f"{[res_p[f'MHA@{t}'] for t in (3, 5, 7)]}); launches {got}")
+        if got["attention"] <= 0 or got["attention"] > 4 * 18:
+            raise AssertionError(f"the adaptive runner's kernel E launches: "
+                                 f"{got}")
+        if res["per_pair"] != res_p["per_pair"]:
+            raise AssertionError("the adaptive MHA runner differs from the "
+                                 "plain twins")
+    return out
+
+
+def five_point_phases(dev, card, auc):
+    """The five-point solver (phase 43) on phase 17's ground-truth
+    correspondences, card against the CPU, and the AUC runner with solver
+    5pt against its plain twin; timed in turns with the 8-point path."""
+    from dataclasses import replace
+
+    import numpy as np
+    import torch
+
+    from keypoint_bench_tpu_torch.geometry import fivepoint, ransac
+    from keypoint_bench_tpu_torch.runner import Evaluator
+    from keypoint_bench_tpu_torch.tasks.auc import (estimate_pose_pair,
+                                                    pose_error)
+
+    out = {}
+    g0, g1, vw, Ks, poses = auc["ground_truth"]
+    p0n = (g0 - Ks[:, None, :2, 2]) / Ks[:, None, [0, 1], [0, 1]]
+    p1n = (g1 - Ks[:, None, :2, 2]) / Ks[:, None, [0, 1], [0, 1]]
+    th = 4.0 / (2 * Ks[:, 0, 0] + 2 * Ks[:, 1, 1])   # 1 px / f_mean
+    n_samples = max(AUC_NHYP // 8, 64)
+    with phase(f"five-point solver: card vs CPU on ground truth, "
+               f"{AUC_PAIRS} SE3 pairs"):
+        def best_errors(p0, p1, mask, idx, pose):
+            """The smallest pose error (float64) of each sample's valid
+            candidates, recoverPose on all the pair's correspondences."""
+            es, valid = fivepoint.five_point_candidates(
+                ransac._take(p0, idx), ransac._take(p1, idx))
+            R, t, _, _ = ransac.recover_pose(
+                es, p0[:, None, None], p1[:, None, None],
+                mask[:, None, None])
+            err = pose_error(R.double(), t.double(),
+                             pose.double()[:, None, None])
+            return torch.where(valid, err, torch.inf).amin(-1)
+
+        # a sample "recovers" the pose when one of its valid candidates is
+        # within 1 degree of the truth (the correspondences are exact up
+        # to float32). One float32 minimal solve is rounding-sensitive: it
+        # can lose a root (tests/test_fivepoint.py asks 75% of samples),
+        # and its best pose moves with the nullspace basis and the
+        # determinant signs, which the card's and the CPU's solvers round
+        # apart. The CPU against itself on inputs moved by 1e-7 relative
+        # is printed beside it as the yardstick. Gates: both recovery
+        # rates over 75% and within 2% of each other, and on the samples
+        # both recover the median card-CPU gap within phase 17's 0.1
+        # degree (the consensus RANSAC below is held sample for sample)
+        fixed = ransac._sample_minimal(
+            vw, 64, 5, torch.Generator(device=dev).manual_seed(43))
+        e_c = best_errors(p0n, p1n, vw, fixed, poses).cpu()
+        cpu = [a.cpu() for a in (p0n, p1n, vw, fixed, poses)]
+        e_h = best_errors(*cpu)
+        e_m = best_errors(cpu[0] * (1 + 1e-7), *cpu[1:])
+        n = e_c.numel()
+
+        def spread(a, b):
+            ra, rb = a < 1.0, b < 1.0
+            d = (a - b)[ra & rb].abs()
+            return {"recovered": [int(ra.sum()), int(rb.sum())],
+                    "both": int((ra & rb).sum()),
+                    "median_gap_deg": float(d.median()),
+                    "q90_gap_deg": float(d.quantile(0.9)),
+                    "max_gap_deg": float(d.max())}
+
+        out["candidates"] = {"samples": n, "card_vs_cpu": spread(e_c, e_h),
+                             "cpu_vs_cpu_moved_1e-7": spread(e_h, e_m)}
+        cc = out["candidates"]["card_vs_cpu"]
+        log(f"  64 fixed samples a pair ({n}): the pose recovered (a valid "
+            f"candidate within 1 degree) card / CPU {cc['recovered']}, both "
+            f"{cc['both']}; median best pose error card "
+            f"{float(e_c.median()):.4g} degrees, CPU "
+            f"{float(e_h.median()):.4g}; card-CPU gap on the samples both "
+            f"recover {cc}; the CPU against itself on inputs moved by 1e-7: "
+            f"{out['candidates']['cpu_vs_cpu_moved_1e-7']}")
+        rec = cc["recovered"]
+        if not (cc["median_gap_deg"] <= 0.1 and min(rec) >= 0.75 * n
+                and abs(rec[0] - rec[1]) <= 0.02 * n):
+            raise AssertionError("five-point candidates differ between the "
+                                 "card and the CPU")
+
+        samples = ransac._sample_minimal(
+            vw, n_samples, 5, torch.Generator(device=dev).manual_seed(1))
+        E, inl, ok = fivepoint.ransac_essential_5pt_from_samples(
+            p0n, p1n, vw, samples, th)
+        Eh, inl_h, ok_h = fivepoint.ransac_essential_5pt_from_samples(
+            *(a.cpu() for a in (p0n, p1n, vw, samples, th)))
+        res = ransac._sampson(E, p0n, p1n).cpu()
+        res_h = ransac._sampson(Eh, p0n.cpu(), p1n.cpu())
+        parted = inl.cpu() != inl_h
+        near = ((res - th.cpu()[:, None]).abs() <= 1e-6) | (
+            (res_h - th.cpu()[:, None]).abs() <= 1e-6)
+        out["ransac_parted_inliers"] = int(parted.sum())
+        log(f"  RANSAC over {n_samples} samples a pair: inliers card "
+            f"{inl.sum(-1).tolist()}, CPU {inl_h.sum(-1).tolist()}; parted "
+            f"{int(parted.sum())}, of them within 1e-6 of the threshold "
+            f"{int((parted & near).sum())}")
+        if not (torch.equal(ok.cpu(), ok_h) and bool(ok_h.all())
+                and not bool((parted & ~near).any())):
+            raise AssertionError("five-point RANSAC differs between the "
+                                 "card and the CPU")
+
+        gen = torch.Generator(device=dev).manual_seed(0)
+        args = (g0, g1, vw, Ks, Ks)
+        five, eight = timed_in_turns(
+            lambda: estimate_pose_pair(*args, gen, n_hyp=AUC_NHYP,
+                                       solver="5pt"),
+            lambda: estimate_pose_pair(*args, gen, n_hyp=AUC_NHYP))
+        out["ms_pair_5pt"] = statistics.median(five) * 1e3 / AUC_PAIRS
+        out["ms_pair_8pt"] = statistics.median(eight) * 1e3 / AUC_PAIRS
+        out["candidates_ms"] = cuda_ms(
+            lambda: fivepoint.five_point_candidates(
+                ransac._take(p0n, samples), ransac._take(p1n, samples)),
+            iters=3)
+        syncs = host_syncs(lambda: estimate_pose_pair(
+            *args, gen, n_hyp=AUC_NHYP, solver="5pt"))
+        out["host_syncs"] = len(syncs)
+        log(f"  estimate_pose_pair a pair in turns ({AUC_PAIRS} pairs a "
+            f"call, n_hyp {AUC_NHYP}): 5pt {out['ms_pair_5pt']:.4f} ms "
+            f"({n_samples} samples), 8pt {out['ms_pair_8pt']:.4f} ms; the "
+            f"5pt candidates of {AUC_PAIRS} x {n_samples} samples "
+            f"{out['candidates_ms']:.4f} ms; host syncs {len(syncs)} on "
+            f"{card}")
+
+    with phase("AUC runner: ALIKE-t + brute force, solver 5pt, 4 SE3 pairs "
+               f"at {SIZE}^2"):
+        cfg = replace(auc["runner_cfg"],
+                      task_params={"th": [5, 10, 20], "solver": "5pt"},
+                      output_dir=os.path.join(ROOT, "output",
+                                              "chip_smoke_auc_5pt"))
+        reset_launches()
+        res = Evaluator(cfg, DEVICE).run()
+        got = read_launches()
+        with plain_twins():
+            res_p = Evaluator(cfg, DEVICE).run()
+        e, e_p = (np.asarray(r["per_pair_error"]) for r in (res, res_p))
+        out["runner"] = {**{f"AUC@{t}": res[f"AUC@{t}"] for t in (5, 10, 20)},
+                         "AUC_inliers": res["AUC_inliers"],
+                         "per_pair_error": e.tolist()}
+        log(f"  per-pair error {e.tolist()} (plain {e_p.tolist()}); AUC@5/"
+            f"10/20 {[res[f'AUC@{t}'] for t in (5, 10, 20)]} (8pt "
+            f"{auc['runner']['AUC@20']} at 20); inliers "
+            f"{res['AUC_inliers']} (plain {res_p['AUC_inliers']}, 8pt "
+            f"{auc['runner']['AUC_inliers']}); launches {got}")
+        if got["nms"] <= 0 or got["nn_match"] <= 0:
+            raise AssertionError(f"the 5pt AUC runner missed kernel A or D: "
+                                 f"{got}")
+        if not (np.median(e) < 10.0 and res["AUC@20"] > 0.3
+                and np.abs(e - e_p).max() <= 1e-3
+                and res["AUC_inliers"] == res_p["AUC_inliers"]):
+            raise AssertionError("the 5pt AUC runner missed its gates or "
+                                 "differs from the plain twins")
+    return out
+
+
+def tracking_error_phases(dev, card, errs):
+    """VisualizeTrackingError (phase 44) through the runner: ALIKE-t and
+    LETNet on TRACK_PAIRS homography pairs, kernels A and F (F starting
+    from the warped points), against the plain twin at LK distance 0 and
+    at the shipped distance."""
+    import numpy as np
+    import torch
+
+    from keypoint_bench_tpu_torch.ops import cuda_lk
+    from keypoint_bench_tpu_torch.ops.lk import _lk_level
+    from keypoint_bench_tpu_torch.runner import EvalConfig, Evaluator
+
+    out = {}
+    with phase(f"VisualizeTrackingError: ALIKE-t and LETNet, {TRACK_PAIRS} "
+               f"pairs at {SIZE}^2"):
+        for model in ("Alike", "LETNet"):
+            for dist in (0, TRACK_LK["distance"]):
+                cfg = EvalConfig(
+                    model_type=model, task_type="VisualizeTrackingError",
+                    data_params={"type": "synthetic_homography",
+                                 "num_pairs": TRACK_PAIRS,
+                                 "image_size": SIZE},
+                    extractor_params={"nms_dist": 6, "border_dist": 8,
+                                      "top_k": K, "threshold": 0,
+                                      "min_score": 0.0},
+                    matcher_params={"type": "optical_flow",
+                                    "optical_flow_params": {
+                                        **TRACK_LK, "distance": dist}},
+                    output_dir=os.path.join(ROOT, "output",
+                                            "chip_smoke_track"))
+                reset_launches()
+                with recording(cuda_lk, "lk_level_cuda") as calls:
+                    res = Evaluator(cfg, DEVICE).run()
+                got = read_launches()
+                with plain_twins():
+                    res_p = Evaluator(cfg, DEVICE).run()
+                far, n_pts, lk_err = 0, 0, 0.0
+                for a, kw in calls:
+                    e = (cuda_lk.lk_level_cuda(*a, **kw)
+                         - _lk_level(*a, **kw)).abs().amax(-1)
+                    lk_err = max(lk_err, float(e.max()))
+                    far += int((e > 1e-2).sum())
+                    n_pts += e.numel()
+                errs["lk"] = max(errs["lk"], lk_err)
+                e, e_p = (np.asarray(r["per_pair"]) for r in (res, res_p))
+                t0 = time.perf_counter()
+                Evaluator(cfg, DEVICE).run()
+                ms = (time.perf_counter() - t0) * 1e3 / TRACK_PAIRS
+                out[f"{model} distance {dist}"] = r = {
+                    "track_error": res["track_error"],
+                    "plain": res_p["track_error"], "per_pair": e.tolist(),
+                    "launches": {k: got[k] for k in ("nms", "lk")},
+                    "ms_pair": ms, "lk_max_abs_err": lk_err,
+                    "lk_beyond_1e-2": far}
+                log(f"  {model}, LK distance {dist}: track_error "
+                    f"{res['track_error']} (plain {res_p['track_error']}); "
+                    f"per pair {e.tolist()}; launches {r['launches']}; F on "
+                    f"its {len(calls)} calls max abs err {lk_err:.3g}, "
+                    f"{far} of {n_pts} beyond 1e-2 px; {ms:.2f} ms a pair "
+                    f"(the runner's host clock, rendering included) on "
+                    f"{card}")
+                if got["nms"] != 2 * TRACK_PAIRS or \
+                        got["lk"] != TRACK_LK["levels"] * TRACK_PAIRS:
+                    raise AssertionError(f"the tracking-error runner's "
+                                         f"launches: {got}")
+                if far > 0.01 * n_pts:
+                    raise AssertionError(f"kernel F differs on the tracking-"
+                                         f"error runner's calls: {far} of "
+                                         f"{n_pts} beyond 1e-2 px")
+                tol = (1e-3 * np.abs(e_p) + 1e-5) if dist == 0 else 1e-3
+                if not (np.isfinite(e).all() and (e > 0).all()
+                        and (np.abs(e - e_p) <= tol).all()):
+                    raise AssertionError(f"the tracking error differs from "
+                                         f"the plain twin ({model}, distance "
+                                         f"{dist})")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4412,6 +4916,14 @@ def main() -> int:
         "vo": vo["data"]})
     sb = bf["sample_bf16"]
     fl = file_phases(dev, card, errs)
+    ad = adaptive_phases(dev, card, errs, {
+        "superpoint": (sk0, sva, sdm0, sk1, svb, sdm1),
+        "lightglue": lg_params,
+        "weights_dir": stage_golden_weights(os.path.join(
+            ROOT, "output", "chip_smoke_weights"))})
+    fp = five_point_phases(dev, card, auc)
+    te = tracking_error_phases(dev, card, errs)
+    tracks = {k: v["launches"] for k, v in te.items()}
 
     def file_backed(kernel, prefix):
         """The kernel's launches on each file-backed config's run and its
@@ -4438,6 +4950,7 @@ def main() -> int:
          "launches_dense_extract_match":
              det["launches_dense_extract_match"]["nms"],
          "launches_fund_letnet_lk": det["launches_fund_letnet_lk"]["nms"],
+         "launches_tracking_error": {k: v["nms"] for k, v in tracks.items()},
          **file_backed("nms", "nms ")},
         {"name": "sparse_sample", "route": "cuda",
          "source": "keypoint_bench_tpu_torch/csrc/sample.cu",
@@ -4480,7 +4993,18 @@ def main() -> int:
          f"ms_k{K_LARGE}": att4_ms, f"plain_ms_k{K_LARGE}": att4_plain_ms,
          f"library_ms_k{K_LARGE}": att4_lib_ms,
          f"bound_ms_k{K_LARGE}": att4_bound_ms,
-         "launches_xfeat_auc_step": auc["launches"]["attention"]},
+         "launches_xfeat_auc_step": auc["launches"]["attention"],
+         **{f"{k}_adaptive{'' if mode == 'default' else '_' + mode}": v
+            for mode in ("default", "pruning") for k, v in (
+                ("launches_per_pair", [r["launches"] for r in
+                                       ad[mode]["pairs"]]),
+                ("i_fin_median", ad[mode]["i_fin_median"]),
+                ("ms", ad[mode]["e_ms_call"]),
+                ("plain_ms", ad[mode]["plain_ms_call"]),
+                ("bound_ms", ad[mode]["bound_ms_call"]),
+                ("bound_by", ad[mode]["bound_by"]),
+                ("library_ms", ad[mode]["sdpa_ms_call"]))},
+         "launches_mha_runner_adaptive": ad["runner_launches"]},
         {"name": "lk_level", "route": "cuda",
          "source": "keypoint_bench_tpu_torch/csrc/lk.cu",
          "replaces": "keypoint_bench_tpu/ops/pallas_lk.py:78",
@@ -4494,6 +5018,7 @@ def main() -> int:
          "ms_per_level": lk_level_ms, "step_frames_per_s": lk_fps,
          "launches_vo_runner_lk": vo["launches_lk"],
          "launches_fund_letnet_lk": det["launches_fund_letnet_lk"]["lk"],
+         "launches_tracking_error": {k: v["lk"] for k, v in tracks.items()},
          **file_backed("lk", "lk_level ")},
         {"name": "peel_topk", "route": "cuda",
          "source": "keypoint_bench_tpu_torch/csrc/peel.cu",
@@ -4537,6 +5062,10 @@ def main() -> int:
         "steps", "forward_ulps_card_vs_cpu", "seconds")}}, default=float))
     log(json.dumps({"file_backed": {k: fl[k] for k in (
         "configs", "loader", "resume", "seconds")}}, default=float))
+    log(json.dumps({"adaptive_lightglue": {k: ad[k] for k in (
+        "default", "pruning", "host_syncs_per_pair", "ms_adaptive_pair",
+        "ms_fixed_depth_pair", "emptied_calls", "runner")},
+        "five_point": fp, "tracking_error": te}, default=float))
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

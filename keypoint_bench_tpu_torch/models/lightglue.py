@@ -253,7 +253,14 @@ def lightglue_forward(params: dict, kpts0_px, valid0, desc0, kpts1_px,
     [..., K0])."""
     scores = lightglue_scores(params, kpts0_px, valid0, desc0, kpts1_px,
                               valid1, desc1, n_layers, num_heads, attn)
-    # filter_matches, masked
+    return filter_matches(scores, valid0, valid1, filter_threshold)
+
+
+def filter_matches(scores: torch.Tensor, valid0: torch.Tensor,
+                   valid1: torch.Tensor, filter_threshold: float):
+    """The reference filter_matches, masked: mutual arg-max of the log
+    scores [..., K0, K1] above the threshold, between valid keypoints.
+    Returns (m0, mscores0, match_mask) as `lightglue_forward`."""
     m0 = scores.argmax(-1)
     m1 = scores.argmax(-2)
     rows = torch.arange(scores.shape[-2], device=scores.device)
@@ -266,16 +273,20 @@ def lightglue_forward(params: dict, kpts0_px, valid0, desc0, kpts1_px,
 
 
 def lightglue_match(params: dict, kpts0, valid0, kpts1, valid1, desc_map0,
-                    desc_map1, w: int, h: int, desc_scale: int):
+                    desc_map1, w: int, h: int, desc_scale: int,
+                    forward=None):
     """Benchmark adapter (reference LightGlue.match): kpts [..., K, 3]
     normalized (x, y, score); desc maps [..., hc, wc, D]; returns
-    (m_kpts0 [..., K, 3], m_kpts1 [..., K, 3], match_mask [..., K])."""
+    (m_kpts0 [..., K, 3], m_kpts1 [..., K, 3], match_mask [..., K]).
+    `forward` is the matcher, `lightglue_forward` unless given (the
+    adaptive one, models/lightglue_adaptive.py, takes one pair)."""
     scale = torch.tensor([w - 1.0, h - 1.0], device=kpts0.device)
     p0 = kpts0[..., 0:2] * scale
     p1 = kpts1[..., 0:2] * scale
     d0 = sample_descriptors_lg(p0, desc_map0, desc_scale)
     d1 = sample_descriptors_lg(p1, desc_map1, desc_scale)
-    m0, _, ok = lightglue_forward(params, p0, valid0, d0, p1, valid1, d1)
+    m0, _, ok = (forward or lightglue_forward)(params, p0, valid0, d0, p1,
+                                               valid1, d1)[:3]
     m1 = kpts1.gather(-2, m0.clamp_min(0)[..., None].expand(
         *m0.shape, kpts1.shape[-1]))
     return kpts0, m1, ok

@@ -4,20 +4,21 @@ Ported so far: the per-pair repeatability loop on homography and SE3
 pairs, the per-pair MHA and AUC loops (`_run_repeatability`, `_run_mha`,
 `_run_auc` and their per-pair records), the sequence tasks
 FundamentalMatrix (per pair and `task_params.pipelined`) and
-FundamentalMatrixRansac, and visual_odometer (`_run_vo` pair by pair, and
+FundamentalMatrixRansac, visual_odometer (`_run_vo` pair by pair, and
 `_run_vo_pipelined`, brute force through `pipeline.vo_step`, with
-`task_params.ba_refine` windowed bundle adjustment), with the
-brute-force, LightGlue (deterministic only), optical_flow and
-optical_flow_cv matchers (`_match`), for every model of the registry:
-Harris, ORB and SIFT take `model_params`, and LETNet / GoodPoint track on
-their descriptor maps. Detector-only models (KeyNet, Harris, ORB, SIFT)
-raise ValueError on every step that needs descriptors, where the JAX
-runner fails. `precision: bfloat16` casts the model's weights
+`task_params.ba_refine` windowed bundle adjustment) and
+VisualizeTrackingError, with the brute-force, LightGlue (fixed depth, or
+adaptive with `light_glue_params.adaptive`), optical_flow and
+optical_flow_cv matchers (`_match`), essential RANSAC with the 8-point or
+the five-point solver (`task_params.solver`), for every model of the
+registry: Harris, ORB and SIFT take `model_params`, and LETNet / GoodPoint
+track on their descriptor maps. Detector-only models (KeyNet, Harris, ORB,
+SIFT) raise ValueError on every step that needs descriptors, where the
+JAX runner fails. `precision: bfloat16` casts the model's weights
 (`models.common.cast_params_bf16`) as the JAX runner does; LightGlue's
 stay f32, and every path matches the descriptors the JAX runner's
 per-pair and pipelined paths match (its bf16 `match_dtype` serves only
-the sharded batch paths). Other tasks, adaptive LightGlue, the five-point
-solver, save_images, debug_nans, the distributed BA
+the sharded batch paths). save_images, debug_nans, the distributed BA
 (`task_params.ba_distributed`) and the sharded batch paths (brute-force
 MHA and AUC, repeatability) raise NotImplementedError (ROADMAP.md).
 
@@ -46,6 +47,8 @@ from keypoint_bench_tpu_torch.geometry.warp import warp_points
 from keypoint_bench_tpu_torch.models import get_model
 from keypoint_bench_tpu_torch.models.common import to_float_image
 from keypoint_bench_tpu_torch.models.lightglue import lightglue_match
+from keypoint_bench_tpu_torch.models.lightglue_adaptive import \
+    lightglue_forward_adaptive
 from keypoint_bench_tpu_torch.ops.detect import DetectParams, detection
 from keypoint_bench_tpu_torch.ops.grid_sample import sample_at_points
 from keypoint_bench_tpu_torch.ops.lk import (LKParams, optical_flow,
@@ -232,12 +235,14 @@ class Evaluator:
             levels=int(of.get("levels", 1)),
             iterations=int(of.get("interation", of.get("iterations", 40))))
         self.lightglue_params = None
+        self.lightglue_forward = None
         self.matcher_fallback = None
         if self.matcher_type != "light_glue":
             return
         lg = mp.get("light_glue_params", {})
         if lg.get("adaptive", False):
-            raise _not_ported("light_glue_params.adaptive")
+            # the reference's default mode: early exit and width pruning
+            self.lightglue_forward = lightglue_forward_adaptive
         lg_name = _LIGHTGLUE_WEIGHTS.get(cfg.model_type)
         err = None
         if lg_name is None:
@@ -297,7 +302,7 @@ class Evaluator:
         if self.lightglue_params is not None:
             return lightglue_match(self.lightglue_params, kpts0, valid0,
                                    kpts1, valid1, desc0, desc1, w, h,
-                                   self.desc_scale)
+                                   self.desc_scale, self.lightglue_forward)
         src0, src1 = imgs if imgs is not None else self._descriptors(
             desc0, desc1)
         if self.matcher_type == "optical_flow":
@@ -326,9 +331,10 @@ class Evaluator:
               "FundamentalMatrixRansac": self._run_fundamental_ransac,
               "AUC": self._run_auc,
               "visual_odometer": self._run_vo,
+              "VisualizeTrackingError": self._run_tracking_error,
               }.get(task)
         if fn is None:
-            raise _not_ported(f"task_type {task!r}")
+            raise ValueError(f"unknown task_type {task!r}")
         results = fn(ds)
         if self.matcher_fallback is not None:
             results["matcher_fallback"] = self.matcher_fallback
@@ -730,6 +736,41 @@ class Evaluator:
         return {"R": R.cpu().numpy().reshape(-1).tolist(),
                 "t": t.cpu().numpy().tolist(), "ok": bool(okp),
                 "scale": float(np.linalg.norm(gt[0:3, 3] - gt_prev[0:3, 3]))}
+
+    @torch.inference_mode()
+    def _run_tracking_error(self, ds):
+        """VisualizeTrackingError (JAX runner.py:1164-1184): each pair's
+        keypoints warped into frame 1 by the ground truth are the initial
+        guess of LK from frame 0 into frame 1; the pair's error is the
+        mean pixel distance of the tracks from the warped points over the
+        covisible keypoints, 0 for a pair without a warp. The errors stay
+        on the device until the last pair."""
+        errs = []
+        for batch in _iter(ds):
+            img0, img1 = (torch.as_tensor(np.ascontiguousarray(_crop32(
+                np.asarray(batch[k]))), device=self.device)
+                for k in ("image0", "image1"))
+            _, d0, k0, v0 = self.detect(img0)
+            _, d1, _, _ = self.detect(img1)
+            wp01 = batch.get("warp01_params")
+            if wp01 is None:
+                errs.append(torch.zeros((), device=self.device))
+                continue
+            src0, src1 = self._flow_sources(to_float_image(img0),
+                                            to_float_image(img1), d0, d1)
+            a0, a01, va = self._warp(k0, v0, wp01)
+            tracked, _ = optical_flow(src0, src1, a0, a01, self.generator,
+                                      self.lk_params)
+            scale = torch.tensor([img0.shape[1] - 1.0, img0.shape[0] - 1.0],
+                                 device=self.device)
+            err = torch.linalg.vector_norm((a01 - tracked) * scale, dim=-1)
+            errs.append(torch.where(va, err, torch.zeros_like(err)).sum()
+                        / va.sum().clamp_min(1))
+        per_pair = torch.stack(errs).cpu().tolist() if errs else []
+        result = {"track_error": float(np.mean(per_pair)),
+                  "per_pair": per_pair}
+        print("track_error", result["track_error"])
+        return result
 
 
 def _iter(ds):

@@ -2,7 +2,8 @@
 reference tasks/AUC.py:40-155).
 
 Matched pixels are normalized by the intrinsics with the threshold 1 px /
-f_mean; essential RANSAC and recoverPose give (R, t); the pose error is the
+f_mean; essential RANSAC (8-point, or the five-point solver of
+geometry/fivepoint.py) and recoverPose give (R, t); the pose error is the
 larger of the angular t error (with its 180-degree ambiguity) and the
 angular R error; a failed pair counts 180 degrees. `pose_auc` is the
 trapezoid AUC of the error-recall curve at {5, 10, 20} degrees, on the
@@ -13,6 +14,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from keypoint_bench_tpu_torch.geometry.fivepoint import \
+    ransac_essential_5pt_from_samples
 from keypoint_bench_tpu_torch.geometry.ransac import (
     _sample_minimal, ransac_essential_from_samples, recover_pose)
 
@@ -27,13 +30,12 @@ def estimate_pose_pair(m_pts0: torch.Tensor, m_pts1: torch.Tensor,
     K0/K1 [..., 3, 3]. Returns (R [..., 3, 3], t [..., 3], inlier mask
     [..., K], n_inliers [...], ok [...]).
 
-    The minimal samples [..., n_hyp, 8] come from `generator` (on the
-    tensors' device), or are given as `samples`."""
-    if solver == "5pt":
-        raise NotImplementedError(
-            "task_params.solver '5pt' (geometry/fivepoint.py) is not ported "
-            "to keypoint_bench_tpu_torch yet (ROADMAP.md, Queue 1 item 3)")
-    if solver != "8pt":
+    solver "8pt" (8-point minimal samples, projected refit) or "5pt" (the
+    five-point minimal solver, geometry/fivepoint.py: up to 10 candidates
+    a sample, so max(n_hyp // 8, 64) samples explore at least as many
+    hypotheses). The minimal samples [..., n, 8] or [..., n, 5] come from
+    `generator` (on the tensors' device), or are given as `samples`."""
+    if solver not in ("8pt", "5pt"):
         raise ValueError(f"unknown solver {solver!r}")
     f_mean = (K0[..., 0, 0] + K1[..., 1, 1] + K0[..., 0, 0]
               + K1[..., 1, 1]) / 4.0                        # AUC.py:45
@@ -45,10 +47,14 @@ def estimate_pose_pair(m_pts0: torch.Tensor, m_pts1: torch.Tensor,
         return (p - c) / f
 
     p0n, p1n = normalize(m_pts0, K0), normalize(m_pts1, K1)
+    if solver == "5pt":
+        ransac, n, size = ransac_essential_5pt_from_samples, \
+            max(n_hyp // 8, 64), 5
+    else:
+        ransac, n, size = ransac_essential_from_samples, n_hyp, 8
     if samples is None:
-        samples = _sample_minimal(match_mask, n_hyp, 8, generator)
-    E, inl, ok_e = ransac_essential_from_samples(p0n, p1n, match_mask,
-                                                 samples, norm_th)
+        samples = _sample_minimal(match_mask, n, size, generator)
+    E, inl, ok_e = ransac(p0n, p1n, match_mask, samples, norm_th)
     R, t, pose_mask, n_in = recover_pose(E, p0n, p1n, inl)
     return R, t, pose_mask, n_in, ok_e & (match_mask.sum(-1) >= 5)
 

@@ -240,10 +240,15 @@ def test_pose_auc_matches_jax(errors):
                                rtol=0, atol=1e-12)
 
 
-def test_five_point_solver_raises():
-    p0, p1, mask, _ = _correspondences(0)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        ta.estimate_pose_pair(*_t(p0, p1, mask, K, K), None, solver="5pt")
+def test_five_point_solver_estimates_the_pose():
+    """solver 5pt (tests/test_torch_fivepoint.py holds it against JAX) on
+    these correspondences: the pose within 1 degree, most inliers kept."""
+    p0, p1, mask, T = _correspondences(0)
+    R, t, _, n_in, ok = ta.estimate_pose_pair(
+        *_t(p0, p1, mask, K, K), torch.Generator().manual_seed(0),
+        n_hyp=512, solver="5pt")
+    assert bool(ok) and int(n_in) > 0.5 * mask.sum()
+    assert float(ta.pose_error(R, t, torch.from_numpy(T))) < 1.0
 
 
 @pytest.fixture
@@ -410,7 +415,7 @@ def test_xfeat_light_glue_falls_back_only_when_asked(tmp_path, weights):
 
 
 @pytest.mark.parametrize("change,exc,what", [
-    ({"task_params": {"solver": "5pt"}}, NotImplementedError, "5pt"),
+    ({"task_params": {"solver": "7pt"}}, ValueError, "unknown solver"),
     ({"data_params": {"type": "synthetic_se3", "num_pairs": 2,
                       "image_size": 64, "batch_size": 2}},
      NotImplementedError, "sharded batch AUC"),

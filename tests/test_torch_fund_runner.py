@@ -227,7 +227,7 @@ def test_cli_runs_fund_synthetic_config_on_cpu(tmp_path, capsys):
       "matcher_params": {"type": "brute_force"},
       "task_params": {"pipelined": True, "ba_refine": True,
                       "ba_distributed": True}}, "visual_odometer"),
-    ({"task_type": "VisualizeTrackingError"}, "VisualizeTrackingError")])
+    ({"debug_nans": True}, "debug_nans")])
 def test_unported_parts_raise(tmp_path, change, what):
     cfg = {**_cfg(tmp_path), **change}
     with pytest.raises(NotImplementedError, match=what):

@@ -602,6 +602,63 @@ def test_lightglue_on_card_matches_golden_and_cpu(dev):
     torch.testing.assert_close(ms.cpu(), ms_cpu, atol=1e-4, rtol=0)
 
 
+def test_attention_kernel_on_an_emptied_side(dev):
+    """Adaptive LightGlue's pruning can leave one side with no valid
+    token: its slices attend to all-invalid keys and must be uniform,
+    beside a side whose mask is mixed (stacked as the cross block
+    stacks both directions, per-head masks)."""
+    q, k, v = _qkv((2, 4), 1000, 1000, 5, dev)
+    kv = torch.stack([torch.zeros(1000, dtype=torch.bool, device=dev),
+                      torch.rand(1000, device=dev) > 0.6])
+    mask = cuda_attention.head_mask(kv, 4)
+    got = cuda_attention.masked_attention(q, k, v, mask)
+    torch.testing.assert_close(got, fused_attention(q, k, v, kv[:, None]),
+                               atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(got[0], v[0].mean(-2, keepdim=True).expand_as(
+        got[0]), atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("same", [False, True])
+def test_adaptive_lightglue_on_card_matches_dense_form(dev, same):
+    """The adaptive forward in its fused form on the card (kernel E on the
+    masks of each layer) against its dense form on the CPU and against
+    its plain twin on the card: the layers run, every layer's keep counts
+    and the matches equal; mscores within the JAX package's 0.08."""
+    from keypoint_bench_tpu_torch.models.lightglue_adaptive import \
+        lightglue_forward_adaptive
+    g = np.load(f"{GOLDEN_DIR}/lightglue_adaptive.npz")
+    params = load_golden_params("lightglue")
+    n1 = 64 if same else 80
+    args = [torch.from_numpy(x) for x in (
+        g["kpts0"][0], np.ones(64, bool), g["desc0"][0], g["kpts1"][0][:n1],
+        np.ones(n1, bool), g["desc1"][0][:n1])]
+    p_dev = {k: v.to(dev) for k, v in params.items()}
+    a_dev = [a.to(dev) for a in args]
+    runs = []
+    for where in ("card", "plain", "cpu"):
+        stats = {}
+        before = cuda_attention.KERNEL.launches
+        if where == "plain":
+            with _CHIP_SMOKE["plain_twins"]():
+                out = lightglue_forward_adaptive(p_dev, *a_dev, stats=stats)
+        elif where == "card":
+            out = lightglue_forward_adaptive(p_dev, *a_dev, stats=stats)
+        else:
+            out = lightglue_forward_adaptive(params, *args, attn="dense",
+                                             stats=stats)
+        launched = cuda_attention.KERNEL.launches - before
+        keep = [(int(a), int(b)) for a, b in stats["keep"]]
+        runs.append((out, keep, launched))
+    (card, keep, launched), *others = runs
+    assert launched == (2 if same else 4) * card[3]
+    assert keep[0] < (64, n1)                      # the first layer prunes
+    for out, k, n in others:
+        assert n == 0 and out[3] == card[3] and k == keep
+        assert torch.equal(out[0].cpu(), card[0].cpu())
+        torch.testing.assert_close(out[1].cpu(), card[1].cpu(), atol=0.08,
+                                   rtol=0)
+
+
 def _lk_images(b, h, w, c, seed):
     rng = np.random.default_rng(seed)
     base = rng.random((b, h // 4, w // 4, c)).astype(np.float32)

@@ -76,21 +76,34 @@ def _pair_matches(ev, batch, to_np, scores=None):
     return out
 
 
-@pytest.mark.parametrize("matcher", ["brute_force", "light_glue"])
+@pytest.mark.parametrize("matcher", ["brute_force", "light_glue",
+                                     "adaptive"])
 def test_match_outputs_equal_jax_runner(highest, weights, tmp_path, matcher):
+    """"adaptive" is light_glue with light_glue_params.adaptive: the
+    reference's default mode, with early exit and width pruning."""
     from keypoint_bench_tpu.models import lightglue as jlg
+    from keypoint_bench_tpu.models import lightglue_adaptive as jla
     from keypoint_bench_tpu_torch.models import lightglue as tlg
-    cfg = _cfg(weights, tmp_path, matcher)
+    from keypoint_bench_tpu_torch.models import lightglue_adaptive as tla
+    if matcher == "adaptive":
+        cfg = _cfg(weights, tmp_path, "light_glue", {"adaptive": True})
+    else:
+        cfg = _cfg(weights, tmp_path, matcher)
     jev = JaxEvaluator(JaxEvalConfig(**cfg))
     tev = Evaluator(EvalConfig(**cfg), "cpu")
     ds = get_dataset(cfg["data_params"])
-    lg = matcher == "light_glue"
+    lg = matcher != "brute_force"
+    if matcher == "adaptive":
+        forwards = (jla.lightglue_forward_adaptive,
+                    tla.lightglue_forward_adaptive)
+    else:
+        forwards = (jlg.lightglue_forward, tlg.lightglue_forward)
     n_ok = 0
     for i in range(len(ds)):
         ref = _pair_matches(jev, ds[i], np.asarray, lg and (
-            jlg.sample_descriptors_lg, jlg.lightglue_forward))
+            jlg.sample_descriptors_lg, forwards[0]))
         got = _pair_matches(tev, ds[i], lambda t: t.numpy(), lg and (
-            tlg.sample_descriptors_lg, tlg.lightglue_forward))
+            tlg.sample_descriptors_lg, forwards[1]))
         np.testing.assert_array_equal(got[0][:, :2], ref[0][:, :2])
         np.testing.assert_allclose(got[0][:, 2], ref[0][:, 2], atol=1e-5)
         np.testing.assert_array_equal(got[2], ref[2])
@@ -162,9 +175,7 @@ def test_lightglue_without_weights_raises_or_falls_back(tmp_path):
 
 
 @pytest.mark.parametrize("change,what", [
-    ({"matcher_params": {"type": "light_glue",
-                         "light_glue_params": {"adaptive": True}}},
-     "adaptive"),
+    ({"task_params": {"save_images": True}}, "save_images"),
     ({"task_type": "visual_odometer",
       "matcher_params": {"type": "brute_force"},
       "task_params": {"pipelined": True, "ba_refine": True,

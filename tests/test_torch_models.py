@@ -96,12 +96,41 @@ def test_forward_matches_jax(highest, name, shape):
     (s_ref, d_ref), (s, d) = _both(name, img)
     (sa, sr), dtol = TOL[name]
     assert s.shape == s_ref.shape == shape[:3] + (1,)
-    np.testing.assert_allclose(s, s_ref, atol=sa, rtol=sr)
+    np.testing.assert_allclose(s, s_ref, atol=sa, rtol=sr,
+                               err_msg=_diagnosis(s, s_ref, sa, sr))
     if dtol is None:
         assert d is None and d_ref is None
     else:
         assert d.shape == d_ref.shape
-        np.testing.assert_allclose(d, d_ref, atol=dtol[0], rtol=dtol[1])
+        np.testing.assert_allclose(d, d_ref, atol=dtol[0], rtol=dtol[1],
+                                   err_msg=_diagnosis(d, d_ref, *dtol))
+
+
+def _cpu_flags() -> str:
+    """The vector extensions of the CPU that decide the convs' kernels."""
+    try:
+        with open("/proc/cpuinfo") as f:
+            flags = next((ln.split(":", 1)[1].split() for ln in f
+                          if ln.startswith("flags")), [])
+    except OSError:
+        return "unknown"
+    return " ".join(x for x in ("avx2", "avx512f", "amx_tile", "amx_bf16")
+                    if x in flags) or "none of avx2 / avx512f / amx"
+
+
+def _diagnosis(got, ref, atol, rtol) -> str:
+    """What decides an assert_allclose(got, ref, atol, rtol): the worst
+    point by |got - ref| / (atol + rtol |ref|), its values, and the state
+    of the process that sets the convs' summation order."""
+    diff = np.abs(got.astype(np.float64) - ref.astype(np.float64))
+    tol = atol + rtol * np.abs(ref.astype(np.float64))
+    ratio = np.where(np.isnan(diff), 0.0, diff / tol)
+    i = np.unravel_index(int(np.argmax(ratio)), ratio.shape)
+    return (f"worst index {tuple(int(j) for j in i)}: port {got[i]!r}, "
+            f"JAX {ref[i]!r}, |diff| {diff[i]:.3e}, tolerance "
+            f"{tol[i]:.3e}, worst ratio {ratio[i]:.4f}; torch threads "
+            f"{torch.get_num_threads()}, mkldnn enabled "
+            f"{torch.backends.mkldnn.enabled}, CPU flags {_cpu_flags()}")
 
 
 @pytest.mark.parametrize("name", sorted(GOLDEN_TOL))
