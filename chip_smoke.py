@@ -108,8 +108,9 @@ Phases, each fatal on failure:
      degrees, the two SVD routes' float32 spread on these normal
      equations; in float64 counts equal and pose errors within 1e-3
      degrees; the stage and
-     its parts timed (sampling, 8-point SVDs, essential projections,
-     Sampson matrix), and the host synchronizations it makes counted;
+     its parts timed (sampling, 8-point solves beside the float32 SVD
+     route they replace, essential projections, Sampson matrix), and the
+     host synchronizations it makes counted;
  18. the port's Evaluator: AUC with ALIKE-t + brute force (kernels A and
      D) on 4 SE3 pairs at 512^2: median pose error < 10 degrees, AUC@20 >
      0.3, per-pair errors within 1e-3 of the plain-twin run; SE3
@@ -307,6 +308,41 @@ read just after:
      its own calls (99% of the points within 1e-2 px); track_error
      against the plain twin within 1e-3 relative at LK distance 0 and
      within 1e-3 px at distance 10; ms a pair.
+Loop closure, the pose graph, predict_positions and save_images, after
+phase 44 (`loop_closure_phases`, `save_images_phases`), the launch counts
+reset just before each path and read just after:
+ 45. the pose graph (ba/pose_graph.py): a 31-pose out-and-back chain with
+     noisy odometry and 14 exact closures, `pgo_solve` (15 iterations)
+     on the card against its CPU twin within 1e-4 of the trajectory's
+     extent, no host sync inside; exact odometry leaves a residual under
+     1e-5; ms on the card and the CPU;
+ 46. strong closures: tests/test_loop_closure.py's out-and-back splat
+     sequence with 31 frames at 512^2, ALIKE-t at K = 1000 (kernels A
+     and B), every frame pair at gap >= 4 (378) matched by one kernel D
+     launch, equal to the per-pair loop on the card and to the CPU twin's
+     closures; the pose-graph correction cuts the noisy chain's ATE below
+     0.8x; detect_loop_closures timed against the per-pair loop, its host
+     syncs counted; kernel D at the batched shape beside its plain
+     version, baddbmm + minima and its bound;
+ 47. scaled closures: on the geometric fixture (the metric translation
+     within 0.05, the rotation within 2 degrees), and with `images` on a
+     9-frame parallax loop (return 0.3 to the side): the neighbour tracks
+     through kernel F (held on its own calls, 99% within 1e-2 px), the
+     closures equal to the CPU twin's under the same draws (samples from
+     a CPU generator, fixed jitter angles), each inside the drift
+     envelope; every parallax candidate's RANSAC-E from the same inputs
+     and samples in float32 and float64 on both sides: the card's winning
+     hypothesis scores, under the float64 CPU solve, within 0.5% of the
+     matches of that solve's best, and the card's refits end within 0.5%
+     of the float64 CPU refits from the same hypothesis;
+ 48. predict_positions on SuperPoint's coarse maps of a 512^2 pair
+     ([64, 64, 256]): card against the CPU twin, positions within 1e-5,
+     the score within 1e-4 (each side's gap to float64 printed);
+ 49. save_images on 2 pairs each of repeatability, MHA, AUC and the
+     per-pair FundamentalMatrix (ALIKE-t + brute force at 512^2) on the
+     card and on the CPU: the JAX runner's PNG names, pixel-equal wherever
+     the drawn keypoints or matches are equal; save_metric_plot where
+     matplotlib imports.
 Exits non-zero without CUDA, or without the port's package beside it.
 """
 from __future__ import annotations
@@ -1149,7 +1185,7 @@ def auc_phases(dev, dp, card, errs):
         p1n = (g1 - Ks[:, None, :2, 2]) / Ks[:, None, [0, 1], [0, 1]]
         q0, q1 = ransac._take(p0n, samples), ransac._take(p1n, samples)
         ones = torch.ones_like(q0[..., 0])
-        e9 = ransac._solve_eightpoint(q0, q1, ones)
+        e9, _ = ransac._solve_minimal_e(q0, q1)
         es = ransac._essential_project(e9)
         gen_g = torch.Generator(device=dev).manual_seed(1)
         sub = {"RANSAC-E + recoverPose on ground truth":
@@ -1158,7 +1194,10 @@ def auc_phases(dev, dp, card, errs):
                "minimal samples (Gumbel top-8 of [8,4096,1000])":
                cuda_ms(lambda: ransac._sample_minimal(vw, AUC_NHYP, 8,
                                                       gen_g), iters=3),
-               "8-point solves (A^T A + SVD of [8,4096,9,9])":
+               "8-point solves (float64 minors of [8,4096] 8 x 9 designs)":
+               cuda_ms(lambda: ransac._solve_minimal_e(q0, q1), iters=3),
+               "the float32 route they replace (A^T A + SVD of "
+               "[8,4096,9,9])":
                cuda_ms(lambda: ransac._solve_eightpoint(q0, q1, ones),
                        iters=3),
                "essential projections (SVD of [8,4096,3,3])":
@@ -3951,6 +3990,678 @@ def tracking_error_phases(dev, card, errs):
     return out
 
 
+# Loop closure, the pose graph, predict_positions and save_images (phases
+# 45-49): tests/test_loop_closure.py's sequences at full width
+LOOP_MID = 15          # phase 46: 31 frames out and back (378 pairs at gap 4)
+LOOP_SCALED_MID = 4    # phase 47: 9 frames, the return 0.3 to the side
+LOOP_GAP = 4
+LOOP_NHYP = 1024       # detect_loop_closures_scaled's default
+PGO_ITERS = 15         # optimize_with_closures' default
+SAVE_PAIRS = 2
+
+
+def loop_poses(n_mid, return_offset=0.0):
+    """Cam-from-world poses of tests/test_loop_closure.py's out-and-back
+    path: 0.4 a frame along x out, then back on a line `return_offset` to
+    the side."""
+    import numpy as np
+    xs = ([(0.4 * k, 0.0) for k in range(n_mid + 1)]
+          + [(0.4 * k, return_offset) for k in range(n_mid - 1, -1, -1)])
+    poses = []
+    for x, y in xs:
+        T = np.eye(4)
+        T[0, 3], T[1, 3] = x, y
+        poses.append(T)
+    return poses
+
+
+def loop_frames(n_mid, size, seed=0, return_offset=0.0, tex_scale=0.15):
+    """tests/test_loop_closure.py's `_loop_frames` at size^2: the splat
+    scene (900 blobs at depths 4-20 over the textured planes) along
+    `loop_poses`. Returns (frames [T,size,size,3] float32, poses, K)."""
+    import numpy as np
+    from keypoint_bench_tpu_torch.datasets.synthetic import (_SplatScene,
+                                                             _texture)
+    scene = _SplatScene(size)
+    rng = np.random.default_rng(seed)
+    X = np.concatenate([rng.uniform(-4, 4, (900, 2)),
+                        rng.uniform(4.0, 20.0, (900, 1))], axis=1)
+    colors = rng.uniform(0.3, 1.0, (900, 3)).astype(np.float32)
+    tex = _texture(size, size, rng) * tex_scale
+    poses = loop_poses(n_mid, return_offset)
+    frames = [scene._render(X, colors, T[:3, :3], T[:3, 3], tex)[0]
+              for T in poses]
+    return np.stack(frames).astype(np.float32), poses, scene.K
+
+
+def geometric_loop(n_pts=200, t_frames=6, seed=0,
+                   closure_offset=(0.05, 0.3, 0.0)):
+    """tests/test_loop_closure.py's `_geometric_loop_fixture`: exact
+    projections of 200 points with unique unit descriptors; frames 0-4
+    march along x, the last revisits frame 0 displaced by
+    `closure_offset`. Returns (kpts_px [T][N,2], descs [T,N,32], poses,
+    K)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    K = np.array([[230.0, 0, 128], [0, 230.0, 128], [0, 0, 1]], np.float32)
+    X = np.concatenate([rng.uniform(-2.5, 2.5, (n_pts, 2)),
+                        rng.uniform(3.0, 8.0, (n_pts, 1))], axis=1)
+    descrs = rng.normal(0, 1, (n_pts, 32)).astype(np.float32)
+    descrs /= np.linalg.norm(descrs, axis=1, keepdims=True)
+    poses = []
+    for k in range(t_frames - 1):
+        T = np.eye(4)
+        T[0, 3] = 0.4 * k
+        poses.append(T)
+    T = np.eye(4)
+    T[:3, 3] = np.asarray(closure_offset)
+    poses.append(T)
+    kpts = []
+    for T in poses:
+        Xc = X @ T[:3, :3].T + T[:3, 3]
+        uv = (Xc / Xc[:, 2:3]) @ K.T
+        kpts.append(uv[:, :2].astype(np.float64))
+    return kpts, np.stack([descrs] * t_frames), poses, K
+
+
+def exact_odometry(poses):
+    """(R_rel, t_rel unit, scales) of consecutive cam-from-world poses."""
+    import numpy as np
+    R_rel, t_rel, scales = [np.eye(3)], [np.zeros(3)], [0.0]
+    for i in range(1, len(poses)):
+        T = poses[i] @ np.linalg.inv(poses[i - 1])
+        s = np.linalg.norm(T[:3, 3])
+        scales.append(s)
+        R_rel.append(T[:3, :3])
+        t_rel.append(T[:3, 3] / max(s, 1e-9))
+    return np.stack(R_rel), np.stack(t_rel), scales
+
+
+def noisy_odometry(poses, seed=3, rot_noise=0.03, dir_noise=0.1):
+    """tests/test_loop_closure.py's `_noisy_odometry` (the rotation noise
+    through the port's Rodrigues, equal to cv2's within 1e-12)."""
+    import numpy as np
+    from keypoint_bench_tpu_torch.datasets.synthetic import rodrigues
+    rng = np.random.default_rng(seed)
+    R_rel, t_rel, scales = [np.eye(3)], [np.zeros(3)], [0.0]
+    for i in range(1, len(poses)):
+        T = poses[i] @ np.linalg.inv(poses[i - 1])
+        dR = rodrigues(rng.normal(0, rot_noise, 3))
+        tt = T[:3, 3]
+        s = np.linalg.norm(tt)
+        scales.append(s)
+        t_noisy = tt / max(s, 1e-9) + rng.normal(0, dir_noise, 3)
+        R_rel.append(dR @ T[:3, :3])
+        t_rel.append(t_noisy / np.linalg.norm(t_noisy))
+    return np.stack(R_rel), np.stack(t_rel), scales
+
+
+def loop_ate(Rf, tf, poses):
+    """Mean camera-centre error of world->camera (Rf, tf) against the
+    cam-from-world ground truth."""
+    import numpy as np
+    gt = np.stack([-T[:3, :3].T @ T[:3, 3] for T in poses])
+    c = np.stack([-Rf[i].T @ tf[i] for i in range(len(poses))])
+    return float(np.linalg.norm(c - gt, axis=1).mean())
+
+
+def rot_deg(Ra, Rb):
+    import numpy as np
+    c = np.clip((np.trace(np.asarray(Ra).T @ np.asarray(Rb)) - 1) / 2, -1, 1)
+    return float(np.degrees(np.arccos(c)))
+
+
+def closures_gap(got, ref):
+    """(same (i, j, n) in the same order, max |R - R'|, max |t - t'|)."""
+    import numpy as np
+    same = [(c[0], c[1], c[-1]) for c in got] == \
+        [(c[0], c[1], c[-1]) for c in ref]
+    dr = max([float(np.abs(np.asarray(a[2]) - np.asarray(b[2])).max())
+              for a, b in zip(got, ref)] or [0.0])
+    dt = max([float(np.abs(np.asarray(a[3]) - np.asarray(b[3])).max())
+              for a, b in zip(got, ref) if len(a) == 5] or [0.0])
+    return same, dr, dt
+
+
+def ransac_e_witness(p0n, p1n, mask, idx, thresh, dev):
+    """RANSAC-E of one candidate from the same inputs and minimal samples
+    (p0n, p1n [K, 2] float32 normalized coordinates, mask [K], idx [n_hyp,
+    8]) in float32 and float64, on the card and on the CPU. Per route: the
+    best hypothesis (index, inlier count), the inliers after the refits;
+    under the float64 CPU solve, that hypothesis's inlier count and the
+    inliers of the refits from it. The card's float32 route is the port's
+    as it runs (its 8-point solves in float64: `_solve_minimal_e`,
+    `_solve_eightpoint_e`)."""
+    import torch
+
+    from keypoint_bench_tpu_torch.geometry.ransac import (
+        _essential_project, _sampson, _solve_eightpoint_e, _solve_minimal_e,
+        _take, ransac_essential_from_samples)
+
+    def hypothesis_inliers(a, b, m, ix):
+        e9, valid = _solve_minimal_e(_take(a, ix), _take(b, ix))
+        res = _sampson(_essential_project(e9), a[None], b[None])
+        return (res < thresh) & m & valid[:, None]
+
+    def refits_from(inl):
+        """The float64 CPU refits from one hypothesis's inliers."""
+        a, b = p0n.double(), p1n.double()
+        w = inl.double()
+        for _ in range(3):
+            e = _essential_project(_solve_eightpoint_e(a, b, w))
+            w = ((_sampson(e, a, b) < thresh) & mask).double()
+        return int(w.sum())
+
+    out, ref = {}, None
+    for side, where in (("cpu", torch.device("cpu")), ("card", dev)):
+        for dt in (torch.float64, torch.float32):
+            a, b = p0n.to(where, dt), p1n.to(where, dt)
+            m, ix = mask.to(where), idx.to(where)
+            hyp = hypothesis_inliers(a, b, m, ix).cpu()
+            _, inl, _ = ransac_essential_from_samples(a, b, m, ix, thresh)
+            if ref is None:
+                ref = hyp
+            c = hyp.sum(-1)
+            best = int(c.argmax())
+            out[f"{side}_{str(dt)[6:]}"] = {
+                "best": best, "best_count": int(c[best]),
+                "inliers": int(inl.sum()),
+                "best_count_f64": int(ref[best].sum()),
+                "inliers_f64_from_best": refits_from(ref[best])}
+    return out
+
+
+def loop_closure_phases(dev, card, errs):
+    """Loop closure and the pose graph (phases 45-48): the pose graph on
+    the card against its CPU twin; strong closures over every frame pair
+    of a 31-frame splat loop (kernel D once over all pairs, against the
+    per-pair loop and the CPU twin) and the pose-graph correction; scaled
+    closures on the geometric fixture and, with LK neighbour tracks
+    (kernel F), on a parallax loop against the CPU twin under the same
+    draws; predict_positions on SuperPoint's coarse maps against the CPU
+    twin. Returns the numbers for the JSON lines."""
+    import numpy as np
+    import torch
+
+    from keypoint_bench_tpu_torch.ba.pose_graph import pgo_solve
+    from keypoint_bench_tpu_torch.geometry.ransac import _sample_minimal
+    from keypoint_bench_tpu_torch.models import get_model
+    from keypoint_bench_tpu_torch.ops import cuda_lk, cuda_match
+    from keypoint_bench_tpu_torch.ops.detect import DetectParams
+    from keypoint_bench_tpu_torch.ops.lk import _lk_level, draw_angles
+    from keypoint_bench_tpu_torch.ops.matching import (mutual_nn_match,
+                                                       nn_dists, penalized)
+    from keypoint_bench_tpu_torch.ops.predict import predict_positions
+    from keypoint_bench_tpu_torch.pipeline import detect_frames
+    from keypoint_bench_tpu_torch.tasks.loop_closure import (
+        closure_graph, closure_pairs, detect_loop_closures,
+        detect_loop_closures_scaled, match_frame_pairs,
+        optimize_with_closures)
+    from keypoint_bench_tpu_torch.weights import (load_golden_params,
+                                                  load_params)
+
+    cpu = torch.device("cpu")
+    out = {}
+    model = get_model("Alike")(load_params("Alike", device=dev)).eval()
+    dp = DetectParams(nms_dist=6, border_dist=8, top_k=K)
+
+    def detect(frames):
+        """ALIKE-t keypoints in pixels (host), sparse descriptors and
+        masks (device) of frames [T,S,S,3] (kernels A and B)."""
+        _, descs, kpts, valids = detect_frames(model, frames, dp, dev,
+                                               sparse=True)
+        kpx = (kpts[..., :2] * (frames.shape[1] - 1.0)).cpu().numpy()
+        return list(kpx.astype(np.float64)), descs, valids
+
+    n_poses = 2 * LOOP_MID + 1
+    with phase(f"pose graph: {n_poses} poses out and back, "
+               f"{PGO_ITERS} iterations, card vs CPU"):
+        poses = loop_poses(LOOP_MID, return_offset=0.3)
+        closures = []   # frame i and its revisit j, exact, at gap >= 4
+        for i, j in [(i, n_poses - 1 - i) for i in range(LOOP_MID)]:
+            if j - i >= LOOP_GAP:
+                T = poses[j] @ np.linalg.inv(poses[i])
+                closures.append((i, j, T[:3, :3], T[:3, 3], 0))
+        gt = np.stack([-T[:3, :3].T @ T[:3, 3] for T in poses])
+        extent = float(np.ptp(gt, axis=0).max())
+        res = {}
+        for name, odo in (("noisy", noisy_odometry(poses)),
+                          ("exact", exact_odometry(poses))):
+            g = closure_graph(*odo, closures, device=dev)
+            R, t, r = pgo_solve(g, PGO_ITERS, 1e-4)
+            t0 = time.perf_counter()
+            Rc, tc, rc = pgo_solve(closure_graph(*odo, closures,
+                                                 device="cpu"),
+                                   PGO_ITERS, 1e-4)
+            cpu_ms = (time.perf_counter() - t0) * 1e3
+            gap = max(float((R.cpu() - Rc).abs().max()),
+                      float((t.cpu() - tc).abs().max()))
+            R0, t0_, _ = pgo_solve(g, 0)
+            res[name] = {
+                "residual": float(r), "residual_cpu": float(rc),
+                "gap_card_cpu": gap,
+                "ate_before": loop_ate(R0.cpu().numpy(), t0_.cpu().numpy(),
+                                       poses),
+                "ate_after": loop_ate(R.cpu().numpy(), t.cpu().numpy(),
+                                      poses),
+                "ms": cuda_ms(lambda: pgo_solve(g, PGO_ITERS, 1e-4),
+                              iters=5, warmup=1),
+                "cpu_ms": cpu_ms,
+                "host_syncs": host_syncs(
+                    lambda: pgo_solve(g, PGO_ITERS, 1e-4))}
+            log(f"  {name} odometry + {len(closures)} exact closures: "
+                f"residual {res[name]['residual']:.3g} (CPU "
+                f"{res[name]['residual_cpu']:.3g}); card vs CPU "
+                f"{gap:.3g} (extent {extent:.2f}); ATE "
+                f"{res[name]['ate_before']:.4f} -> "
+                f"{res[name]['ate_after']:.4f}; pgo_solve "
+                f"{res[name]['ms']:.3f} ms on the card "
+                f"({res[name]['cpu_ms']:.1f} ms on the CPU); host syncs "
+                f"{len(res[name]['host_syncs'])} {res[name]['host_syncs']} "
+                f"on {card}")
+            if gap > 1e-4 * extent:
+                raise AssertionError(f"pgo_solve card vs CPU {gap}")
+            if res[name]["host_syncs"]:
+                raise AssertionError("pgo_solve synchronizes with the host")
+        if res["exact"]["residual"] >= 1e-5:
+            raise AssertionError(f"exact measurements leave residual "
+                                 f"{res['exact']['residual']}")
+        if not res["noisy"]["ate_after"] < res["noisy"]["ate_before"]:
+            raise AssertionError(f"the closures do not pull the chain "
+                                 f"shut: {res['noisy']}")
+        out["pose_graph"] = res
+
+    with phase(f"strong closures: {n_poses} splat frames at {SIZE}^2, "
+               f"every pair at gap >= {LOOP_GAP} in one kernel D launch"):
+        t0 = time.perf_counter()
+        frames, poses, Kc = loop_frames(LOOP_MID, SIZE)
+        render_s = time.perf_counter() - t0
+        pairs = closure_pairs(len(frames), LOOP_GAP)
+        odo = noisy_odometry(poses)
+        reset_launches()
+        t0 = time.perf_counter()
+        kpx, descs, valids = detect(frames)
+        cl = detect_loop_closures(descs, valids, kpx, Kc, min_gap=LOOP_GAP,
+                                  min_matches=80)
+        Rb, tb, _ = optimize_with_closures(*odo, [], iters=0, device=dev)
+        Ra, ta, _ = optimize_with_closures(*odo, cl, iters=PGO_ITERS,
+                                           device=dev)
+        path_ms = (time.perf_counter() - t0) * 1e3
+        got = read_launches()
+        a0, a1 = loop_ate(Rb, tb, poses), loop_ate(Ra, ta, poses)
+        # the batched call against the per-pair loop on the card
+        nn_b, ok_b = match_frame_pairs(descs, valids, pairs)
+        differ = 0
+        for p, (i, j) in enumerate(pairs):
+            nn_p, ok_p = mutual_nn_match(descs[i], descs[j], valids[i],
+                                         valids[j], 5.0)
+            ok_p = ok_p.cpu().numpy()
+            differ += int((ok_p != ok_b[p]).sum()
+                          + (nn_p.cpu().numpy()[ok_p] != nn_b[p][ok_p]).sum())
+        cl_cpu = detect_loop_closures(descs.cpu(), valids.cpu(), kpx, Kc,
+                                      min_gap=LOOP_GAP, min_matches=80)
+        same, dr, _ = closures_gap(cl, cl_cpu)
+
+        def per_pair():
+            for i, j in pairs:
+                nn_p, ok_p = mutual_nn_match(descs[i], descs[j], valids[i],
+                                             valids[j], 5.0)
+                ok_p.cpu(), nn_p.cpu()
+
+        batched_ms = host_ms(lambda: detect_loop_closures(
+            descs, valids, kpx, Kc, min_gap=LOOP_GAP, min_matches=80), 3)
+        loop_ms = host_ms(per_pair, 3)
+        syncs = host_syncs(lambda: detect_loop_closures(
+            descs, valids, kpx, Kc, min_gap=LOOP_GAP, min_matches=80))
+        # kernel D at the batched call's shapes
+        ii = torch.tensor([p[0] for p in pairs], device=dev)
+        jj = torch.tensor([p[1] for p in pairs], device=dev)
+        a, _ = penalized(descs[ii], valids[ii])
+        b, _ = penalized(descs[jj], valids[jj])
+        near, err_free, _ = check_nn(cuda_match.nn_dists_cuda(a, b),
+                                     nn_dists(a, b), a, b)
+        errs["nn_match"] = max(errs["nn_match"], err_free)
+        d_ms = cuda_ms(lambda: cuda_match.nn_dists_cuda(a, b))
+        d_plain_ms = cuda_ms(lambda: nn_dists(a, b), iters=3, warmup=1)
+        d_lib_ms = cuda_ms(mm_min(a, b), iters=3, warmup=1)
+        d_bound, d_by = match_bound(a, b)
+        out["strong"] = r = {
+            "frames": len(frames), "pairs": len(pairs),
+            "closures": [(c[0], c[1], c[3]) for c in cl],
+            "closures_equal_cpu": same, "R_gap_cpu": dr,
+            "per_pair_differences": differ, "launches": got,
+            "ate_before": a0, "ate_after": a1, "path_ms": path_ms,
+            "render_s": render_s, "batched_ms": batched_ms,
+            "per_pair_loop_ms": loop_ms, "host_syncs": len(syncs),
+            "kernel_d": {"shape": list(a.shape), "ms": d_ms,
+                         "plain_ms": d_plain_ms, "library_ms": d_lib_ms,
+                         "bound_ms": d_bound, "bound_by": d_by,
+                         "near_ties": near, "max_abs_err": err_free}}
+        log(f"  {len(cl)} closures of {len(pairs)} pairs "
+            f"({r['closures'][:6]}...); equal to the CPU twin: {same} "
+            f"(R gap {dr:.3g}); batched vs per-pair loop: {differ} "
+            f"differences; ATE {a0:.4f} -> {a1:.4f}; launches {got}")
+        log(f"  detect_loop_closures {batched_ms:.2f} ms (host clock, one "
+            f"kernel D call, {len(syncs)} host syncs: {syncs}) against "
+            f"{loop_ms:.2f} ms for the per-pair loop ({2 * len(pairs)} "
+            f"launches); the path (detection, "
+            f"closures, pose graph) {path_ms:.1f} ms; rendering "
+            f"{render_s:.1f} s on the host")
+        log(f"  kernel D at {list(a.shape)}: {d_ms:.4f} ms, plain "
+            f"{d_plain_ms:.4f}, baddbmm + minima {d_lib_ms:.4f}, bound "
+            f"{d_bound:.4f} ({d_by}); near ties {near}, max abs err "
+            f"{err_free:.3g} on {card}")
+        # one kernel D call: its two launches (cuda_match.nn_dists_cuda)
+        if got["nn_match"] != 2 or got["nms"] < 1 or got["sample"] < 1:
+            raise AssertionError(f"the loop-closure path's launches: {got}")
+        if differ or not same or dr > 1e-6:
+            raise AssertionError("the batched closures differ from the "
+                                 "per-pair loop or the CPU twin")
+        if not cl or not a1 < 0.8 * a0:
+            raise AssertionError(f"no drift correction: ATE {a0} -> {a1}, "
+                                 f"{len(cl)} closures")
+
+    with phase("scaled closures: the geometric fixture on the card, and "
+               f"a parallax loop at {SIZE}^2 with LK tracks (kernel F)"):
+        kg, dg, pg, Kg = geometric_loop()
+        gen = torch.Generator(device=dev).manual_seed(0)
+        clg = detect_loop_closures_scaled(
+            torch.as_tensor(dg, device=dev),
+            torch.ones(dg.shape[:2], dtype=torch.bool, device=dev), kg, Kg,
+            *exact_odometry(pg), gen, min_gap=LOOP_GAP, min_matches=60)
+        scaled = {(c[0], c[1]): c for c in clg
+                  if np.linalg.norm(c[3]) > 0.05}
+        last = len(pg) - 1
+        if (0, last) not in scaled:
+            raise AssertionError(f"no metric closure (0, {last}): "
+                                 f"{[(c[0], c[1]) for c in clg]}")
+        T_gt = pg[last] @ np.linalg.inv(pg[0])
+        dt = float(np.linalg.norm(scaled[(0, last)][3] - T_gt[:3, 3]))
+        da = rot_deg(scaled[(0, last)][2], T_gt[:3, :3])
+        log(f"  geometric fixture: closure (0, {last}) t off by {dt:.3g}, "
+            f"R by {da:.3g} degrees")
+        if dt >= 0.05 or da >= 2.0:
+            raise AssertionError("the metric closure is off")
+        frames, poses, Ks = loop_frames(LOOP_SCALED_MID, SIZE,
+                                        return_offset=0.3, tex_scale=0.6)
+        odo = noisy_odometry(poses, rot_noise=0.02, dir_noise=0.02)
+        # the same draws on both sides: samples from a CPU generator on
+        # the candidates' masks, and fixed LK jitter angles
+        angles = draw_angles((len(frames), K),
+                             torch.Generator().manual_seed(1), cpu)
+        draws = []
+
+        def samples(masks):
+            draws.append(_sample_minimal(masks.cpu(), LOOP_NHYP, 8,
+                                         torch.Generator().manual_seed(0)))
+            return draws[-1]
+
+        kw = dict(min_gap=LOOP_GAP, min_matches=60, images=frames,
+                  draw_samples=samples, angles=angles)
+        reset_launches()
+        t0 = time.perf_counter()
+        with recording(cuda_lk, "lk_level_cuda") as calls:
+            kpx, descs, valids = detect(frames)
+            cls = detect_loop_closures_scaled(descs, valids, kpx, Ks, *odo,
+                                              None, **kw)
+        path_ms = (time.perf_counter() - t0) * 1e3
+        got = read_launches()
+        syncs = host_syncs(lambda: detect_loop_closures_scaled(
+            descs, valids, kpx, Ks, *odo, None, **kw))
+        t0 = time.perf_counter()
+        cls_cpu = detect_loop_closures_scaled(descs.cpu(), valids.cpu(), kpx,
+                                              Ks, *odo, None, **kw)
+        cpu_s = time.perf_counter() - t0
+        same, dr, dtc = closures_gap(cls, cls_cpu)
+        # every parallax candidate's RANSAC-E (the rows the samples were
+        # drawn for: matches >= 60, median flow in (4, 60] px) by route
+        spairs = closure_pairs(len(frames), LOOP_GAP)
+        nn_s, ok_s = match_frame_pairs(descs.cpu(), valids.cpu(), spairs)
+        cands = [p for p, (i, j) in enumerate(spairs) if ok_s[p].sum() >= 60
+                 and 4.0 < np.median(np.linalg.norm(
+                     kpx[j][nn_s[p][ok_s[p]]] - kpx[i][ok_s[p]], axis=1))
+                 <= 60.0]
+        if len(cands) != len(draws[0]):
+            raise AssertionError(f"{len(cands)} candidates, RANSAC-E drew "
+                                 f"for {len(draws[0])}")
+        fxy = np.array([Ks[0, 0], Ks[1, 1]])
+        witness, apart = {}, []
+        for n, p in enumerate(cands):
+            i, j = spairs[p]
+            w = witness[f"{i}-{j}"] = ransac_e_witness(
+                torch.as_tensor((kpx[i] - Ks[:2, 2]) / fxy,
+                                dtype=torch.float32),
+                torch.as_tensor((kpx[j][nn_s[p]] - Ks[:2, 2]) / fxy,
+                                dtype=torch.float32),
+                torch.as_tensor(ok_s[p]), draws[0][n],
+                float(np.float32(2.0 / Ks[0, 0])), dev)
+            # the card's pick scores as the float64 CPU solve's best up to
+            # a near tie (two float64 solvers round apart, which can move a
+            # point that sits at the threshold), and its refits end where
+            # the float64 CPU refits from the same pick end; both within
+            # 0.5% of the matches
+            w["matches"] = int(ok_s[p].sum())
+            port, tie = w["card_float32"], 0.005 * w["matches"]
+            if port["best_count_f64"] < w["cpu_float64"]["best_count"] - tie \
+                    or abs(port["inliers"]
+                           - port["inliers_f64_from_best"]) > tie:
+                apart.append(f"{i}-{j}")
+        far, n_pts, lk_err = 0, 0, 0.0
+        for args, kwargs in calls:
+            e = (cuda_lk.lk_level_cuda(*args, **kwargs)
+                 - _lk_level(*args, **kwargs)).abs().amax(-1)
+            lk_err = max(lk_err, float(e.max()))
+            far += int((e > 1e-2).sum())
+            n_pts += e.numel()
+        errs["lk"] = max(errs["lk"], lk_err)
+        envelope = []
+        for i, j, _, tv, _ in cls:
+            T = poses[j] @ np.linalg.inv(poses[i])
+            envelope.append((float(np.linalg.norm(tv - T[:3, 3])),
+                             0.3 + 0.06 * (j - i) + 0.35))
+        out["scaled"] = r = {
+            "geometric_t_err": dt, "geometric_R_deg": da,
+            "frames": len(frames),
+            "closures": [(c[0], c[1], c[4], np.asarray(c[3]).tolist())
+                         for c in cls],
+            "closures_cpu": [(c[0], c[1], c[4]) for c in cls_cpu],
+            "ransac_candidates": len(cands), "ransac_e_by_route": witness,
+            "ransac_e_apart_from_float64": apart, "closures_equal_cpu": same,
+            "R_gap_cpu": dr, "t_gap_cpu": dtc, "launches": got,
+            "host_syncs": len(syncs),
+            "lk_calls": len(calls), "lk_max_abs_err": lk_err,
+            "lk_beyond_1e-2": far, "envelope": envelope,
+            "path_ms": path_ms, "cpu_twin_s": cpu_s}
+        log(f"  parallax loop: {len(cls)} closures {r['closures']} (CPU "
+            f"twin {r['closures_cpu']}), equal {same} (R gap {dr:.3g}, "
+            f"t gap {dtc:.3g}); RANSAC-E of its {len(cands)} parallax "
+            f"candidates by route {witness}; apart from the float64 solve "
+            f"{apart}; {len(syncs)} host syncs; F on its "
+            f"{len(calls)} calls max abs err {lk_err:.3g}, {far} of {n_pts} "
+            f"beyond 1e-2 px; launches {got}; drift envelope {envelope}; "
+            f"path {path_ms:.1f} ms, CPU twin {cpu_s:.1f} s on {card}")
+        if got["lk"] < 3 or not calls:
+            raise AssertionError(f"kernel F did not track the scaled "
+                                 f"path's neighbours: {got}")
+        if far > 0.01 * n_pts:
+            raise AssertionError("kernel F differs on the scaled path")
+        if apart:
+            raise AssertionError(f"RANSAC-E on the card parts from the "
+                                 f"float64 solve on {apart}")
+        if not same or dr > 1e-4 or dtc > 1e-3:
+            raise AssertionError("the scaled closures differ from the CPU "
+                                 "twin")
+        if any(e >= lim for e, lim in envelope):
+            raise AssertionError("a scaled closure leaves the drift "
+                                 "envelope")
+
+    with phase(f"predict_positions: SuperPoint's coarse maps of a "
+               f"{SIZE}^2 pair (golden randomized weights), card vs CPU"):
+        sp = get_model("SuperPoint")(load_golden_params("SuperPoint",
+                                                        dev)).eval()
+        with torch.inference_mode():
+            _, d = sp(torch.as_tensor(frames[:2], device=dev))
+        got = predict_positions(d[0], d[1])
+        ref = predict_positions(d[0].cpu(), d[1].cpu())
+        f64 = predict_positions(d[0].double(), d[1].double()).cpu()
+        xy_gap = float((got[:, :2].cpu() - ref[:, :2]).abs().max())
+        s_gap = float((got[:, 2].cpu() - ref[:, 2]).abs().max())
+        s64 = [float((x[:, 2].double().cpu() - f64[:, 2]).abs().max())
+               for x in (got, ref)]
+        ms = cuda_ms(lambda: predict_positions(d[0], d[1]))
+        t0 = time.perf_counter()
+        predict_positions(d[0].cpu(), d[1].cpu())
+        cpu_ms = (time.perf_counter() - t0) * 1e3
+        out["predict"] = r = {
+            "shape": list(d[0].shape), "xy_gap": xy_gap,
+            "score_gap": s_gap, "score_gap_f64_card": s64[0],
+            "score_gap_f64_cpu": s64[1], "ms": ms, "cpu_ms": cpu_ms}
+        log(f"  [{', '.join(map(str, d[0].shape))}]: xy gap {xy_gap:.3g}, "
+            f"score gap {s_gap:.3g} (each side to float64: card "
+            f"{s64[0]:.3g}, CPU {s64[1]:.3g}); {ms:.3f} ms on {card}, "
+            f"{cpu_ms:.1f} ms on the CPU")
+        if xy_gap > 1e-5 or s_gap > 1e-4 or not torch.isfinite(got).all():
+            raise AssertionError("predict_positions card vs CPU")
+    return out
+
+
+def save_images_phases(dev, card):
+    """save_images and save_metric_plot (phase 49): the runner on
+    SAVE_PAIRS synthetic pairs of repeatability, MHA, AUC and the per-pair
+    FundamentalMatrix (ALIKE-t + brute force at SIZE^2) on the card and
+    on the CPU: the JAX runner's file names, and pixel-equal PNGs wherever
+    the drawn inputs (keypoints, matches) are equal."""
+    from dataclasses import replace
+
+    import numpy as np
+    import torch
+
+    from keypoint_bench_tpu_torch.runner import EvalConfig, Evaluator
+
+    cv2_ok = importlib.util.find_spec("cv2") is not None
+    plt_ok = importlib.util.find_spec("matplotlib") is not None
+    tasks = {
+        "repeatability": {"type": "synthetic_homography",
+                          "num_pairs": SAVE_PAIRS, "image_size": SIZE},
+        "MHA": {"type": "synthetic_homography", "num_pairs": SAVE_PAIRS,
+                "image_size": SIZE},
+        "AUC": {"type": "synthetic_se3", "num_pairs": SAVE_PAIRS,
+                "image_size": SIZE},
+        "FundamentalMatrix": {"type": "synthetic_sequence",
+                              "num_frames": SAVE_PAIRS, "image_size": SIZE,
+                              "seed": 0}}
+    out = {"cv2": cv2_ok, "matplotlib": plt_ok}
+    with phase(f"save_images: 4 tasks x {SAVE_PAIRS} pairs at {SIZE}^2, "
+               f"card vs CPU"):
+        if not cv2_ok:
+            raise AssertionError("cv2 does not import: save_images cannot "
+                                 "run")
+        import cv2
+        root = os.path.join(ROOT, "output", "chip_smoke_save_images")
+
+        def host(x):
+            return x.cpu().numpy() if isinstance(x, torch.Tensor) \
+                else np.asarray(x)
+
+        def pixels(img, pts):
+            """Normalized points -> the integer pixels the helpers draw."""
+            h, w = host(img).shape[:2]
+            return (host(pts)[:, :2] * [w - 1.0, h - 1.0]).astype(int)
+
+        # warm the card's runner path (batch-1 forwards) before any timing
+        Evaluator(EvalConfig(
+            model_type="Alike", task_type="repeatability",
+            data_params=tasks["repeatability"],
+            extractor_params={"nms_dist": 6, "border_dist": 8, "top_k": K},
+            output_dir=os.path.join(root, "warm")), DEVICE).run()
+        for task, dp_ in tasks.items():
+            runs = {}
+            for side, dev_ in (("card", DEVICE), ("cpu", "cpu")):
+                d = os.path.join(root, task, side)
+                if os.path.isdir(d):
+                    for f in os.listdir(d):
+                        os.remove(os.path.join(d, f))
+                cfg = EvalConfig(
+                    model_type="Alike", task_type=task, data_params=dp_,
+                    extractor_params={"nms_dist": 6, "border_dist": 8,
+                                      "top_k": K, "threshold": 0,
+                                      "min_score": 0.0},
+                    matcher_params={"type": "brute_force",
+                                    "brute_force_params": {
+                                        "max_distance": 5.0}},
+                    task_params={"save_images": True}, output_dir=d)
+                calls = {}
+                t0 = time.perf_counter()
+                with recording(Evaluator, "_dump_keypoints") as kc, \
+                        recording(Evaluator, "_dump_matches") as mc, \
+                        recording(Evaluator, "_dump_epipolar") as ec:
+                    ev = Evaluator(cfg, dev_)
+                    res = ev.run()
+                    ms = (time.perf_counter() - t0) * 1e3 / SAVE_PAIRS
+                    if task == "repeatability" and plt_ok:
+                        ev.save_metric_plot(res["per_pair_repeatability"],
+                                            "repeatability")
+                # what each PNG draws: the valid keypoints' pixels, the
+                # matched pairs' pixels, the epipolar points (the lines
+                # are drawn from them through the same F)
+                for a, _ in kc:
+                    calls[f"{a[1]}_repeatability_{a[5]}.png"] = [
+                        pixels(a[2], a[3])[host(a[4])]]
+                for a, _ in mc:
+                    ok = host(a[7])
+                    calls[f"{a[2]}_{a[1]}.png"] = [pixels(a[3], a[5])[ok],
+                                                   pixels(a[4], a[6])[ok]]
+                for a, _ in ec:
+                    ok = host(a[8])
+                    calls[f"fund_epipolar_{a[1]}.png"] = [
+                        host(a[6])[ok][:30], host(a[7])[ok][:30]]
+                runs[side] = (d, calls, ms)
+                if side == "card":
+                    # the same run on the card without the images, warm
+                    t0 = time.perf_counter()
+                    Evaluator(replace(cfg, task_params={}, output_dir=(
+                        os.path.join(root, task, "plain"))), dev_).run()
+                    ms_none = (time.perf_counter() - t0) * 1e3 / SAVE_PAIRS
+            (dc, cc, ms_c), (dh, ch, ms_h) = runs["card"], runs["cpu"]
+            names = sorted(f for f in os.listdir(dc) if f.endswith(".png"))
+            if names != sorted(f for f in os.listdir(dh)
+                               if f.endswith(".png")) or \
+                    sorted(cc) != sorted(n for n in names
+                                         if n != "repeatability.png"):
+                raise AssertionError(f"{task}: the PNGs differ: {names}")
+            equal_in, equal_px = 0, 0
+            for n in sorted(cc):
+                same_in = all(np.array_equal(x, y)
+                              for x, y in zip(cc[n], ch[n]))
+                same_px = np.array_equal(
+                    cv2.imread(os.path.join(dc, n)),
+                    cv2.imread(os.path.join(dh, n)))
+                equal_in += same_in
+                equal_px += same_px
+                if same_in and not same_px:
+                    raise AssertionError(f"{task} {n}: equal inputs, "
+                                         f"different pixels")
+            plot = None
+            if task == "repeatability" and plt_ok:
+                plot = np.array_equal(
+                    cv2.imread(os.path.join(dc, "repeatability.png")),
+                    cv2.imread(os.path.join(dh, "repeatability.png")))
+            out[task] = {"files": names, "equal_inputs": equal_in,
+                         "pixel_equal": equal_px, "ms_pair_card": ms_c,
+                         "ms_pair_card_without_images": ms_none,
+                         "ms_pair_cpu": ms_h, "metric_plot_equal": plot}
+            log(f"  {task}: {names}; drawn points equal in {equal_in} of "
+                f"{len(cc)}, pixel-equal {equal_px}; metric plot equal "
+                f"{plot}; {ms_c:.1f} ms a pair on the card ({ms_none:.1f} "
+                f"without the images), {ms_h:.1f} on the CPU (the runner's "
+                f"host clock, the synthetic rendering included)")
+        if not plt_ok:
+            log("  matplotlib does not import here: save_metric_plot, "
+                "plot_series and plot_trajectory_3d raise ImportError, as "
+                "in the JAX runner")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4924,6 +5635,13 @@ def main() -> int:
     fp = five_point_phases(dev, card, auc)
     te = tracking_error_phases(dev, card, errs)
     tracks = {k: v["launches"] for k, v in te.items()}
+    lc = loop_closure_phases(dev, card, errs)
+    si = save_images_phases(dev, card)
+
+    def loop_launches(kernel):
+        """The kernel's launches on phase 46's and 47's paths."""
+        return {"launches_loop_closure": {
+            p: lc[p]["launches"][kernel] for p in ("strong", "scaled")}}
 
     def file_backed(kernel, prefix):
         """The kernel's launches on each file-backed config's run and its
@@ -4951,6 +5669,7 @@ def main() -> int:
              det["launches_dense_extract_match"]["nms"],
          "launches_fund_letnet_lk": det["launches_fund_letnet_lk"]["nms"],
          "launches_tracking_error": {k: v["nms"] for k, v in tracks.items()},
+         **loop_launches("nms"),
          **file_backed("nms", "nms ")},
         {"name": "sparse_sample", "route": "cuda",
          "source": "keypoint_bench_tpu_torch/csrc/sample.cu",
@@ -4963,6 +5682,7 @@ def main() -> int:
          "sector_bound_ms": samp_sector_ms,
          "sector_bound_by": samp_sector_by,
          "launches_vo_step": vo["launches"]["sample"],
+         **loop_launches("sample"),
          **file_backed("sample", "sample ")},
         {"name": "nn_match", "route": "cuda",
          "source": "keypoint_bench_tpu_torch/csrc/match.cu",
@@ -4982,6 +5702,10 @@ def main() -> int:
          **{f"{k}_d{d}": t[k] for d, t in ((4, d4), (513, d513))
             for k in ("ms", "device_ms", "plain_ms", "library_ms",
                       "bound_ms", "bound_by")},
+         **loop_launches("nn_match"),
+         **{f"{k}_loop_closure": lc["strong"]["kernel_d"][k] for k in (
+             "shape", "ms", "plain_ms", "library_ms", "bound_ms",
+             "bound_by")},
          **file_backed("nn_match", "nn_match ")},
         {"name": "attention", "route": "cuda",
          "source": "keypoint_bench_tpu_torch/csrc/attention.cu",
@@ -5019,6 +5743,7 @@ def main() -> int:
          "launches_vo_runner_lk": vo["launches_lk"],
          "launches_fund_letnet_lk": det["launches_fund_letnet_lk"]["lk"],
          "launches_tracking_error": {k: v["lk"] for k, v in tracks.items()},
+         **loop_launches("lk"),
          **file_backed("lk", "lk_level ")},
         {"name": "peel_topk", "route": "cuda",
          "source": "keypoint_bench_tpu_torch/csrc/peel.cu",
@@ -5066,6 +5791,7 @@ def main() -> int:
         "default", "pruning", "host_syncs_per_pair", "ms_adaptive_pair",
         "ms_fixed_depth_pair", "emptied_calls", "runner")},
         "five_point": fp, "tracking_error": te}, default=float))
+    log(json.dumps({"loop_closure": lc, "save_images": si}, default=float))
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

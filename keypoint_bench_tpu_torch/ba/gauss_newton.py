@@ -49,8 +49,11 @@ def _hat(v: torch.Tensor) -> torch.Tensor:
 
 def _exp_so3(phi: torch.Tensor) -> torch.Tensor:
     """Rodrigues, [..., 3] -> [..., 3, 3], with the Taylor branch below
-    theta^2 = 1e-10 (and a safe theta^2 in the other branch's operands)."""
-    th2 = (phi * phi).sum(-1)
+    theta^2 = 1e-10 (and a safe theta^2 in the other branch's operands).
+    theta^2 keeps a trailing dim: under forward-mode AD (the pose graph's
+    jacfwd) a 0-d tensor's tangent turns float64 where a Python scalar
+    meets it."""
+    th2 = (phi * phi).sum(-1, keepdim=True)
     small = th2 < 1e-10
     th2_safe = torch.where(small, torch.ones_like(th2), th2)
     th = torch.sqrt(th2_safe)
@@ -58,7 +61,7 @@ def _exp_so3(phi: torch.Tensor) -> torch.Tensor:
     b = torch.where(small, 0.5 - th2 / 24.0, (1.0 - torch.cos(th)) / th2_safe)
     ph = _hat(phi)
     eye = torch.eye(3, dtype=phi.dtype, device=phi.device)
-    return eye + a[..., None, None] * ph + b[..., None, None] * (ph @ ph)
+    return eye + a[..., None] * ph + b[..., None] * (ph @ ph)
 
 
 def _project(K: torch.Tensor, Xc: torch.Tensor) -> torch.Tensor:

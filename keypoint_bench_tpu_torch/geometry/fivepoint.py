@@ -27,7 +27,7 @@ from __future__ import annotations
 import torch
 
 from keypoint_bench_tpu_torch.geometry.ransac import (
-    _essential_project, _rows, _sample_minimal, _sampson, _solve_eightpoint,
+    _essential_project, _rows, _sample_minimal, _sampson, _solve_eightpoint_e,
     _take, _threshold)
 
 # Monomials in (x, y, z): the 10 of degree 3 first (eliminated), then the
@@ -230,7 +230,7 @@ def ransac_essential_5pt_from_samples(p0n: torch.Tensor, p1n: torch.Tensor,
     th = _threshold(thresh, res, 1)
     w = _rows(inl, best).float()
     for _ in range(3):
-        E = _essential_project(_solve_eightpoint(p0n, p1n, w))
+        E = _essential_project(_solve_eightpoint_e(p0n, p1n, w))
         w = ((_sampson(E, p0n, p1n) < th) & mask).float()
     ok = (mask.sum(-1) >= 5) & (_rows(counts, best) >= 5)
     return E, w > 0, ok

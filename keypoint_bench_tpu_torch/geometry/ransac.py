@@ -11,7 +11,10 @@ count, then a Hartley-normalized weighted refit on its inliers. Every
 function takes leading batch dimensions. The JAX package's TPU-only
 list-form, fixed-iteration and deflation solves (`_essential_project_fast`,
 `essential_basis`, `svd3`) are not ported: they are numerics workarounds
-for the TPU, not semantics.
+for the TPU, not semantics. On CUDA the raw-coordinate solves of RANSAC-H
+and RANSAC-E run in float64 instead (`_solve_dlt_h`, `_solve_minimal_e`,
+`_solve_eightpoint_e`), where cuSOLVER's batched float32 SVD parts from
+LAPACK's.
 """
 from __future__ import annotations
 
@@ -149,18 +152,82 @@ def ransac_homography(p0: torch.Tensor, p1: torch.Tensor, mask: torch.Tensor,
     return ransac_homography_from_samples(p0, p1, mask, idx, thresh)
 
 
+def _eightpoint_design(p0: torch.Tensor, p1: torch.Tensor) -> torch.Tensor:
+    """The 8-point design rows of x1^T F x0 = 0: p0, p1 [..., N, 2] ->
+    [..., N, 9]."""
+    x0, y0 = p0[..., 0], p0[..., 1]
+    x1, y1 = p1[..., 0], p1[..., 1]
+    o = torch.ones_like(x0)
+    return torch.stack([x1 * x0, x1 * y0, x1, y1 * x0, y1 * y0, y1, x0, y0,
+                        o], dim=-1)
+
+
 def _solve_eightpoint(p0: torch.Tensor, p1: torch.Tensor,
                       w: torch.Tensor) -> torch.Tensor:
     """Weighted 8-point DLT for x1^T F x0 = 0: p0, p1 [..., N, 2], w
     [..., N] -> [..., 3, 3], the right singular vector of the smallest
     singular value of A^T A; not rank-reduced."""
-    x0, y0 = p0[..., 0], p0[..., 1]
-    x1, y1 = p1[..., 0], p1[..., 1]
-    o = torch.ones_like(x0)
-    a = torch.stack([x1 * x0, x1 * y0, x1, y1 * x0, y1 * y0, y1, x0, y0, o],
-                    dim=-1) * w[..., None]
+    a = _eightpoint_design(p0, p1) * w[..., None]
     _, _, vh = torch.linalg.svd(a.transpose(-1, -2) @ a)
     return vh[..., -1, :].unflatten(-1, (3, 3))
+
+
+# column k of the 8 x 9 design left out, for its k-th minor
+_MINOR_COLS = [[c for c in range(9) if c != k] for k in range(9)]
+
+
+def _nullvec_minors(a: torch.Tensor):
+    """The null vector of 8 x 9 designs a [..., 8, 9] by Cramer's rule: the
+    signed 8 x 8 minors, unit-normalized -> (v [..., 9], valid [...]).
+    The minors' norm is the rows' 8-volume, at most the product of the row
+    norms; where it falls under 1e-13 of that product, a has rank < 8 to
+    rounding, and the row is invalid (v is then 0)."""
+    minors = torch.linalg.det(a[..., _MINOR_COLS].transpose(-3, -2))
+    sign = torch.tensor([1.0, -1.0] * 4 + [1.0], dtype=a.dtype,
+                        device=a.device)
+    v = minors * sign
+    n = torch.linalg.vector_norm(v, dim=-1, keepdim=True)
+    volume = torch.linalg.vector_norm(a, dim=-1).prod(-1)
+    valid = (n[..., 0] > 1e-13 * volume) & torch.isfinite(n[..., 0])
+    return torch.where(valid[..., None], v / n.clamp_min(1e-300),
+                       torch.zeros_like(v)), valid
+
+
+def _solve_minimal_e(q0: torch.Tensor, q1: torch.Tensor):
+    """RANSAC-E's hypotheses from minimal samples q0, q1 [..., n_hyp, 8, 2]
+    of raw normalized camera coordinates -> (E [..., n_hyp, 3, 3] not
+    projected, valid [..., n_hyp]).
+
+    Their A^T A is ill-conditioned, and cuSOLVER's batched float32 SVD of
+    it picks, on noisy matches, winners that hold a third of their
+    inliers under a float64 solve (`chip_smoke.py` phase 47 compares the
+    routes). So on CUDA the design's null vector comes from its minors in
+    float64 (`_nullvec_minors`; a sample of rank < 8 is invalid and counts
+    no inliers; at [8, 4096] on an H100 under a tenth of the float32 SVD's
+    time), E in the inputs' dtype. The CPU keeps the JAX package's
+    float32 SVD (every sample valid)."""
+    if not q0.is_cuda:
+        e = _solve_eightpoint(q0, q1, torch.ones_like(q0[..., 0]))
+        return e, torch.ones(e.shape[:-2], dtype=torch.bool,
+                             device=e.device)
+    v, valid = _nullvec_minors(_eightpoint_design(q0.double(),
+                                                  q1.double()))
+    return v.to(q0.dtype).unflatten(-1, (3, 3)), valid
+
+
+def _solve_eightpoint_e(p0: torch.Tensor, p1: torch.Tensor,
+                        w: torch.Tensor) -> torch.Tensor:
+    """`_solve_eightpoint` as RANSAC-E's refits run it, on raw normalized
+    camera coordinates. On a noisy match set their A^T A is ill-conditioned:
+    in float32 the card's and the CPU's refits from one hypothesis can end
+    hundreds of inliers apart where their float64 refits agree
+    (`chip_smoke.py` phase 47). So on CUDA the design, A^T A and the SVD
+    are float64, and the solution comes back in the inputs' dtype; the CPU
+    keeps the JAX package's float32 path."""
+    if p0.is_cuda:
+        return _solve_eightpoint(p0.double(), p1.double(),
+                                 w.double()).to(p0.dtype)
+    return _solve_eightpoint(p0, p1, w)
 
 
 def _rank2(F: torch.Tensor) -> torch.Tensor:
@@ -243,23 +310,26 @@ def ransac_essential_from_samples(p0n: torch.Tensor, p1n: torch.Tensor,
     """8-point essential RANSAC on normalized camera coordinates p0n, p1n
     [..., K, 2] with mask [..., K], over given minimal samples idx
     [..., n_hyp, 8]. Hypotheses solve the raw coordinates (no Hartley
-    normalization) and are projected onto the essential manifold; the
-    winner (most inliers, the first on ties) is refit 3 times on its
-    inliers, plainly (the JAX package measured a normalized refit and a
-    best-so-far guard and kept neither, geometry/ransac.py:376-390).
+    normalization; on CUDA in float64, `_solve_minimal_e`) and are
+    projected onto the essential manifold; the winner (most inliers, the
+    first on ties) is refit 3 times on its inliers, plainly (the JAX
+    package measured a normalized refit and a best-so-far guard and kept
+    neither, geometry/ransac.py:376-390; on CUDA in float64,
+    `_solve_eightpoint_e`).
     `thresh` is a Sampson threshold, scalar or [...]. Returns (E [..., 3,
     3], inliers [..., K], ok [...])."""
     q0, q1 = _take(p0n, idx), _take(p1n, idx)
-    es = _essential_project(_solve_eightpoint(q0, q1,
-                                              torch.ones_like(q0[..., 0])))
+    e9, valid = _solve_minimal_e(q0, q1)
+    es = _essential_project(e9)
     res = _sampson(es, p0n[..., None, :, :], p1n[..., None, :, :])
-    inl = (res < _threshold(thresh, res, 2)) & mask[..., None, :]
+    inl = (res < _threshold(thresh, res, 2)) & mask[..., None, :] \
+        & valid[..., None]
     counts = inl.sum(-1)
     best = counts.argmax(-1)
     th = _threshold(thresh, res, 1)
     w = _rows(inl, best).float()
     for _ in range(3):
-        E = _essential_project(_solve_eightpoint(p0n, p1n, w))
+        E = _essential_project(_solve_eightpoint_e(p0n, p1n, w))
         w = ((_sampson(E, p0n, p1n) < th) & mask).float()
     ok = (mask.sum(-1) >= 8) & (_rows(counts, best) >= 8)
     return E, w > 0, ok

@@ -18,9 +18,15 @@ JAX runner fails. `precision: bfloat16` casts the model's weights
 (`models.common.cast_params_bf16`) as the JAX runner does; LightGlue's
 stay f32, and every path matches the descriptors the JAX runner's
 per-pair and pipelined paths match (its bf16 `match_dtype` serves only
-the sharded batch paths). save_images, debug_nans, the distributed BA
-(`task_params.ba_distributed`) and the sharded batch paths (brute-force
-MHA and AUC, repeatability) raise NotImplementedError (ROADMAP.md).
+the sharded batch paths). `task_params.save_images` writes the JAX
+runner's PNGs under its names (keypoint overlays in repeatability, match
+overlays in MHA, AUC and the per-pair FundamentalMatrix, which adds its
+epipolar lines), for the pairs a run computes; `save_metric_plot` writes
+a metric curve and its txt. The images are drawn as the model saw them:
+uint8 frames at /255, where the JAX runner draws them unscaled. debug_nans,
+the distributed BA (`task_params.ba_distributed`) and the sharded batch
+paths (brute-force MHA and AUC, repeatability) raise NotImplementedError
+(ROADMAP.md).
 
 `resume: true` re-enters a run from its `progress.jsonl` journal
 (`MetricLog`) on the paths the JAX runner journals: per-pair
@@ -183,6 +189,17 @@ class MetricLog:
             self._write(i, rec)
         self._pending = []
         self._f.close()
+
+
+def _plot_image(img) -> np.ndarray:
+    """A frame as the drawing helpers take it: float32 [H,W,C] in [0, 1]
+    on the host (uint8 at /255; a tensor is moved off the device)."""
+    if isinstance(img, torch.Tensor):
+        img = img.cpu().numpy()
+    img = np.asarray(img)
+    if img.dtype == np.uint8:
+        return img.astype(np.float32) / 255.0
+    return img.astype(np.float32)
 
 
 def _not_ported(what: str):
@@ -365,13 +382,20 @@ class Evaluator:
         if int(self.cfg.data_params.get("batch_size", 1)) > 1 and \
                 len(ds) > 0 and ds[0]["warp01_params"]["mode"] == "homo":
             raise _not_ported("the sharded batch repeatability path")
-        if self.cfg.task_params.get("save_images"):
-            raise _not_ported("task_params.save_images")
         th = float(self.cfg.task_params.get("th", 3.0))
         log = MetricLog(self.cfg.output_dir, self.cfg.resume,
                         meta={"task": "repeatability", "th": th})
-        recs = self._journaled(log, ds, lambda batch: self._rep_pair_record(
-            batch, th)[0])
+
+        def record(i, batch):
+            rec, (k0, v0, k1, v1) = self._rep_pair_record(batch, th)
+            if self.cfg.task_params.get("save_images"):
+                # keypoint overlays like the reference writes per pair
+                # (tasks/repeatability.py:117-121), behind a flag
+                self._dump_keypoints(i, batch["image0"], k0, v0, 0)
+                self._dump_keypoints(i, batch["image1"], k1, v1, 1)
+            return rec
+
+        recs = self._journaled(log, ds, record)
         reps = [float(r["repeatability"]) for r in recs]
         errs = np.asarray([float(r["mean_error"]) for r in recs])
         result = {
@@ -388,14 +412,14 @@ class Evaluator:
     @staticmethod
     def _journaled(log: MetricLog, ds, record) -> list[dict]:
         """Every pair's record: the journal's where it has one (the pair is
-        not loaded), else `record(ds[i])`, journaled; closes the log, also
-        when a pair raises (what was computed stays for a resume)."""
+        not loaded), else `record(i, ds[i])`, journaled; closes the log,
+        also when a pair raises (what was computed stays for a resume)."""
         recs = []
         try:
             for i in range(len(ds)):
                 rec = log.get(i)
                 if rec is None:
-                    rec = log.put(i, record(ds[i]))
+                    rec = log.put(i, record(i, ds[i]))
                 recs.append(rec)
         finally:
             log.close()
@@ -408,15 +432,52 @@ class Evaluator:
         img1 = _crop32(np.asarray(batch["image1"]))
         return (img0, img1, *self.detect(img0), *self.detect(img1))
 
-    def _mha_pair_record(self, batch, ths):
+    def save_metric_plot(self, values, name):
+        """Per-pair metric curve + txt like the reference's plot_* helpers
+        (needs matplotlib)."""
+        from keypoint_bench_tpu_torch.utils.visualization import plot_series
+        os.makedirs(self.cfg.output_dir, exist_ok=True)
+        plot_series(values, os.path.join(self.cfg.output_dir, f"{name}.png"))
+
+    def _dump_keypoints(self, i, image, kpts, valid, side):
+        """Repeatability's keypoint overlay of one side of pair i."""
+        import cv2
+        from keypoint_bench_tpu_torch.utils.visualization import \
+            plot_kps_error
+        show = plot_kps_error(_plot_image(image), kpts.cpu().numpy(),
+                              valid.cpu().numpy())
+        os.makedirs(self.cfg.output_dir, exist_ok=True)
+        cv2.imwrite(os.path.join(self.cfg.output_dir,
+                                 f"{i}_repeatability_{side}.png"), show)
+
+    def _dump_matches(self, i, tag, img0, img1, m0, m1, ok):
+        """Flag-gated per-pair match overlay, like the reference writes
+        behind save_result (FundamentalMatrix.py:25-48, AUC.py:146-148)."""
+        import cv2
+        from keypoint_bench_tpu_torch.utils.visualization import plot_matches
+        img0, img1 = _plot_image(img0), _plot_image(img1)
+        okn = ok.cpu().numpy()
+        s0 = np.asarray([img0.shape[1] - 1.0, img0.shape[0] - 1.0])
+        s1 = np.asarray([img1.shape[1] - 1.0, img1.shape[0] - 1.0])
+        p0 = m0.cpu().numpy()[:, :2] * s0
+        p1 = m1.cpu().numpy()[:, :2] * s1
+        show = plot_matches(img0, img1, p0[okn], p1[okn])
+        os.makedirs(self.cfg.output_dir, exist_ok=True)
+        cv2.imwrite(os.path.join(self.cfg.output_dir, f"{tag}_{i}.png"),
+                    show)
+
+    def _mha_pair_record(self, i, batch, ths):
         """Per-pair MHA record: brute force or LightGlue on the covisible
-        sets (reference MHA.py:33-39), then RANSAC-H and the corner test."""
+        sets (reference MHA.py:33-39), then RANSAC-H and the corner test;
+        with save_images, pair i's match overlay."""
         img0, img1, s0, d0, k0, v0, s1, d1, k1, v1 = self._pair_maps(batch)
         wp01, wp10 = batch["warp01_params"], batch["warp10_params"]
         _, _, va = self._warp(k0, v0, wp01)
         _, _, vb = self._warp(k1, v1, wp10)
         m0, m1, ok = self._match(k0, va, k1, vb, d0, d1, img0.shape[1],
                                  img0.shape[0])
+        if self.cfg.task_params.get("save_images"):
+            self._dump_matches(i, "mha_matches", img0, img1, m0, m1, ok)
         out = mha_pair(m0, m1, ok, wp01["homography_matrix"], wp01["width"],
                        wp01["height"], img0.shape[0], img0.shape[1],
                        self.generator, thresholds=ths)
@@ -428,13 +489,11 @@ class Evaluator:
         if int(self.cfg.data_params.get("batch_size", 1)) > 1 and \
                 self.matcher_type == "brute_force":
             raise _not_ported("the sharded batch MHA path")
-        if self.cfg.task_params.get("save_images"):
-            raise _not_ported("task_params.save_images")
         ths = tuple(self.cfg.task_params.get("th", [3, 5, 7]))
         log = MetricLog(self.cfg.output_dir, self.cfg.resume,
                         meta={"task": "MHA", "th": [float(t) for t in ths]})
-        recs = self._journaled(log, ds, lambda batch: self._mha_pair_record(
-            batch, ths))
+        recs = self._journaled(log, ds, lambda i, batch: self._mha_pair_record(
+            i, batch, ths))
         hits = [np.array([float(r[f"h{t:g}"]) for t in ths]) for r in recs]
         mean = np.mean(np.stack(hits), axis=0)
         result = {f"MHA@{t:g}": float(v) for t, v in zip(ths, mean)}
@@ -443,14 +502,17 @@ class Evaluator:
         result["per_pair"] = [list(map(float, h)) for h in hits]
         return result
 
-    def _auc_pair_record(self, batch):
+    def _auc_pair_record(self, i, batch):
         """Per-pair AUC record (reference AUC.py:40-155): match, essential
         RANSAC + recoverPose on the intrinsics-normalized matches, pose
-        error; a failed pair counts 180 degrees and 0 inliers."""
+        error; a failed pair counts 180 degrees and 0 inliers. With
+        save_images, pair i's match overlay (AUC.py:146-148)."""
         img0, img1, s0, d0, k0, v0, s1, d1, k1, v1 = self._pair_maps(batch)
         wp01 = batch["warp01_params"]
         m0, m1, ok = self._match(k0, v0, k1, v1, d0, d1, img0.shape[1],
                                  img0.shape[0])
+        if self.cfg.task_params.get("save_images"):
+            self._dump_matches(i, "auc_matches", img0, img1, m0, m1, ok)
         h0, w0 = img0.shape[0], img0.shape[1]
         h1, w1 = img1.shape[0], img1.shape[1]
         dev = self.device
@@ -474,8 +536,6 @@ class Evaluator:
         if int(self.cfg.data_params.get("batch_size", 1)) > 1 and \
                 self.matcher_type == "brute_force":
             raise _not_ported("the sharded batch AUC path")
-        if self.cfg.task_params.get("save_images"):
-            raise _not_ported("task_params.save_images")
         ths = tuple(self.cfg.task_params.get("th", [5, 10, 20]))
         log = MetricLog(self.cfg.output_dir, self.cfg.resume,
                         meta={"task": "AUC",
@@ -599,8 +659,7 @@ class Evaluator:
 
     @torch.inference_mode()
     def _run_fundamental(self, ds):
-        if self.cfg.task_params.get("save_images"):
-            raise _not_ported("task_params.save_images")
+        # as in the JAX runner, the pipelined run writes no images
         if self.cfg.task_params.get("pipelined"):
             return self._run_fundamental_pipelined(ds)
         th = float(self.cfg.task_params.get("th", 3.0))
@@ -618,12 +677,30 @@ class Evaluator:
             scale = torch.tensor([w - 1.0, h - 1.0], device=self.device)
             F = torch.as_tensor(np.asarray(batch["fundamental"]),
                                 dtype=torch.float32, device=self.device)
-            out = fundamental_metrics(m0[:, 0:2] * scale, m1[:, 0:2] * scale,
-                                      ok, F, th)
+            p0, p1 = m0[:, 0:2] * scale, m1[:, 0:2] * scale
+            out = fundamental_metrics(p0, p1, ok, F, th)
+            if self.cfg.task_params.get("save_images"):
+                # reference FundamentalMatrix.py:70-84: match overlay +
+                # epipolar lines of the matched points, behind save_result
+                self._dump_epipolar(len(errs), img0, img1, m0, m1, p0, p1,
+                                    ok, batch["fundamental"])
             errs.append(float(out["fundamental_error"]))
             radios.append(float(out["fundamental_radio"]))
             nums.append(int(out["fundamental_num"]))
         return self._fundamental_result(errs, radios, nums)
+
+    def _dump_epipolar(self, i, img0, img1, m0, m1, p0, p1, ok, F):
+        """FundamentalMatrix's images of pair i: the match overlay and the
+        epipolar lines of the matched points over frame 1."""
+        import cv2
+        from keypoint_bench_tpu_torch.utils.visualization import \
+            plot_epipolar_lines
+        self._dump_matches(i, "fund_matches", img0, img1, m0, m1, ok)
+        okn = ok.cpu().numpy()
+        show = plot_epipolar_lines(_plot_image(img1), p0.cpu().numpy()[okn],
+                                   p1.cpu().numpy()[okn], np.asarray(F))
+        cv2.imwrite(os.path.join(self.cfg.output_dir,
+                                 f"fund_epipolar_{i}.png"), show)
 
     @torch.inference_mode()
     def _run_fundamental_ransac(self, ds):

@@ -116,6 +116,65 @@ def test_essential_project_matches_jax():
     assert np.abs(s[:, 2]).max() < 1e-5
 
 
+def _minimal_designs(seed=0):
+    """[3, 50] float64 8 x 9 designs of near-identity minimal samples in
+    normalized coordinates, and their null vectors by float64 SVD."""
+    rng = np.random.default_rng(seed)
+    q0 = rng.uniform(-0.5, 0.5, (3, 50, 8, 2))
+    q1 = q0 + rng.uniform(0, 0.05, q0.shape)
+    a = tr._eightpoint_design(torch.from_numpy(q0), torch.from_numpy(q1))
+    ref = torch.linalg.svd(a.transpose(-1, -2) @ a)[2][..., -1, :]
+    return a, ref
+
+
+def test_nullvec_minors_is_the_design_null_vector():
+    """The CUDA hypothesis solve's algorithm (the signed 8 x 8 minors in
+    float64), run on the CPU: the float64 SVD's null vector up to sign
+    within 1e-12; a sample with two equal correspondences (rank 7) is
+    invalid and counts no inliers."""
+    a, ref = _minimal_designs()
+    v, valid = tr._nullvec_minors(a)
+    assert bool(valid.all())
+    assert float((1 - (v * ref).sum(-1).abs()).abs().max()) < 1e-12
+    assert float((a @ v[..., None]).abs().max()) < 1e-12
+    a[0, 0, 7] = a[0, 0, 6]
+    v, valid = tr._nullvec_minors(a)
+    assert not bool(valid[0, 0]) and int(valid.sum()) == 149
+    assert float(v[0, 0].abs().max()) == 0.0
+
+
+def test_solve_minimal_e_on_the_cpu_is_the_float32_svd():
+    """On the CPU the hypotheses stay the JAX package's float32 SVD of
+    A^T A, every sample valid."""
+    rng = np.random.default_rng(1)
+    q0 = torch.from_numpy(rng.uniform(-0.5, 0.5, (2, 16, 8, 2))
+                          .astype(np.float32))
+    q1 = q0 + 0.05
+    e, valid = tr._solve_minimal_e(q0, q1)
+    assert e.dtype == torch.float32 and bool(valid.all())
+    assert torch.equal(e, tr._solve_eightpoint(q0, q1,
+                                               torch.ones_like(q0[..., 0])))
+
+
+@pytest.mark.cuda
+def test_solve_minimal_e_on_cuda_is_the_float64_null_vector():
+    """On CUDA the hypotheses are the float64 null vectors of the designs
+    (float32 E within 1e-6 of the float64 SVD's, up to sign)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    rng = np.random.default_rng(2)
+    q0 = rng.uniform(-0.5, 0.5, (3, 50, 8, 2)).astype(np.float32)
+    q1 = (q0 + rng.uniform(0, 0.05, q0.shape)).astype(np.float32)
+    e, valid = tr._solve_minimal_e(torch.from_numpy(q0).cuda(),
+                                   torch.from_numpy(q1).cuda())
+    a = tr._eightpoint_design(torch.from_numpy(q0).double(),
+                              torch.from_numpy(q1).double())
+    ref = torch.linalg.svd(a.transpose(-1, -2) @ a)[2][..., -1, :]
+    v = e.cpu().double().flatten(-2)
+    assert bool(valid.all())
+    assert float((1 - (v * ref).sum(-1).abs()).abs().max()) < 1e-6
+
+
 def test_ransac_essential_from_jax_samples():
     equal_masks = 0
     for seed in range(12):
@@ -423,5 +482,13 @@ def test_xfeat_light_glue_falls_back_only_when_asked(tmp_path, weights):
      "save_images")])
 def test_auc_runner_raises(tmp_path, change, exc, what):
     cfg = {**_auc_cfg(tmp_path, size=64, pairs=1), **change}
+    if what == "save_images":
+        # ported since: the run writes the JAX runner's match overlay of
+        # its pair (its pixels against the JAX runner's:
+        # tests/test_torch_visualization.py)
+        Evaluator(EvalConfig(**cfg), "cpu").run()
+        assert [p.name for p in tmp_path.glob("*.png")] == [
+            "auc_matches_0.png"]
+        return
     with pytest.raises(exc, match=what):
         Evaluator(EvalConfig(**cfg), "cpu").run()

@@ -230,6 +230,15 @@ def test_cli_runs_fund_synthetic_config_on_cpu(tmp_path, capsys):
     ({"debug_nans": True}, "debug_nans")])
 def test_unported_parts_raise(tmp_path, change, what):
     cfg = {**_cfg(tmp_path), **change}
+    if what == "save_images":
+        # ported since: the per-pair run writes the JAX runner's match and
+        # epipolar overlays of its 4 frame pairs (their pixels against the
+        # JAX runner's: tests/test_torch_visualization.py)
+        Evaluator(EvalConfig(**cfg), "cpu").run()
+        assert sorted(p.name for p in tmp_path.glob("*.png")) == sorted(
+            f"fund_{k}_{i}.png" for k in ("matches", "epipolar")
+            for i in range(4))
+        return
     with pytest.raises(NotImplementedError, match=what):
         Evaluator(EvalConfig(**cfg), "cpu").run()
 

@@ -118,7 +118,7 @@ def test_a_run_that_raises_keeps_its_computed_pairs(tmp_path):
 
     log = MetricLog(str(tmp_path), resume=False, meta={"task": "t"})
     with pytest.raises(IOError):
-        Evaluator._journaled(log, Items(), lambda i: {"v": float(i)})
+        Evaluator._journaled(log, Items(), lambda i, b: {"v": float(i)})
     resumed = MetricLog(str(tmp_path), resume=True, meta={"task": "t"})
     assert [resumed.get(i) for i in range(4)] == [
         {"i": 0, "v": 0.0}, {"i": 1, "v": 1.0}, {"i": 2, "v": 2.0}, None]

@@ -188,6 +188,14 @@ def test_lightglue_without_weights_raises_or_falls_back(tmp_path):
     ({"debug_nans": True}, "debug_nans")])
 def test_unported_parts_raise(weights, tmp_path, change, what):
     cfg = {**_cfg(weights, tmp_path), **change}
+    if what == "save_images":
+        # ported since: the run writes the JAX runner's match overlay of
+        # each pair (its pixels against the JAX runner's:
+        # tests/test_torch_visualization.py)
+        Evaluator(EvalConfig(**cfg), "cpu").run()
+        assert sorted(p.name for p in tmp_path.glob("*.png")) == [
+            "mha_matches_0.png", "mha_matches_1.png"]
+        return
     with pytest.raises(NotImplementedError, match=what):
         Evaluator(EvalConfig(**cfg), "cpu").run()
 

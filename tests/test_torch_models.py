@@ -93,17 +93,45 @@ def _both(name, img, np_params=None):
 @pytest.mark.parametrize("name", sorted(TOL))
 def test_forward_matches_jax(highest, name, shape):
     img = np.random.default_rng(0).random(shape, np.float32)
-    (s_ref, d_ref), (s, d) = _both(name, img)
+    p = _np_params(name)
+    (s_ref, d_ref), (s, d) = _both(name, img, p)
     (sa, sr), dtol = TOL[name]
     assert s.shape == s_ref.shape == shape[:3] + (1,)
-    np.testing.assert_allclose(s, s_ref, atol=sa, rtol=sr,
-                               err_msg=_diagnosis(s, s_ref, sa, sr))
+    _assert_close(s, s_ref, sa, sr, lambda mode: _port_rerun(
+        name, img, p, mode)[0])
     if dtol is None:
         assert d is None and d_ref is None
     else:
         assert d.shape == d_ref.shape
-        np.testing.assert_allclose(d, d_ref, atol=dtol[0], rtol=dtol[1],
-                                   err_msg=_diagnosis(d, d_ref, *dtol))
+        _assert_close(d, d_ref, *dtol, lambda mode: _port_rerun(
+            name, img, p, mode)[1])
+
+
+def _port_rerun(name, img, np_params, mode):
+    """The port's forward once more in this process: "again" as the first
+    one, "mkldnn-off" with oneDNN's convolutions off, "float64" in float64
+    (parameters and image). Returns (score, desc) as numpy."""
+    p = np_params if name in CLASSIC else params_from_jax(np_params)
+    x = torch.from_numpy(img)
+    if mode == "float64":
+        x = x.double()
+        if name not in CLASSIC:
+            p = {k: v.double() for k, v in p.items()}
+    with torch.no_grad(), torch.backends.mkldnn.flags(
+            enabled=mode != "mkldnn-off"):
+        s, d = get_model(name)(p)(x)
+    return s.numpy(), None if d is None else d.numpy()
+
+
+def _assert_close(got, ref, atol, rtol, rerun):
+    """assert_allclose(got, ref, atol, rtol); a failure's message adds
+    `_diagnosis` with the port's forward rerun (`rerun(mode)` -> the same
+    map) right after the failing one."""
+    try:
+        np.testing.assert_allclose(got, ref, atol=atol, rtol=rtol)
+    except AssertionError as e:
+        raise AssertionError(
+            f"{e}\n{_diagnosis(got, ref, atol, rtol, rerun)}") from None
 
 
 def _cpu_flags() -> str:
@@ -118,19 +146,42 @@ def _cpu_flags() -> str:
                     if x in flags) or "none of avx2 / avx512f / amx"
 
 
-def _diagnosis(got, ref, atol, rtol) -> str:
+def _diagnosis(got, ref, atol, rtol, rerun=None) -> str:
     """What decides an assert_allclose(got, ref, atol, rtol): the worst
     point by |got - ref| / (atol + rtol |ref|), its values, and the state
-    of the process that sets the convs' summation order."""
+    of the process that sets the convs' summation order. With `rerun`,
+    the port's value there from a second forward (does a process's first
+    forward differ from its second?), from a forward with oneDNN off (is
+    oneDNN the part at fault?) and from a float64 forward (which side
+    lies nearer to it?)."""
     diff = np.abs(got.astype(np.float64) - ref.astype(np.float64))
     tol = atol + rtol * np.abs(ref.astype(np.float64))
     ratio = np.where(np.isnan(diff), 0.0, diff / tol)
     i = np.unravel_index(int(np.argmax(ratio)), ratio.shape)
-    return (f"worst index {tuple(int(j) for j in i)}: port {got[i]!r}, "
-            f"JAX {ref[i]!r}, |diff| {diff[i]:.3e}, tolerance "
-            f"{tol[i]:.3e}, worst ratio {ratio[i]:.4f}; torch threads "
-            f"{torch.get_num_threads()}, mkldnn enabled "
-            f"{torch.backends.mkldnn.enabled}, CPU flags {_cpu_flags()}")
+    msg = (f"worst index {tuple(int(j) for j in i)}: port {got[i]!r}, "
+           f"JAX {ref[i]!r}, |diff| {diff[i]:.3e}, tolerance "
+           f"{tol[i]:.3e}, worst ratio {ratio[i]:.4f}, "
+           f"{int((ratio > 1).sum())} of {ratio.size} out of tolerance; "
+           f"torch threads {torch.get_num_threads()}, mkldnn enabled "
+           f"{torch.backends.mkldnn.enabled}, CPU flags {_cpu_flags()}")
+    if rerun is None:
+        return msg
+    for mode in ("again", "mkldnn-off", "float64"):
+        try:
+            v = rerun(mode)
+        except Exception as e:  # the message must not hide the failure
+            msg += f"; {mode} forward raised {e!r}"
+            continue
+        gap = np.abs(v.astype(np.float64) - got.astype(np.float64))
+        msg += (f"; {mode} forward {v[i]!r} (max |it - first| over the "
+                f"map {np.nanmax(gap):.3e}")
+        if mode == "float64":
+            dp = abs(float(got[i]) - float(v[i]))
+            dj = abs(float(ref[i]) - float(v[i]))
+            msg += (f", |port - f64| {dp:.3e}, |JAX - f64| {dj:.3e}: "
+                    f"{'port' if dp < dj else 'JAX'} nearer")
+        msg += ")"
+    return msg
 
 
 @pytest.mark.parametrize("name", sorted(GOLDEN_TOL))

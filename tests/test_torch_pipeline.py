@@ -133,11 +133,19 @@ def test_runner_normalizes_uint8(tmp_path):
 
 @pytest.mark.parametrize("field,value,extra", [
     # the five-point solver this case raised for is ported
-    # (tests/test_torch_fivepoint.py); the plots are not
+    # (tests/test_torch_fivepoint.py), and so are the plots
     pytest.param("task_params", {"save_images": True}, {},
                  id="task_params-save_images")])
 def test_unported_options_raise(tmp_path, field, value, extra):
     cfg = {**_config(tmp_path, "x"), field: value, **extra}
+    if value == {"save_images": True}:
+        # the run writes the JAX runner's keypoint overlays of both sides
+        # of its 2 pairs (their pixels against the JAX runner's:
+        # tests/test_torch_visualization.py)
+        Evaluator(EvalConfig.from_dict(cfg), device="cpu").run()
+        assert sorted(p.name for p in (tmp_path / "x").glob("*.png")) == [
+            f"{i}_repeatability_{s}.png" for i in (0, 1) for s in (0, 1)]
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Evaluator(EvalConfig.from_dict(cfg), device="cpu").run()
 
