@@ -343,6 +343,45 @@ reset just before each path and read just after:
      card and on the CPU: the JAX runner's PNG names, pixel-equal wherever
      the drawn keypoints or matches are equal; save_metric_plot where
      matplotlib imports.
+The parallel layer on the one card (`parallel_phases`), after phase 49;
+each path at world 1 (a one-rank NCCL process group, whose collectives
+run NCCL's code) and on 2 ranks that share the card over gloo (threads of
+this process; gloo's send and recv take host memory, so the ring hop is
+staged through the host), the launch counts reset just before each run
+and read just after, kernels A, B, D and E held against their plain
+versions on every rank's own calls, each timed with the collectives'
+share of its time and the transfers that went through the host:
+ 50. `sharded_eval_step` (ALIKE-t dense: A, D; Alike_s2d sparse: A, B,
+     D) on the 16 homography pairs at 512^2, K = 1000: world 1 bit-equal
+     to the one-rank `batched_repeatability_step`, every rank of world 2
+     bit-equal to it on the 8-pair blocks; the gap between the worlds
+     printed (the forward runs on each rank's block);
+ 51. `sharded_mha_step`, SuperPoint + brute force, the same 16 pairs;
+ 52. `sharded_auc_step`, ALIKE-t + brute force on phase 16's 8 SE3 pairs,
+     n_hyp 4096;
+ 53. the runner's batch paths (data_params.batch_size 4 over 6 pairs: a
+     batch and a 2-pair ragged tail): repeatability, MHA and AUC
+     (ALIKE-t + brute force), at world 1 and on 2 ranks, against
+     the per-pair run: per-pair repeatability within 2e-3, MHA within one
+     pair; AUC with pair i's RANSAC draws from seed i on both paths
+     (`pair_indexed_draws`): the same failed pairs, at least half the
+     pairs with equal inlier counts and their errors within 1 degree,
+     every pair finite, mean inliers above 0.6 of the per-pair run's;
+ 54. `ba_solve_distributed` on phase 20's window: on the one-rank group
+     equal to `lm_iterations`; on 2 ranks, card against CPU in float32
+     and float64 after `gauge_gap` (phase 21's gates); `vo_step` with
+     `refine_window(mesh)` on the one-rank group and on 2 ranks against
+     the one-rank refinement (tests/test_vo_ba.py's gates: the same
+     tracks, a refinement, the mean error within 5% and rotations within
+     2e-3; the free scale printed); timed;
+ 55. `sharded_vo_pair_solves` on phase 20's 32 frames against
+     `vo_step`'s pair poses on the same samples (ok equal, R and t within
+     1e-4), kernel D held on its calls; timed;
+ 56. head-sharded LightGlue (D = 256, 4 heads, 9 layers, K = 1000, the
+     golden weights, phase 9's first SuperPoint pair) over 2 and 4 model
+     ranks against the dense forward: matches agree above 99%, mscores
+     within 1e-3, the 2-layer log scores within 1e-4 of their norm;
+     kernel E 18 launches a rank; timed against the dense forward.
 Exits non-zero without CUDA, or without the port's package beside it.
 """
 from __future__ import annotations
@@ -1027,6 +1066,7 @@ def auc_phases(dev, dp, card, errs):
     xf = get_model("XFeat")(load_golden_params("XFeat", dev)).eval()
     lg = lightglue_input_proj_params(device=dev)
     out["data"] = (imgs0, imgs1, Ks, poses, lg)     # for the bf16 phases
+    out["items"] = items                            # for phase 53
 
     with phase(f"xfeat_auc_step: {AUC_PAIRS} pairs at {SIZE}^2, n_hyp "
                f"{AUC_NHYP}"):
@@ -1483,6 +1523,7 @@ def vo_phases(dev, dp, card, errs):
                 "BA: ba_solve (8 LM iterations, Huber 2)":
                 cuda_ms(lambda: ba_solve(gated, 8, 1e-2, huber_delta=2.0),
                         iters=3)})
+        out["window"] = (kpts_px, tracks, R_w2c, t_w2c)   # for phase 54
         out["ba_window"] = {"C": int(prob.R.shape[0]),
                             "P": int(prob.points.shape[0]),
                             "N": int(prob.uv.shape[0]),
@@ -4662,6 +4703,727 @@ def save_images_phases(dev, card):
     return out
 
 
+PAR_WORLD = 2          # thread ranks sharing the card over gloo
+PAR_RUNNER_PAIRS, PAR_BATCH = 6, 4   # a batch and a 2-pair ragged tail
+TP_SHARDS = (2, 4)
+
+
+def free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+@contextlib.contextmanager
+def one_rank_group():
+    """A one-rank process group on the card, NCCL (its collectives run the
+    NCCL code path on one rank), and the Mesh over it; destroyed on
+    exit. A CPU rehearsal takes gloo."""
+    import torch
+    import torch.distributed as dist
+    from keypoint_bench_tpu_torch.parallel.mesh import world_mesh
+    if DEVICE == "cuda":
+        dist.init_process_group(
+            "nccl", init_method=f"tcp://127.0.0.1:{free_port()}",
+            world_size=1, rank=0,
+            device_id=torch.device("cuda", torch.cuda.current_device()))
+    else:
+        dist.init_process_group(
+            "gloo", init_method=f"tcp://127.0.0.1:{free_port()}",
+            world_size=1, rank=0)
+    try:
+        yield world_mesh(DEVICE)
+    finally:
+        dist.destroy_process_group()
+
+
+@contextlib.contextmanager
+def pair_indexed_draws():
+    """Pair i of a runner's run draws its RANSAC samples from a generator
+    seeded with i, on the batch path (`_batch_seeds`, then
+    `parallel.evaluate.pair_samples`) as on the per-pair path and the
+    ragged tail (`_sample_minimal` of one pair with that generator gives
+    pair_samples' draws), so that the two paths compare pair by pair.
+    Each evaluator (each thread rank) counts its own pairs; restored on
+    exit."""
+    import torch
+    from keypoint_bench_tpu_torch.runner import Evaluator
+    from keypoint_bench_tpu_torch.tasks import auc as ta
+    nxt = {}
+    real_seeds, real_sample = Evaluator._batch_seeds, ta._sample_minimal
+
+    def take(generator, n):
+        i = nxt.get(id(generator), 0)
+        nxt[id(generator)] = i + n
+        return list(range(i, i + n))
+
+    def sample(mask, n_hyp, size, generator):
+        g = torch.Generator(device=mask.device).manual_seed(
+            take(generator, 1)[0])
+        return real_sample(mask, n_hyp, size, g)
+
+    Evaluator._batch_seeds = lambda self, b: take(self.generator, b)
+    ta._sample_minimal = sample
+    try:
+        yield
+    finally:
+        Evaluator._batch_seeds, ta._sample_minimal = real_seeds, real_sample
+
+
+@contextlib.contextmanager
+def rank_calls(*targets):
+    """Record every call of each (module, name) in `targets` with the
+    thread (rank) that made it; the calls still run. Yields {name: [(rank,
+    args, kwargs)]}; restored on exit."""
+    import threading
+    calls, saved = {}, []
+    for module, name in targets:
+        real = getattr(module, name)
+        calls[name] = []
+
+        def record(*args, _real=real, _calls=calls[name], **kwargs):
+            _calls.append((threading.current_thread().name, args, kwargs))
+            return _real(*args, **kwargs)
+
+        saved.append((module, name, real))
+        setattr(module, name, record)
+    try:
+        yield calls
+    finally:
+        for module, name, real in saved:
+            setattr(module, name, real)
+
+
+def recorded_kernels():
+    """rank_calls over the wrappers of kernels A, B, D and E."""
+    from keypoint_bench_tpu_torch.ops import (cuda_attention, cuda_match,
+                                              cuda_nms, cuda_sample)
+    return rank_calls((cuda_nms, "nms_cuda"), (cuda_sample, "sample_cuda"),
+                      (cuda_match, "nn_dists_cuda"),
+                      (cuda_attention, "attention_cuda"))
+
+
+def hold_kernel_calls(calls, errs, what):
+    """Each recorded kernel call against its plain version on the same
+    inputs: A bit-equal (fast_nms), B within 1e-5 (sample_branches), D
+    `check_nn` (nn_dists), E within 1e-5 of max(1, max |v|)
+    (fused_attention). Returns {kernel: {rank: calls}}."""
+    import torch
+    from keypoint_bench_tpu_torch.ops import (cuda_attention, cuda_match,
+                                              cuda_nms, cuda_sample)
+    from keypoint_bench_tpu_torch.ops.attention import fused_attention
+    from keypoint_bench_tpu_torch.ops.detect import fast_nms
+    from keypoint_bench_tpu_torch.ops.matching import nn_dists
+    from keypoint_bench_tpu_torch.ops.sparse_desc import sample_branches
+    by_rank = {}
+    for name, recs in calls.items():
+        for rank, args, kw in recs:
+            d = by_rank.setdefault(name, {})
+            d[rank] = d.get(rank, 0) + 1
+            if name == "nms_cuda":
+                if not torch.equal(cuda_nms.nms_cuda(*args, **kw),
+                                   fast_nms(*args, **kw)):
+                    raise AssertionError(f"kernel A differs from fast_nms on "
+                                         f"{rank}'s call ({what})")
+            elif name == "sample_cuda":
+                e = float((cuda_sample.sample_cuda(*args, **kw)
+                           - sample_branches(*args, **kw)).abs().max())
+                errs["sample"] = max(errs["sample"], e)
+                if not e <= 1e-5:
+                    raise AssertionError(f"kernel B on {rank}'s call "
+                                         f"({what}): {e}")
+            elif name == "nn_dists_cuda":
+                a, b = (x.reshape(-1, *x.shape[-2:]) for x in args)
+                _, e, _ = check_nn(cuda_match.nn_dists_cuda(a, b),
+                                   nn_dists(a, b), a, b)
+                errs["nn_match"] = max(errs["nn_match"], e)
+            else:
+                scale = max(1.0, float(args[2].abs().max()))
+                e = float((cuda_attention.attention_cuda(*args, **kw)
+                           - fused_attention(*args, **kw)).abs().max())
+                errs["attention"] = max(errs["attention"], e / scale)
+                if not e <= 1e-5 * scale:
+                    raise AssertionError(f"kernel E on {rank}'s call "
+                                         f"({what}): {e}")
+        recs.clear()
+    return by_rank
+
+
+def same_outputs(a, b):
+    """Two per-pair outputs (tensors, or tuples / dicts of them) equal bit
+    for bit, NaN matching NaN."""
+    import torch
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(same_outputs(a[k], b[k])
+                                            for k in a)
+    if isinstance(a, (tuple, list)):
+        return len(a) == len(b) and all(map(same_outputs, a, b))
+    return torch.equal(a.nan_to_num(-7.0), b.nan_to_num(-7.0))
+
+
+def largest_gap(a, b):
+    """The largest |a - b| over every float field (NaN matching NaN)."""
+    import torch
+    if isinstance(a, dict):
+        return max(largest_gap(a[k], b[k]) for k in a)
+    if isinstance(a, (tuple, list)):
+        return max(map(largest_gap, a, b))
+    return float((a.double() - b.double()).nan_to_num(0.0).abs().max())
+
+
+def timed_ranks(fn, n_data, n_model=1, steps=3):
+    """(ms a step, the collectives' share of it, the host-staged ops):
+    fn(mesh) run `steps` times on each of n_data x n_model thread ranks
+    over gloo on the card after one warm-up, every collective timed (it
+    waits for the device first); rank 0's numbers."""
+    import torch
+    from keypoint_bench_tpu_torch.parallel.mesh import (collective_seconds,
+                                                        thread_ranks)
+
+    def run(mesh):
+        fn(mesh)
+        mesh.timing = True
+        mesh.stats.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            fn(mesh)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        return sec, collective_seconds(mesh), sorted(mesh.staged)
+
+    sec, coll, staged = thread_ranks(run, n_data, n_model,
+                                     device=DEVICE)[0]
+    return sec / steps * 1e3, coll / sec, staged
+
+
+def timed_mesh(fn, mesh, steps=3):
+    """timed_ranks on one given mesh (the one-rank NCCL group)."""
+    import torch
+    from keypoint_bench_tpu_torch.parallel.mesh import collective_seconds
+    fn(mesh)
+    mesh.timing = True
+    mesh.stats.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        fn(mesh)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    mesh.timing = False
+    return sec / steps * 1e3, collective_seconds(mesh) / sec, sorted(
+        mesh.staged)
+
+
+def dp_phase(title, make_step, direct, batch, seeds, kernels, errs, card):
+    """One data-parallel step (phases 50-52) at world 1 (the one-rank
+    NCCL group) and world PAR_WORLD (gloo ranks sharing the card), the
+    launch counts reset just before each run and read just after, kernels
+    A, B, D held on every rank's own calls: world 1 bit-equal to the
+    one-rank batched step `direct(batch, seeds)` on the whole batch, and
+    every rank of world PAR_WORLD to it on each rank's block (the forward
+    runs on the block: its maps may depend on the batch size); the gap
+    between the two worlds printed; each timed. Returns the phase's
+    numbers."""
+    import torch
+    from keypoint_bench_tpu_torch.parallel.mesh import thread_ranks
+    out = {}
+    n = len(seeds)
+    with phase(title):
+        want1 = direct(batch, seeds)
+        with one_rank_group() as mesh:
+            reset_launches()
+            with recorded_kernels() as calls:
+                got1 = make_step(mesh)(*batch, seeds)
+                torch.cuda.synchronize()
+            launches1 = read_launches()
+            held1 = hold_kernel_calls(calls, errs, f"{title}, world 1")
+            ms1, share1, staged1 = timed_mesh(
+                lambda m: make_step(m)(*batch, seeds), mesh)
+        if not same_outputs(got1, want1):
+            raise AssertionError(f"{title}: world 1 differs from the "
+                                 f"one-rank batched step")
+        b = n // PAR_WORLD
+        want2 = [direct([x[r * b:(r + 1) * b] for x in batch],
+                        seeds[r * b:(r + 1) * b]) for r in range(PAR_WORLD)]
+        reset_launches()
+        with recorded_kernels() as calls:
+            got2 = thread_ranks(lambda mesh: make_step(mesh)(*batch, seeds),
+                                PAR_WORLD, device=DEVICE)
+            torch.cuda.synchronize()
+        launches2 = read_launches()
+        held2 = hold_kernel_calls(calls, errs, f"{title}, world {PAR_WORLD}")
+        ms2, share2, staged2 = timed_ranks(
+            lambda m: make_step(m)(*batch, seeds), PAR_WORLD)
+        for r, g in enumerate(got2):
+            blocks = [
+                (tuple(x[r_ * b:(r_ + 1) * b] for x in g)
+                 if isinstance(g, tuple) else
+                 {k: v[r_ * b:(r_ + 1) * b] for k, v in g.items()}
+                 if isinstance(g, dict) else g[r_ * b:(r_ + 1) * b])
+                for r_ in range(PAR_WORLD)]
+            if not all(same_outputs(x, y) for x, y in zip(blocks, want2)):
+                raise AssertionError(f"{title}: rank {r} of world "
+                                     f"{PAR_WORLD} differs from the one-rank "
+                                     f"step on the blocks")
+        gap = largest_gap(got2[0], got1)
+        means = [round(float(x.float().nanmean()), 4) for x in (
+            got1.values() if isinstance(got1, dict) else
+            got1 if isinstance(got1, tuple) else got1.unbind(-1))]
+        for k in kernels:
+            if not (launches1[k] > 0 and launches2[k] > 0):
+                raise AssertionError(f"{title}: kernel {k} not launched: "
+                                     f"{launches1}, {launches2}")
+        log(f"  world 1 (NCCL): bit-equal to the one-rank batched step; "
+            f"per-pair outputs' means {means}; launches {launches1}; kernel calls held by rank {held1}; "
+            f"{ms1:.3f} ms a step, collectives {share1:.4f} of it, "
+            f"host-staged {staged1 or 'none'}")
+        log(f"  world {PAR_WORLD} (gloo, one card): every rank bit-equal to "
+            f"the one-rank step on the {b}-pair blocks; launches "
+            f"{launches2}; kernel calls held by rank {held2}; {ms2:.3f} ms "
+            f"a step, collectives {share2:.4f} of it, host-staged "
+            f"{staged2 or 'none'}; largest gap to world 1 {gap:.3g} on "
+            f"{card}")
+        out.update({"launches_world1": {k: launches1[k] for k in kernels},
+                    f"launches_world{PAR_WORLD}": {k: launches2[k]
+                                                   for k in kernels},
+                    "ms_world1": ms1, f"ms_world{PAR_WORLD}": ms2,
+                    "collective_share_world1": share1,
+                    f"collective_share_world{PAR_WORLD}": share2,
+                    "host_staged": staged2, "output_means": means,
+                    f"gap_world{PAR_WORLD}_vs_world1": gap})
+    return out
+
+
+def parallel_phases(dev, card, errs, ctx):
+    """The parallel layer on one card (phases 50-56): the data-parallel
+    repeatability, MHA and AUC steps; the runner's batch paths; the
+    distributed Schur BA and refine_window(mesh); the sequence-sharded VO
+    solves; head-sharded LightGlue. Each at world 1 (one-rank NCCL group)
+    and on ranks that share the card over gloo (threads of this process),
+    the launch counts reset just before each path and read just after,
+    the kernels held on every rank's own calls. Returns the numbers for
+    the parallel and kernels JSON lines."""
+    from dataclasses import replace
+
+    import numpy as np
+    import torch
+
+    from keypoint_bench_tpu_torch.ba.distributed import (
+        ba_solve_distributed, gather_points)
+    from keypoint_bench_tpu_torch.ba.gauss_newton import (lm_iterations,
+                                                          reprojection_errors)
+    from keypoint_bench_tpu_torch.models import get_model
+    from keypoint_bench_tpu_torch.models.lightglue import (
+        lightglue_forward, lightglue_scores, sample_descriptors_lg)
+    from keypoint_bench_tpu_torch.datasets.registry import \
+        register_preloaded
+    from keypoint_bench_tpu_torch.ops.detect import DetectParams
+    from keypoint_bench_tpu_torch.parallel import evaluate as pev
+    from keypoint_bench_tpu_torch.parallel.lightglue_tp import (
+        lightglue_forward_tp, shard_lightglue_params)
+    from keypoint_bench_tpu_torch.parallel.mesh import thread_ranks
+    from keypoint_bench_tpu_torch.parallel.vo_sharded import \
+        sharded_vo_pair_solves
+    from keypoint_bench_tpu_torch.pipeline import detect_frames, vo_step
+    from keypoint_bench_tpu_torch.runner import EvalConfig, Evaluator
+    from keypoint_bench_tpu_torch.tasks.vo_ba import (build_ba_problem,
+                                                      gate_window)
+    from keypoint_bench_tpu_torch.weights import load_params
+
+    t_start = time.perf_counter()
+    out = {}
+    dp = DetectParams(nms_dist=6, border_dist=8, top_k=K)
+    items = ctx["items"]
+    homo = [np.stack([f(x) for x in items]) for f in (
+        lambda x: x["image0"], lambda x: x["image1"],
+        lambda x: x["warp01_params"]["homography_matrix"],
+        lambda x: x["warp10_params"]["homography_matrix"],
+        lambda x: [float(x["warp01_params"]["width"]),
+                   float(x["warp01_params"]["height"])],
+        lambda x: float(x["warp01_params"]["resize"]))]
+    seeds = list(range(len(items)))
+    for name, sparse in (("Alike", False), ("Alike_s2d", True)):
+        model = get_model(name)(load_params(name, device=dev)).eval()
+        out[f"eval_{name}"] = dp_phase(
+            f"50. sharded_eval_step, {name}{' (sparse, B)' if sparse else ''}"
+            f", {len(items)} homography pairs at {SIZE}^2, K={K}",
+            lambda mesh: pev.sharded_eval_step(mesh, model, dp,
+                                               sparse=sparse),
+            lambda b, s: pev.batched_repeatability_step(
+                model, dp, *b, s, sparse=sparse, device=dev),
+            homo, seeds, ("nms", "nn_match") + (("sample",) if sparse
+                                                else ()), errs, card)
+        if name == "Alike":
+            alike = model
+    sp_model = ctx["sp_model"]
+    out["mha"] = dp_phase(
+        f"51. sharded_mha_step, SuperPoint + brute force, {len(items)} "
+        f"pairs at {SIZE}^2",
+        lambda mesh: pev.sharded_mha_step(mesh, sp_model, dp),
+        lambda b, s: pev.batched_mha_step(sp_model, dp, *b, s, device=dev),
+        homo[:5], seeds, ("nms", "nn_match"), errs, card)
+    a0, a1, Ks, poses, _ = ctx["auc"]
+    se3 = [x.cpu().numpy() for x in (a0, a1, Ks, Ks, poses)]
+    out["auc"] = dp_phase(
+        f"52. sharded_auc_step, ALIKE-t + brute force, {len(se3[0])} SE3 "
+        f"pairs at {SIZE}^2, n_hyp {AUC_NHYP}",
+        lambda mesh: pev.sharded_auc_step(mesh, alike, dp),
+        lambda b, s: pev.batched_auc_step(alike, dp, *b, s, device=dev),
+        se3, list(range(len(se3[0]))), ("nms", "nn_match"), errs, card)
+
+    with phase(f"53. the runner's batch paths: {PAR_RUNNER_PAIRS} pairs, "
+               f"batch_size {PAR_BATCH}, at world 1 and {PAR_WORLD}, "
+               f"against the per-pair run"):
+        base = dict(extractor_params={"nms_dist": 6, "border_dist": 8,
+                                      "top_k": K, "threshold": 0,
+                                      "min_score": 0.0},
+                    matcher_params={"type": "brute_force",
+                                    "brute_force_params": {
+                                        "max_distance": 5.0}})
+        register_preloaded("chip_smoke_par_homo",
+                           items[:PAR_RUNNER_PAIRS])
+        register_preloaded("chip_smoke_par_se3",
+                           ctx["auc_items"][:PAR_RUNNER_PAIRS])
+        homo_data = {"type": "preloaded", "name": "chip_smoke_par_homo"}
+        runs = {
+            "repeatability": dict(model_type="Alike",
+                                  task_type="repeatability",
+                                  data_params=homo_data,
+                                  task_params={"th": 3.0}),
+            "MHA": dict(model_type="Alike", task_type="MHA",
+                        data_params=homo_data,
+                        task_params={"th": [3, 5, 7]}),
+            "AUC": dict(model_type="Alike", task_type="AUC",
+                        data_params={"type": "preloaded",
+                                     "name": "chip_smoke_par_se3"},
+                        task_params={"th": [5, 10, 20]})}
+        out["runner"] = {}
+
+        def journal(name):
+            """A runner's progress.jsonl records, in pair order."""
+            with open(os.path.join(ROOT, "output", f"chip_smoke_par_{name}",
+                                   "progress.jsonl")) as f:
+                recs = [json.loads(line) for line in f]
+            return sorted((r for r in recs if "i" in r), key=lambda r: r["i"])
+
+        for task, kw in runs.items():
+            def cfg(bs, tag):
+                c = EvalConfig(**{**base, **kw}, output_dir=os.path.join(
+                    ROOT, "output", f"chip_smoke_par_{task}_{tag}"))
+                c.data_params = {**c.data_params, "batch_size": bs}
+                return c
+
+            # AUC's errors move with the RANSAC draws: its runs draw pair
+            # i's from seed i on both paths
+            draws = (pair_indexed_draws if task == "AUC"
+                     else contextlib.nullcontext)
+            with draws():
+                per_pair = Evaluator(cfg(1, "pp"), DEVICE).run()
+            reset_launches()
+            with recorded_kernels() as calls, draws():
+                one = Evaluator(cfg(PAR_BATCH, "w1"), DEVICE).run()
+                torch.cuda.synchronize()
+            launches = read_launches()
+            held = hold_kernel_calls(calls, errs, f"{task} runner")
+            t0 = time.perf_counter()
+            with draws():
+                two = thread_ranks(lambda mesh: Evaluator(
+                    cfg(PAR_BATCH, f"w{PAR_WORLD}"), DEVICE,
+                    mesh=mesh).run(), PAR_WORLD, device=DEVICE)
+            sec2 = time.perf_counter() - t0
+            if any(r != two[0] for r in two):
+                raise AssertionError(f"the {task} runner's ranks differ")
+            if task == "repeatability":
+                key, tol = "per_pair_repeatability", 2e-3
+            elif task == "MHA":
+                key, tol = "per_pair", None
+            else:
+                key, tol = "per_pair_error", None
+            a, b, c = (np.asarray(r[key], np.float64)
+                       for r in (one, two[0], per_pair))
+            gaps = [float(np.abs(a - c).max()), float(np.abs(b - c).max()),
+                    float(np.abs(a - b).max())]
+            log(f"  {task}: batch path {one[key] if task != 'MHA' else [one[f'MHA@{t}'] for t in (3, 5, 7)]}; "
+                f"per pair {per_pair[key] if task != 'MHA' else [per_pair[f'MHA@{t}'] for t in (3, 5, 7)]}; "
+                f"largest per-pair gap world 1 / world {PAR_WORLD} to the "
+                f"per-pair run, and between them: {gaps}; launches (world "
+                f"1) {launches}; kernel calls held {held}; world "
+                f"{PAR_WORLD} in {sec2:.2f} s")
+            if not len(a) == len(b) == len(c) == PAR_RUNNER_PAIRS:
+                raise AssertionError(f"the {task} batch path lost pairs")
+            if launches["nms"] <= 0 or launches["nn_match"] <= 0:
+                raise AssertionError(f"the {task} batch path missed kernel "
+                                     f"A or D: {launches}")
+            if task == "repeatability" and not max(gaps[:2]) <= tol:
+                raise AssertionError("the repeatability batch path differs "
+                                     "from the per-pair run")
+            if task == "MHA" and not all(
+                    abs(r[f"MHA@{t}"] - per_pair[f"MHA@{t}"])
+                    <= 1.0 / PAR_RUNNER_PAIRS + 1e-6
+                    for r in (one, two[0]) for t in (3, 5, 7)):
+                raise AssertionError("the MHA batch path differs from the "
+                                     "per-pair run by more than one pair")
+            if task == "AUC":
+                # pair by pair on the same draws: the failed pairs equal,
+                # errors within 1 degree where the inlier counts are
+                inl = [[r["inliers"] for r in journal(f"AUC_{tag}")]
+                       for tag in ("w1", "pp")]
+                same = np.asarray(inl[0]) == np.asarray(inl[1])
+                log(f"  AUC inliers batch path {inl[0]}, per pair {inl[1]}")
+                if not (np.isfinite(a).all() and np.isfinite(b).all()
+                        and min(one["AUC_inliers"], two[0]["AUC_inliers"])
+                        > 0.6 * per_pair["AUC_inliers"]
+                        and np.array_equal(a == 180.0, c == 180.0)
+                        and same.sum() >= PAR_RUNNER_PAIRS // 2
+                        and np.abs(a - c)[same].max(initial=0.0) <= 1.0):
+                    raise AssertionError("the AUC batch path misses its "
+                                         "gates")
+            out["runner"][task] = {"batch": one[key],
+                                   f"world{PAR_WORLD}": two[0][key],
+                                   "per_pair": per_pair[key], "gaps": gaps,
+                                   "launches": {k: launches[k] for k in (
+                                       "nms", "nn_match")}}
+
+    frames, K_cam, scales, _ = ctx["vo"]
+    vo_model = get_model("Alike_s2d")(load_params("Alike_s2d", device=dev))
+    kpts_px, tracks, R_w2c, t_w2c = ctx["vo_window"]
+
+    def gen():
+        return torch.Generator(device=dev).manual_seed(0)
+
+    with phase("54. ba_solve_distributed on the VO step's window: card vs "
+               "CPU, one-rank group vs ba_solve; refine_window(mesh) vs the "
+               "one-rank refinement"):
+        out["ba"] = {}
+        prob_c = build_ba_problem(kpts_px, tracks, R_w2c, t_w2c, K_cam,
+                                  device=dev)
+        prob_h = build_ba_problem(kpts_px, tracks, R_w2c, t_w2c, K_cam,
+                                  device="cpu")
+        with one_rank_group() as mesh:
+            g, _ = gate_window(prob_c)
+            R1, t1, s1, meta = ba_solve_distributed(mesh, g, 8, 1e-2,
+                                                    huber_delta=2.0)
+            Rb, tb, pb, _ = lm_iterations(g, 8, 1e-2, huber_delta=2.0)
+            p1 = gather_points(s1, meta, g.points.shape[0])
+            equal1 = (torch.equal(R1, Rb) and torch.equal(t1, tb)
+                      and torch.equal(p1, pb))
+            log(f"  one-rank NCCL group: equal to ba_solve {equal1}")
+            if not equal1:
+                raise AssertionError("ba_solve_distributed on one rank "
+                                     "differs from ba_solve")
+        for dt, err_tol, pose_tol in ((torch.float32, 1e-3, 1e-3),
+                                      (torch.float64, 1e-6, 1e-6)):
+            sols = []
+            for pr, where in ((prob_c, DEVICE), (prob_h, "cpu")):
+                pr = replace(pr, R=pr.R.to(dt), t=pr.t.to(dt),
+                             points=pr.points.to(dt), uv=pr.uv.to(dt),
+                             K=pr.K.to(dt))
+                g, _ = gate_window(pr)
+                R, t, s_pts, meta = thread_ranks(
+                    lambda mesh: ba_solve_distributed(mesh, g, 8, 1e-2,
+                                                      huber_delta=2.0),
+                    PAR_WORLD, device=where)[0]
+                p = gather_points(s_pts, meta, g.points.shape[0])
+                err = float(reprojection_errors(replace(
+                    g, R=R, t=t, points=p)).sum() / g.mask.sum())
+                sols.append(([y.cpu().numpy() for y in (R, t, p)], err))
+            (sol_c, e_c), (sol_h, e_h) = sols
+            s, gap_r, gap_c, gap_p = gauge_gap(sol_c, sol_h)
+            name = str(dt).split(".")[-1]
+            out["ba"][name] = {"err_after": [e_c, e_h], "scale": s,
+                               "rotation_gap": gap_r, "centre_gap": gap_c,
+                               "point_gap": gap_p}
+            log(f"  {name}, {PAR_WORLD} ranks: reproj {e_c:.9f} px on the "
+                f"card, {e_h:.9f} on the CPU; the free scale about camera 0 "
+                f"{s:.9f}, then rotation gap {gap_r:.3g}, centre gap "
+                f"{gap_c:.3g}, point gap {gap_p:.3g} of max(1, |X|)")
+            if not (abs(e_c - e_h) <= err_tol and abs(s - 1.0) <= 0.05
+                    and max(gap_r, gap_c) <= pose_tol
+                    and (dt == torch.float32 or gap_p <= pose_tol)):
+                raise AssertionError(f"ba_solve_distributed card vs CPU in "
+                                     f"{name}")
+        ref = vo_step(vo_model, frames, K_cam, scales, dp, gen(), VO_MAXD,
+                      VO_NHYP, ba_refine=True, device=dev)
+        for tag, run in (
+                ("one-rank NCCL group", lambda: _with_group(
+                    lambda mesh: vo_step(vo_model, frames, K_cam, scales,
+                                         dp, gen(), VO_MAXD, VO_NHYP,
+                                         ba_refine=True, device=dev,
+                                         mesh=mesh))),
+                (f"{PAR_WORLD} ranks over gloo", lambda: thread_ranks(
+                    lambda mesh: vo_step(vo_model, frames, K_cam, scales,
+                                         dp, gen(), VO_MAXD, VO_NHYP,
+                                         ba_refine=True, device=dev,
+                                         mesh=mesh), PAR_WORLD,
+                    device=DEVICE)[0])):
+            got = run()
+            s, gap_r, gap_c, _ = gauge_gap(
+                (got["ba_R_w2c"], got["ba_t_w2c"], got["ba_points"]),
+                (ref["ba_R_w2c"], ref["ba_t_w2c"], ref["ba_points"]))
+            d_err = abs(got["ba_reproj_after"] - ref["ba_reproj_after"])
+            log(f"  refine_window(mesh) in vo_step, {tag}: {got['ba_tracks']}"
+                f" tracks, reproj {got['ba_reproj_before']:.4f} -> "
+                f"{got['ba_reproj_after']:.6f} px (one rank "
+                f"{ref['ba_reproj_after']:.6f}); scale {s:.6f}, rotation gap "
+                f"{gap_r:.3g}, centre gap {gap_c:.3g}")
+            # tests/test_vo_ba.py's gates (the mesh case): another
+            # summation order moves the LM decisions and the free scale
+            if not (got["ba_tracks"] == ref["ba_tracks"]
+                    and got["ba_reproj_after"] < got["ba_reproj_before"]
+                    and d_err < 0.05 * max(ref["ba_reproj_after"], 0.1)
+                    and gap_r <= 2e-3):
+                raise AssertionError(f"refine_window(mesh), {tag}, differs "
+                                     f"from the one-rank refinement")
+            out["ba"][f"refine_window_{tag.split()[0]}"] = {
+                "err_after": got["ba_reproj_after"],
+                "err_after_one_rank": ref["ba_reproj_after"],
+                "rotation_gap": gap_r}
+        ms_one = host_ms(lambda: vo_step(vo_model, frames, K_cam, scales, dp,
+                                         gen(), VO_MAXD, VO_NHYP,
+                                         ba_refine=True, device=dev), iters=3)
+        ms_two, share, staged = timed_ranks(
+            lambda mesh: vo_step(vo_model, frames, K_cam, scales, dp, gen(),
+                                 VO_MAXD, VO_NHYP, ba_refine=True,
+                                 device=dev, mesh=mesh), PAR_WORLD)
+        out["ba"].update({"vo_step_ba_ms_one_rank": ms_one,
+                          f"vo_step_ba_ms_world{PAR_WORLD}": ms_two,
+                          "collective_share": share, "host_staged": staged})
+        log(f"  vo_step with BA: one rank {ms_one:.3f} ms; {PAR_WORLD} ranks "
+            f"with the distributed window {ms_two:.3f} ms, collectives "
+            f"{share:.4f} of it, host-staged {staged or 'none'} on {card}")
+
+    with phase(f"55. sharded_vo_pair_solves: {VO_FRAMES} frames at {SIZE}^2"
+               f" against vo_step's pair poses on the same samples"):
+        with torch.inference_mode():
+            _, descs, kpts, valid = detect_frames(vo_model, frames, dp, dev,
+                                                  True)
+        first = vo_step(vo_model, frames, K_cam, scales, dp, gen(), VO_MAXD,
+                        VO_NHYP, device=dev)
+        vseeds = list(range(VO_FRAMES))
+        samples = pev.pair_samples(first["match_mask"], vseeds, VO_NHYP, 8)
+        ref = vo_step(vo_model, frames, K_cam, scales, dp, None, VO_MAXD,
+                      VO_NHYP, samples=samples, device=dev)
+        args = (kpts, valid, descs, vseeds, K_cam[0, 0], K_cam[0, 2],
+                K_cam[1, 2], SIZE, SIZE, VO_MAXD, VO_NHYP)
+        out["vo_sharded"] = {}
+        for tag in ("world1", f"world{PAR_WORLD}"):
+            reset_launches()
+            with recorded_kernels() as calls:
+                if tag == "world1":
+                    R, t, ok = _with_group(
+                        lambda mesh: sharded_vo_pair_solves(mesh, *args))
+                else:
+                    R, t, ok = thread_ranks(
+                        lambda mesh: sharded_vo_pair_solves(mesh, *args),
+                        PAR_WORLD, device=DEVICE)[0]
+                torch.cuda.synchronize()
+            launches = read_launches()
+            held = hold_kernel_calls(calls, errs, f"sharded VO, {tag}")
+            gap_r = float((R - ref["R_rel"]).abs().max())
+            gap_t = float((t - ref["t_rel"]).abs().max())
+            log(f"  {tag}: ok {int(ok.sum())} of {VO_FRAMES} (vo_step "
+                f"{int(ref['ok'].sum())}); largest gap to vo_step's pair "
+                f"poses: R {gap_r:.3g}, t {gap_t:.3g}; launches {launches};"
+                f" kernel calls held {held}")
+            if launches["nn_match"] <= 0:
+                raise AssertionError(f"sharded VO ({tag}) missed kernel D")
+            if not (torch.equal(ok, ref["ok"]) and gap_r <= 1e-4
+                    and gap_t <= 1e-4):
+                raise AssertionError(f"sharded VO ({tag}) differs from "
+                                     f"vo_step's pair poses")
+            out["vo_sharded"][tag] = {"launches_nn_match":
+                                      launches["nn_match"],
+                                      "gap_R": gap_r, "gap_t": gap_t}
+        ms, share, staged = timed_ranks(
+            lambda mesh: sharded_vo_pair_solves(mesh, *args), PAR_WORLD)
+        ms_ref = cuda_ms(lambda: vo_step(vo_model, frames, K_cam, scales, dp,
+                                         None, VO_MAXD, VO_NHYP,
+                                         samples=samples, device=dev),
+                         iters=2, warmup=1)
+        out["vo_sharded"].update({f"ms_world{PAR_WORLD}": ms,
+                                  "collective_share": share,
+                                  "host_staged": staged,
+                                  "vo_step_ms": ms_ref})
+        log(f"  {PAR_WORLD} ranks: {ms:.3f} ms the solves (vo_step whole "
+            f"{ms_ref:.3f} ms), collectives {share:.4f} of it, host-staged "
+            f"{staged or 'none'} on {card}")
+
+    lg = ctx["lightglue"]
+    sk0, sva, sdm0, sk1, svb, sdm1 = ctx["superpoint"]
+    with torch.inference_mode():
+        p0, p1 = sk0[0, :, :2] * (SIZE - 1.0), sk1[0, :, :2] * (SIZE - 1.0)
+        lg_args = (p0, sva[0], sample_descriptors_lg(p0, sdm0[0], 8), p1,
+                   svb[0], sample_descriptors_lg(p1, sdm1[0], 8))
+    with phase(f"56. head-sharded LightGlue: D = 256, 4 heads, 9 layers, "
+               f"K = {K}, over {TP_SHARDS} model ranks against the dense "
+               f"forward"):
+        out["tp"] = {}
+        m0_d, ms_d, _ = lightglue_forward(lg, *lg_args)
+        sc_d = lightglue_scores(lg, *lg_args, n_layers=2)
+        ms_dense = cuda_ms(lambda: lightglue_forward(lg, *lg_args), iters=5)
+        for n in TP_SHARDS:
+            sp = shard_lightglue_params(lg, n)
+            reset_launches()
+            with recorded_kernels() as calls:
+                res = thread_ranks(
+                    lambda mesh: lightglue_forward_tp(mesh, sp, *lg_args),
+                    1, n, device=DEVICE)
+                torch.cuda.synchronize()
+            launches = read_launches()["attention"]
+            shapes = sorted({tuple(a[0].shape) for _, a, _ in
+                             calls["attention_cuda"]})
+            held = hold_kernel_calls(calls, errs, f"TP LightGlue, {n}")
+
+            def scores2(mesh):
+                r = mesh.model_rank
+                p = {k: (v[r] if v.dim() > lg[k].dim() else v)
+                     for k, v in sp.items()}
+
+                def proj(p, name, x):
+                    part = torch.nn.functional.linear(x, p[f"{name}.weight"])
+                    return mesh.all_reduce(part, "model") + p[f"{name}.bias"]
+
+                return lightglue_scores(p, *lg_args, n_layers=2,
+                                        num_heads=4 // n, out=proj)
+
+            sc_t = thread_ranks(scores2, 1, n, device=DEVICE)[0]
+            rel = float((sc_t - sc_d).norm() / sc_d.norm())
+            m0_t, ms_t, _ = res[0]
+            agree = float((m0_t == m0_d).float().mean())
+            dev_ms = float((ms_t - ms_d).abs().max())
+            ms_tp, share, staged = timed_ranks(
+                lambda mesh: lightglue_forward_tp(mesh, sp, *lg_args), 1, n)
+            log(f"  {n} model ranks: matches agree {agree:.4f}, mscores "
+                f"within {dev_ms:.3g}; 2-layer scores {rel:.3g} of their "
+                f"norm from the dense; kernel E {launches} launches at "
+                f"{shapes}, calls held by rank {held}; {ms_tp:.3f} ms (dense"
+                f" {ms_dense:.3f}), collectives {share:.4f} of it, "
+                f"host-staged {staged or 'none'} on {card}")
+            if launches != 18 * n:
+                raise AssertionError(f"TP LightGlue launched kernel E "
+                                     f"{launches} times on {n} ranks")
+            if not (agree > 0.99 and dev_ms < 1e-3 and rel <= 1e-4
+                    and all(same_outputs(r, res[0]) for r in res)):
+                raise AssertionError(f"TP LightGlue on {n} ranks differs from "
+                                     f"the dense forward")
+            out["tp"][f"n{n}"] = {"launches_attention": launches,
+                                  "match_agreement": agree,
+                                  "mscore_gap": dev_ms, "scores_rel": rel,
+                                  "ms": ms_tp, "ms_dense": ms_dense,
+                                  "collective_share": share,
+                                  "host_staged": staged}
+    out["seconds"] = time.perf_counter() - t_start
+    return out
+
+
+def _with_group(fn):
+    """fn(mesh) on the one-rank NCCL group."""
+    with one_rank_group() as mesh:
+        return fn(mesh)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5637,6 +6399,20 @@ def main() -> int:
     tracks = {k: v["launches"] for k, v in te.items()}
     lc = loop_closure_phases(dev, card, errs)
     si = save_images_phases(dev, card)
+    par = parallel_phases(dev, card, errs, {
+        "items": items, "sp_model": sp_model, "auc": auc["data"],
+        "auc_items": auc["items"], "vo": vo["data"],
+        "vo_window": vo["window"], "lightglue": lg_params,
+        "superpoint": (sk0, sva, sdm0, sk1, svb, sdm1)})
+
+    def parallel_launches(kernel):
+        """The kernel's launches on the data-parallel steps (phases 50-52)
+        at world 1 and PAR_WORLD, and on the sharded VO solves (55)."""
+        dp = {k: {w: v[f"launches_world{w}"].get(kernel) for w in
+                  (1, PAR_WORLD)} for k, v in par.items()
+              if k.startswith("eval_") or k in ("mha", "auc")}
+        dp = {k: v for k, v in dp.items() if v[1] is not None}
+        return {"launches_data_parallel": dp}
 
     def loop_launches(kernel):
         """The kernel's launches on phase 46's and 47's paths."""
@@ -5670,7 +6446,8 @@ def main() -> int:
          "launches_fund_letnet_lk": det["launches_fund_letnet_lk"]["nms"],
          "launches_tracking_error": {k: v["nms"] for k, v in tracks.items()},
          **loop_launches("nms"),
-         **file_backed("nms", "nms ")},
+         **file_backed("nms", "nms "),
+         **parallel_launches("nms")},
         {"name": "sparse_sample", "route": "cuda",
          "source": "keypoint_bench_tpu_torch/csrc/sample.cu",
          "replaces": "keypoint_bench_tpu/ops/pallas_sample.py:107",
@@ -5683,7 +6460,8 @@ def main() -> int:
          "sector_bound_by": samp_sector_by,
          "launches_vo_step": vo["launches"]["sample"],
          **loop_launches("sample"),
-         **file_backed("sample", "sample ")},
+         **file_backed("sample", "sample "),
+         **parallel_launches("sample")},
         {"name": "nn_match", "route": "cuda",
          "source": "keypoint_bench_tpu_torch/csrc/match.cu",
          "replaces": "keypoint_bench_tpu/ops/pallas_match.py:29",
@@ -5706,7 +6484,11 @@ def main() -> int:
          **{f"{k}_loop_closure": lc["strong"]["kernel_d"][k] for k in (
              "shape", "ms", "plain_ms", "library_ms", "bound_ms",
              "bound_by")},
-         **file_backed("nn_match", "nn_match ")},
+         **file_backed("nn_match", "nn_match "),
+         **parallel_launches("nn_match"),
+         "launches_vo_sharded": {w: v["launches_nn_match"] for w, v in
+                                 par["vo_sharded"].items()
+                                 if isinstance(v, dict)}},
         {"name": "attention", "route": "cuda",
          "source": "keypoint_bench_tpu_torch/csrc/attention.cu",
          "replaces": "keypoint_bench_tpu/ops/pallas_attention.py:33",
@@ -5728,7 +6510,9 @@ def main() -> int:
                 ("bound_ms", ad[mode]["bound_ms_call"]),
                 ("bound_by", ad[mode]["bound_by"]),
                 ("library_ms", ad[mode]["sdpa_ms_call"]))},
-         "launches_mha_runner_adaptive": ad["runner_launches"]},
+         "launches_mha_runner_adaptive": ad["runner_launches"],
+         "launches_lightglue_tp": {n: v["launches_attention"]
+                                   for n, v in par["tp"].items()}},
         {"name": "lk_level", "route": "cuda",
          "source": "keypoint_bench_tpu_torch/csrc/lk.cu",
          "replaces": "keypoint_bench_tpu/ops/pallas_lk.py:78",
@@ -5792,6 +6576,7 @@ def main() -> int:
         "ms_fixed_depth_pair", "emptied_calls", "runner")},
         "five_point": fp, "tracking_error": te}, default=float))
     log(json.dumps({"loop_closure": lc, "save_images": si}, default=float))
+    log(json.dumps({"parallel": par}, default=float))
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

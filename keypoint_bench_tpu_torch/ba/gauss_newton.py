@@ -121,10 +121,18 @@ def _segment_sum(x: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
 
 
 def lm_iterations(prob: BAProblem, iters: int = 10, damping: float = 1e-4,
-                  fix_first_cam: bool = True, huber_delta: float = 0.0):
+                  fix_first_cam: bool = True, huber_delta: float = 0.0,
+                  psum=None):
     """`iters` damped Gauss-Newton / Schur iterations with the LM
     accept/reject (see `ba_solve`). Returns (R, t, points, accepted
-    [iters] bool): whether each iteration's step was taken."""
+    [iters] bool): whether each iteration's step was taken.
+
+    With `psum`, `prob` is one shard of a problem split by landmark (its
+    points and their observations, `ba.distributed`) and psum(x) sums x
+    over the shards: once an iteration over the reduced camera system
+    (H_cc, the Schur terms and the right-hand side in one buffer) and once
+    over the two costs of the accept test, so every shard takes the same
+    step."""
     C = prob.R.shape[0]
     P = prob.points.shape[0]
     dt = prob.R.dtype
@@ -164,7 +172,6 @@ def lm_iterations(prob: BAProblem, iters: int = 10, damping: float = 1e-4,
 
         # LM damping with the adaptive lambda carried across iterations
         Hpp = Hpp + lam * eye3
-        Hcc = Hcc + lam * eye6
         Hpp_inv = torch.linalg.inv_ex(Hpp)[0]                   # [P,3,3]
 
         # Schur: W holds each (point, camera) cross block, summed over the
@@ -172,8 +179,16 @@ def lm_iterations(prob: BAProblem, iters: int = 10, damping: float = 1e-4,
         W = _segment_sum(JcT @ Jp, pi * C + ci, P * C).reshape(P, C, 6, 3)
         WH = torch.einsum("pcij,pjk->pcik", W, Hpp_inv)
         S = -torch.einsum("pcik,pdlk->cdil", WH, W)              # [C,C,6,6]
-        S.diagonal(0, 0, 1).add_(Hcc.permute(1, 2, 0))
         rhs = bc - torch.einsum("pcik,pk->ci", WH, bp)
+        if psum is not None:
+            # the shards' camera systems, summed in one collective
+            sums = psum(torch.cat([Hcc.flatten(), S.flatten(),
+                                   rhs.flatten()]))
+            Hcc = sums[:36 * C].view(C, 6, 6)
+            S = sums[36 * C:36 * C * (C + 1)].view(C, C, 6, 6)
+            rhs = sums[36 * C * (C + 1):].view(C, 6)
+        Hcc = Hcc + lam * eye6
+        S.diagonal(0, 0, 1).add_(Hcc.permute(1, 2, 0))
 
         Sd = S.transpose(1, 2).reshape(6 * C, 6 * C)
         rd = rhs.reshape(6 * C)
@@ -198,8 +213,10 @@ def lm_iterations(prob: BAProblem, iters: int = 10, damping: float = 1e-4,
 
         # keep the step only if the (robust) cost decreased; otherwise stay
         # and raise lambda
-        c_new = cost(Rn, tn, ptsn)
-        accept = torch.isfinite(c_new) & (c_new < cost(R, t, pts))
+        c_old, c_new = cost(R, t, pts), cost(Rn, tn, ptsn)
+        if psum is not None:
+            c_old, c_new = psum(torch.stack([c_old, c_new]))
+        accept = torch.isfinite(c_new) & (c_new < c_old)
         R = torch.where(accept, Rn, R)
         t = torch.where(accept, tn, t)
         pts = torch.where(accept, ptsn, pts)

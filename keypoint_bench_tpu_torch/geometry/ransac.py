@@ -28,9 +28,15 @@ def _sample_minimal(mask: torch.Tensor, n_hyp: int, sample_size: int,
     """[..., n_hyp, sample_size] distinct indices of valid entries of mask
     [..., K] (Gumbel top-k by argmax peeling). With fewer than sample_size
     valid entries the result repeats indices; callers gate on the count."""
+    u = torch.rand((*mask.shape[:-1], n_hyp, mask.shape[-1]),
+                   generator=generator, device=mask.device)
+    return peel_samples(mask, u, sample_size)
+
+
+def peel_samples(mask: torch.Tensor, u: torch.Tensor,
+                 sample_size: int) -> torch.Tensor:
+    """`_sample_minimal` from given uniform draws u [..., n_hyp, K]."""
     k = mask.shape[-1]
-    u = torch.rand((*mask.shape[:-1], n_hyp, k), generator=generator,
-                   device=mask.device)
     g = -torch.log(-torch.log(u))
     cur = torch.where(mask[..., None, :], g, torch.full_like(g, -math.inf))
     cols = torch.arange(k, device=mask.device)

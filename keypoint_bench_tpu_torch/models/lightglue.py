@@ -90,22 +90,24 @@ def _attention(q, k, v, mask_kv, attn: str, scale: float | None = None):
     return torch.softmax(sim, dim=-1) @ v
 
 
-def _self_block(p, prefix, x, enc, valid, num_heads, attn):
+def _self_block(p, prefix, x, enc, valid, num_heads, attn, out=_linear):
+    """`out(p, name, x)` is the output projection of the attention
+    (the tensor-parallel forward sums its heads' partial products there)."""
     qkv = _linear(p, f"{prefix}.Wqkv", x)                 # [..., N, 3d]
     qkv = qkv.unflatten(-1, (num_heads, -1, 3))           # [..., N, h, dh, 3]
     q, k, v = (qkv[..., i].transpose(-3, -2) for i in range(3))
     q = _apply_rotary(enc, q)
     k = _apply_rotary(enc, k)
     ctx = _attention(q, k, v, valid, attn)
-    msg = _linear(p, f"{prefix}.out_proj", _merge(ctx))
+    msg = out(p, f"{prefix}.out_proj", _merge(ctx))
     return x + _ffn(p, f"{prefix}.ffn", torch.cat([x, msg], dim=-1))
 
 
 def _cross_block(p, prefix, x0, x1, valid0, valid1, num_heads, attn,
-                 valid10=None):
+                 valid10=None, out=_linear):
     """valid0 / valid1 as `_attention` takes them; valid10 is the "fused"
     mask of the stacked pass, `head_mask` of [valid1, valid0], when both
-    sides hold as many keypoints."""
+    sides hold as many keypoints; `out` as in `_self_block`."""
     qk0 = _heads(_linear(p, f"{prefix}.to_qk", x0), num_heads)
     qk1 = _heads(_linear(p, f"{prefix}.to_qk", x1), num_heads)
     v0 = _heads(_linear(p, f"{prefix}.to_v", x0), num_heads)
@@ -131,8 +133,8 @@ def _cross_block(p, prefix, x0, x1, valid0, valid1, num_heads, attn,
                             torch.full_like(sim, NEG))
         m0 = torch.softmax(sim01, dim=-1) @ v1
         m1 = torch.softmax(sim10, dim=-2).transpose(-1, -2) @ v0
-    m0 = _linear(p, f"{prefix}.to_out", _merge(m0))
-    m1 = _linear(p, f"{prefix}.to_out", _merge(m1))
+    m0 = out(p, f"{prefix}.to_out", _merge(m0))
+    m1 = out(p, f"{prefix}.to_out", _merge(m1))
     x0 = x0 + _ffn(p, f"{prefix}.ffn", torch.cat([x0, m0], dim=-1))
     x1 = x1 + _ffn(p, f"{prefix}.ffn", torch.cat([x1, m1], dim=-1))
     return x0, x1
@@ -199,10 +201,13 @@ def resolve_attn(attn: str, device: torch.device) -> str:
 @torch.inference_mode()
 def lightglue_scores(params: dict, kpts0_px, valid0, desc0, kpts1_px, valid1,
                      desc1, n_layers: int = 9, num_heads: int = 4,
-                     attn: str = "auto") -> torch.Tensor:
+                     attn: str = "auto", out=_linear) -> torch.Tensor:
     """The transformer and the assignment head: kpts*_px [..., K, 2] pixel
     coordinates, valid* [..., K] bool, desc* [..., K, input_dim] ->
-    log assignment scores [..., K0, K1]."""
+    log assignment scores [..., K0, K1]. `num_heads` is the number of
+    heads the attention projections hold and `out` their output
+    projection (`parallel/lightglue_tp.py` passes a rank's heads and the
+    sum of their partial products)."""
     attn = resolve_attn(attn, desc0.device)
     p = params
     if "input_proj.weight" in p:
@@ -231,15 +236,15 @@ def lightglue_scores(params: dict, kpts0_px, valid0, desc0, kpts1_px, valid1,
         pre = f"transformers.{i}"
         if same:
             d01 = _self_block(p, f"{pre}.self_attn", torch.stack([d0, d1]),
-                              enc01, m01, num_heads, attn)
+                              enc01, m01, num_heads, attn, out)
             d0, d1 = d01[0], d01[1]
         else:
             d0 = _self_block(p, f"{pre}.self_attn", d0, enc0, m0, num_heads,
-                             attn)
+                             attn, out)
             d1 = _self_block(p, f"{pre}.self_attn", d1, enc1, m1, num_heads,
-                             attn)
+                             attn, out)
         d0, d1 = _cross_block(p, f"{pre}.cross_attn", d0, d1, m0, m1,
-                              num_heads, attn, m10)
+                              num_heads, attn, m10, out)
     return _assignment_scores(p, f"log_assignment.{n_layers - 1}", d0, d1,
                               valid0, valid1)
 

@@ -13,6 +13,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
@@ -63,6 +64,8 @@ class Kernel:
 
     `launches` counts the CUDA kernel launches made through `launch`; the
     tests and chip_smoke.py read it to show a path went through the kernel.
+    Ranks that run as threads of one process (parallel/mesh.py) share the
+    count; a lock keeps their updates, and the first build, whole.
     """
 
     def __init__(self, lib: str, symbol: str, argtypes: list):
@@ -72,19 +75,21 @@ class Kernel:
         self.launches = 0
         self._fn = None
         self._err = None
+        self._lock = threading.Lock()
 
     def function(self):
         """The ctypes function; builds the library at first use and raises
         if the build fails."""
-        if self._fn is None:
-            lib = ctypes.CDLL(build(self.lib_name))
-            fn = getattr(lib, self.symbol)
-            fn.argtypes = self.argtypes
-            fn.restype = ctypes.c_int
-            err = lib.kbt_error_string
-            err.argtypes = [ctypes.c_int]
-            err.restype = ctypes.c_char_p
-            self._fn, self._err = fn, err
+        with self._lock:
+            if self._fn is None:
+                lib = ctypes.CDLL(build(self.lib_name))
+                fn = getattr(lib, self.symbol)
+                fn.argtypes = self.argtypes
+                fn.restype = ctypes.c_int
+                err = lib.kbt_error_string
+                err.argtypes = [ctypes.c_int]
+                err.restype = ctypes.c_char_p
+                self._fn, self._err = fn, err
         return self._fn
 
     def launch(self, n_launches: int, *args):
@@ -94,4 +99,5 @@ class Kernel:
         if code != 0:
             raise RuntimeError(f"{self.symbol} failed: CUDA error {code} "
                                f"({self._err(code).decode()})")
-        self.launches += n_launches
+        with self._lock:
+            self.launches += n_launches

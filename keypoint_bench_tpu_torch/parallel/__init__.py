@@ -1,0 +1,4 @@
+"""The parallel layer on torch.distributed (counterpart of
+keypoint_bench_tpu/parallel): the rank mesh and its collectives, the
+data-parallel evaluation steps, head-sharded LightGlue and
+sequence-sharded VO."""

@@ -135,10 +135,21 @@ def extract_match(model, params: dict, imgs0, imgs1,
     imgs1 = torch.as_tensor(imgs1, device=dev)
     d0, k0, v0 = extract(model, params, imgs0, detect_params)
     d1, k1, v1 = extract(model, params, imgs1, detect_params)
-    if precision == "bfloat16":
-        d0, d1 = d0.to(torch.bfloat16), d1.to(torch.bfloat16)
+    m1, ok = match_sparse(k1, d0, d1, v0, v1, max_distance,
+                          torch.bfloat16 if precision == "bfloat16" else None)
+    return ok.sum(), k0, m1
+
+
+def match_sparse(k1, d0, d1, v0, v1, max_distance: float,
+                 match_dtype=None):
+    """Mutual-NN match (kernel D on CUDA) of keypoint descriptors d0 / d1
+    [B,K,D], in `match_dtype` where given (bf16 weights match bf16
+    descriptors) -> (m1 [B,K,3], the keypoints k1 that each row of d0
+    matched; ok [B,K])."""
+    if match_dtype is not None:
+        d0, d1 = d0.to(match_dtype), d1.to(match_dtype)
     nn01, ok = mutual_nn_match(d0, d1, v0, v1, max_distance)
-    return ok.sum(), k0, take_rows(k1, nn01)
+    return take_rows(k1, nn01), ok
 
 
 def _images(imgs, dev: torch.device) -> torch.Tensor:
@@ -356,7 +367,7 @@ def vo_step(model, frames, K, scales, detect_params: DetectParams,
             generator: torch.Generator | None, max_distance: float = 5.0,
             n_hyp: int = 4096, ba_refine: bool = False,
             samples: torch.Tensor | None = None, sparse: bool = True,
-            device: str | torch.device = "cuda"):
+            device: str | torch.device = "cuda", mesh=None):
     """Monocular VO over T consecutive frames [T,H,W,3] (float in [0,1] or
     uint8) with intrinsics K [3,3] and per-frame ground-truth scales [T]
     (||t_gt_i - t_gt_{i-1}||, 0 for frame 0). Frame i pairs with frame
@@ -376,7 +387,8 @@ def vo_step(model, frames, K, scales, detect_params: DetectParams,
     [T+1,3,3], `t_est` [T+1,3,1] (numpy). With ba_refine, when the window
     has enough tracks, also `ba_R_w2c`, `ba_t_w2c`, `ba_points` (numpy),
     `ba_reproj_before`, `ba_reproj_after` and `ba_tracks` (the runner's
-    keys)."""
+    keys); with `mesh`, the window refines through the distributed Schur
+    solver over its data ranks (`refine_window(mesh=...)`)."""
     dev = resolve_device(device)
     _check_weights(model.params, dev)
     frames = torch.as_tensor(frames, device=dev)
@@ -413,7 +425,8 @@ def vo_step(model, frames, K, scales, detect_params: DetectParams,
     R_w2c, t_w2c = chain_w2c(rel_R, rel_t, ok_np, scales)
     tracks = chain_tracks(nn01.cpu().numpy(), ok.cpu().numpy())
     kpts_px = (kpts[..., 0:2] * scale).cpu().numpy()
-    ref = refine_window(kpts_px, tracks, R_w2c, t_w2c, K, device=dev)
+    ref = refine_window(kpts_px, tracks, R_w2c, t_w2c, K, mesh=mesh,
+                        device=dev)
     if ref is not None:
         out.update(zip(("ba_R_w2c", "ba_t_w2c", "ba_points",
                         "ba_reproj_before", "ba_reproj_after"), ref))

@@ -23,10 +23,16 @@ runner's PNGs under its names (keypoint overlays in repeatability, match
 overlays in MHA, AUC and the per-pair FundamentalMatrix, which adds its
 epipolar lines), for the pairs a run computes; `save_metric_plot` writes
 a metric curve and its txt. The images are drawn as the model saw them:
-uint8 frames at /255, where the JAX runner draws them unscaled. debug_nans,
-the distributed BA (`task_params.ba_distributed`) and the sharded batch
-paths (brute-force MHA and AUC, repeatability) raise NotImplementedError
-(ROADMAP.md).
+uint8 frames at /255, where the JAX runner draws them unscaled.
+`data_params.batch_size > 1` runs homography repeatability, brute-force
+MHA and brute-force AUC through the data-parallel steps of
+`parallel/evaluate.py` (`_run_*_sharded`), and `task_params.ba_distributed`
+refines VO's window with the distributed Schur solver
+(`ba/distributed.py`), on the ranks of the Evaluator's mesh: the process
+group's (`python -m keypoint_bench_tpu_torch.cli` under `torchrun`), or
+one rank. Rank 0 alone writes progress.jsonl, results.json, images and
+the trajectory; every rank returns the same results. debug_nans raises
+NotImplementedError (ROADMAP.md).
 
 `resume: true` re-enters a run from its `progress.jsonl` journal
 (`MetricLog`) on the paths the JAX runner journals: per-pair
@@ -62,6 +68,11 @@ from keypoint_bench_tpu_torch.ops.lk import (LKParams, optical_flow,
                                              optical_flow_cv)
 from keypoint_bench_tpu_torch.ops.matching import (brute_force_match,
                                                    mutual_nn_match, take_rows)
+from keypoint_bench_tpu_torch.parallel.evaluate import (block,
+                                                        sharded_auc_step,
+                                                        sharded_eval_step,
+                                                        sharded_mha_step)
+from keypoint_bench_tpu_torch.parallel.mesh import Mesh, world_mesh
 from keypoint_bench_tpu_torch.pipeline import detect_frames, vo_step
 from keypoint_bench_tpu_torch.tasks.auc import (estimate_pose_pair, pose_auc,
                                               pose_error)
@@ -79,6 +90,27 @@ def _crop32(img: np.ndarray) -> np.ndarray:
     """Crop H, W down to multiples of 32 (reference test_step)."""
     h, w = img.shape[0], img.shape[1]
     return img[: h - h % 32, : w - w % 32]
+
+
+# a pair's two images as the batch paths stack them
+_IMAGES = (lambda s: _crop32(np.asarray(s["image0"])),
+           lambda s: _crop32(np.asarray(s["image1"])))
+
+
+def _stack(samples, *getters) -> tuple:
+    """The batch of `samples` as one numpy array a getter."""
+    return tuple(np.stack([np.asarray(g(s)) for s in samples])
+                 for g in getters)
+
+
+def _to_host(out):
+    """A step's per-pair outputs (a tensor, or a tuple / dict of them) on
+    the host, each moved once."""
+    if isinstance(out, dict):
+        return {k: v.cpu() for k, v in out.items()}
+    if isinstance(out, tuple):
+        return tuple(v.cpu() for v in out)
+    return out.cpu()
 
 
 @dataclass
@@ -191,6 +223,23 @@ class MetricLog:
         self._f.close()
 
 
+class ReplayLog:
+    """What a rank other than 0 holds in place of the journal: rank 0's
+    records to replay, and nothing written."""
+
+    def __init__(self, done: dict):
+        self.done = done
+
+    def get(self, i: int):
+        return self.done.get(i)
+
+    def put(self, i: int, rec: dict):
+        return rec
+
+    def close(self):
+        pass
+
+
 def _plot_image(img) -> np.ndarray:
     """A frame as the drawing helpers take it: float32 [H,W,C] in [0, 1]
     on the host (uint8 at /255; a tensor is moved off the device)."""
@@ -209,9 +258,17 @@ def _not_ported(what: str):
 
 
 class Evaluator:
-    def __init__(self, cfg: EvalConfig, device: str | torch.device = "cuda"):
+    def __init__(self, cfg: EvalConfig, device: str | torch.device = "cuda",
+                 mesh: Mesh | None = None):
+        """`mesh`: the ranks this Evaluator runs with (one rank each), by
+        default the initialized process group's (`parallel.mesh.
+        world_mesh`), or this rank alone."""
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.mesh = mesh if mesh is not None else world_mesh(self.device)
+        if self.mesh.n_model != 1:
+            raise ValueError("the Evaluator runs on a 'data'-only mesh")
+        self.writes = self.mesh.rank == 0    # files and prints: rank 0
         check_precision(cfg.precision)
         if cfg.debug_nans:
             raise _not_ported("debug_nans")
@@ -355,13 +412,90 @@ class Evaluator:
         results = fn(ds)
         if self.matcher_fallback is not None:
             results["matcher_fallback"] = self.matcher_fallback
-        os.makedirs(self.cfg.output_dir, exist_ok=True)
-        with open(os.path.join(self.cfg.output_dir, "results.json"),
-                  "w") as f:
-            json.dump({k: v for k, v in results.items()
-                       if isinstance(v, (int, float, str, list))}, f,
-                      indent=2, default=float)
+        if self.writes:
+            os.makedirs(self.cfg.output_dir, exist_ok=True)
+            with open(os.path.join(self.cfg.output_dir, "results.json"),
+                      "w") as f:
+                json.dump({k: v for k, v in results.items()
+                           if isinstance(v, (int, float, str, list))}, f,
+                          indent=2, default=float)
         return results
+
+    def _say(self, *args):
+        if self.writes:
+            print(*args)
+
+    def _metric_log(self, meta: dict | None = None):
+        """The resume journal: rank 0's MetricLog; the other ranks replay
+        its records (sent by rank 0) and write nothing."""
+        log = None
+        if self.writes:
+            log = MetricLog(self.cfg.output_dir, self.cfg.resume, meta)
+        if self.mesh.world_size == 1:
+            return log
+        done = self.mesh.broadcast_json(
+            {str(i): r for i, r in log.done.items()} if log else None)
+        return log or ReplayLog({int(i): r for i, r in done.items()})
+
+    def _batch_seeds(self, b: int) -> list:
+        """One RANSAC seed a pair of a batch, drawn from the generator,
+        the same on every rank (parallel/evaluate.py `pair_samples`)."""
+        return torch.randint(0, 2 ** 31 - 1, (b,), generator=self.generator,
+                             device=self.device).tolist()
+
+    def _sharded_sparse_opts(self):
+        """(sparse, match_dtype) of the sharded steps (JAX runner.py:
+        297-308): Alike_s2d takes the sparse sampler (kernel B) unless
+        task_params.sparse_desc is false; bfloat16 runs match its sparse
+        descriptors in bf16."""
+        sparse = (self.cfg.model_type == "Alike_s2d"
+                  and bool(self.cfg.task_params.get("sparse_desc", True)))
+        match_dtype = torch.bfloat16 if (
+            sparse and self.cfg.precision == "bfloat16") else None
+        return sparse, match_dtype
+
+    def _sharded_records(self, ds, log, make_step, inputs, records, tail):
+        """Every pair's record on a sharded batch path (JAX runner.py:
+        443-504): the journal's where it has one; the others
+        `batch_size` at a time, each data rank loading and computing its
+        contiguous block of the batch (`make_step(mesh).shard(*inputs(
+        samples), seeds)`; `records(out, j)` is pair j's record of the
+        gathered outputs); a ragged tail that fills no batch pair by pair
+        (`tail(sample)`) on every rank. The mesh holds as many ranks as
+        divide the batch size (JAX `_sharded_mesh`); the ranks outside it
+        get the records from rank 0. Closes the log. Returns (the records
+        in pair order, the number of data ranks)."""
+        b = int(self.cfg.data_params.get("batch_size", 1))
+        n_data = max(d for d in range(1, self.mesh.n_data + 1) if b % d == 0)
+        mesh = self.mesh.subset(n_data)
+        step = make_step(mesh) if mesh is not None else None
+        recs: dict[int, dict] = {}
+        buf: list[int] = []
+        try:
+            for i in range(len(ds)):
+                rec = log.get(i)
+                if rec is not None:
+                    recs[i] = rec
+                    continue
+                buf.append(i)
+                if len(buf) < b:
+                    continue
+                seeds = self._batch_seeds(b)
+                if step is not None:
+                    sl = block(mesh, b)
+                    out = _to_host(step.shard(
+                        *inputs([ds[j] for j in buf[sl]]), seeds[sl]))
+                    for j, i_b in enumerate(buf):
+                        recs[i_b] = log.put(i_b, records(out, j))
+                buf = []
+            for i in buf:   # ragged tail: per pair
+                recs[i] = log.put(i, tail(ds[i]))
+        finally:
+            log.close()
+        if n_data < self.mesh.world_size:
+            recs = {int(i): r for i, r in self.mesh.broadcast_json(
+                {str(i): r for i, r in recs.items()}).items()}
+        return [recs[i] for i in sorted(recs)], n_data
 
     def _rep_pair_record(self, batch, th: float):
         """Per-pair repeatability record and the detections it used."""
@@ -376,15 +510,63 @@ class Evaluator:
                 "mean_error": out["mean_error"],
                 "num_feat": out["num_feat"]}, (k0, v0, k1, v1)
 
+    @staticmethod
+    def _stack_homo_batch(samples):
+        """(imgs0, imgs1, Hs, Hinvs, sizes, scales) of homography pairs."""
+        return _stack(samples, *_IMAGES,
+                      lambda s: s["warp01_params"]["homography_matrix"],
+                      lambda s: s["warp10_params"]["homography_matrix"],
+                      lambda s: [float(s["warp01_params"]["width"]),
+                                 float(s["warp01_params"]["height"])],
+                      lambda s: float(s["warp01_params"].get(
+                          "resize", s["warp01_params"]["width"])))
+
+    def _rep_result(self, recs, sharded=""):
+        reps = [float(r["repeatability"]) for r in recs]
+        errs = np.asarray([float(r["mean_error"]) for r in recs])
+        result = {
+            "repeatability": float(np.mean(reps)) if reps else float("nan"),
+            "rep_mean_err": float(np.mean(errs[~np.isnan(errs)]))
+            if len(errs) else float("nan"),
+            "num_feat": float(np.mean([float(r["num_feat"]) for r in recs]))
+            if recs else float("nan"),
+            "per_pair_repeatability": reps,
+        }
+        self._say("repeatability", result["repeatability"],
+                  " rep_mean_err", result["rep_mean_err"], *(
+                      [sharded] if sharded else []))
+        return result
+
+    def _run_repeatability_sharded(self, ds):
+        """The data-parallel batch path of homography pairs
+        (data_params.batch_size > 1; JAX runner.py:443-504): the ragged
+        tail runs per pair, so the means cover every pair."""
+        th = float(self.cfg.task_params.get("th", 3.0))
+        sparse, match_dtype = self._sharded_sparse_opts()
+        log = self._metric_log({"task": "repeatability", "th": th})
+
+        def tail(sample):
+            rec = self._rep_pair_record(sample, th)[0]
+            return {k: float(v) for k, v in rec.items()}
+
+        recs, n_data = self._sharded_records(
+            ds, log, lambda mesh: sharded_eval_step(
+                mesh, self.model, self.detect_params, th=th,
+                bf_max_distance=self.bf_max_distance, sparse=sparse,
+                match_dtype=match_dtype),
+            self._stack_homo_batch,
+            lambda out, j: {k: float(out[k][j]) for k in (
+                "repeatability", "mean_error", "num_feat")}, tail)
+        return self._rep_result(recs, f"(sharded, {n_data} ranks)")
+
     def _run_repeatability(self, ds):
-        # the JAX runner's sharded path stacks homography warps only; SE3
-        # pairs run the per-pair loop whatever the batch size
+        # the sharded path stacks homography warps only; SE3 pairs run the
+        # per-pair loop whatever the batch size
         if int(self.cfg.data_params.get("batch_size", 1)) > 1 and \
                 len(ds) > 0 and ds[0]["warp01_params"]["mode"] == "homo":
-            raise _not_ported("the sharded batch repeatability path")
+            return self._run_repeatability_sharded(ds)
         th = float(self.cfg.task_params.get("th", 3.0))
-        log = MetricLog(self.cfg.output_dir, self.cfg.resume,
-                        meta={"task": "repeatability", "th": th})
+        log = self._metric_log({"task": "repeatability", "th": th})
 
         def record(i, batch):
             rec, (k0, v0, k1, v1) = self._rep_pair_record(batch, th)
@@ -395,19 +577,7 @@ class Evaluator:
                 self._dump_keypoints(i, batch["image1"], k1, v1, 1)
             return rec
 
-        recs = self._journaled(log, ds, record)
-        reps = [float(r["repeatability"]) for r in recs]
-        errs = np.asarray([float(r["mean_error"]) for r in recs])
-        result = {
-            "repeatability": float(np.mean(reps)),
-            "rep_mean_err": float(np.mean(errs[~np.isnan(errs)]))
-            if len(errs) else float("nan"),
-            "num_feat": float(np.mean([float(r["num_feat"]) for r in recs])),
-            "per_pair_repeatability": reps,
-        }
-        print("repeatability", result["repeatability"],
-              " rep_mean_err", result["rep_mean_err"])
-        return result
+        return self._rep_result(self._journaled(log, ds, record))
 
     @staticmethod
     def _journaled(log: MetricLog, ds, record) -> list[dict]:
@@ -436,11 +606,15 @@ class Evaluator:
         """Per-pair metric curve + txt like the reference's plot_* helpers
         (needs matplotlib)."""
         from keypoint_bench_tpu_torch.utils.visualization import plot_series
+        if not self.writes:
+            return
         os.makedirs(self.cfg.output_dir, exist_ok=True)
         plot_series(values, os.path.join(self.cfg.output_dir, f"{name}.png"))
 
     def _dump_keypoints(self, i, image, kpts, valid, side):
         """Repeatability's keypoint overlay of one side of pair i."""
+        if not self.writes:
+            return
         import cv2
         from keypoint_bench_tpu_torch.utils.visualization import \
             plot_kps_error
@@ -453,6 +627,8 @@ class Evaluator:
     def _dump_matches(self, i, tag, img0, img1, m0, m1, ok):
         """Flag-gated per-pair match overlay, like the reference writes
         behind save_result (FundamentalMatrix.py:25-48, AUC.py:146-148)."""
+        if not self.writes:
+            return
         import cv2
         from keypoint_bench_tpu_torch.utils.visualization import plot_matches
         img0, img1 = _plot_image(img0), _plot_image(img1)
@@ -469,49 +645,73 @@ class Evaluator:
     def _mha_pair_record(self, i, batch, ths):
         """Per-pair MHA record: brute force or LightGlue on the covisible
         sets (reference MHA.py:33-39), then RANSAC-H and the corner test;
-        with save_images, pair i's match overlay."""
+        with save_images, pair i's match overlay (none for i None, the
+        sharded path's tail, as in the JAX runner)."""
         img0, img1, s0, d0, k0, v0, s1, d1, k1, v1 = self._pair_maps(batch)
         wp01, wp10 = batch["warp01_params"], batch["warp10_params"]
         _, _, va = self._warp(k0, v0, wp01)
         _, _, vb = self._warp(k1, v1, wp10)
         m0, m1, ok = self._match(k0, va, k1, vb, d0, d1, img0.shape[1],
                                  img0.shape[0])
-        if self.cfg.task_params.get("save_images"):
+        if self.cfg.task_params.get("save_images") and i is not None:
             self._dump_matches(i, "mha_matches", img0, img1, m0, m1, ok)
         out = mha_pair(m0, m1, ok, wp01["homography_matrix"], wp01["width"],
                        wp01["height"], img0.shape[0], img0.shape[1],
                        self.generator, thresholds=ths)
         return {f"h{t:g}": float(out[k]) for k, t in enumerate(ths)}
 
-    def _run_mha(self, ds):
-        # the JAX runner shards brute force alone; every other matcher runs
-        # the per-pair loop whatever the batch size
-        if int(self.cfg.data_params.get("batch_size", 1)) > 1 and \
-                self.matcher_type == "brute_force":
-            raise _not_ported("the sharded batch MHA path")
-        ths = tuple(self.cfg.task_params.get("th", [3, 5, 7]))
-        log = MetricLog(self.cfg.output_dir, self.cfg.resume,
-                        meta={"task": "MHA", "th": [float(t) for t in ths]})
-        recs = self._journaled(log, ds, lambda i, batch: self._mha_pair_record(
-            i, batch, ths))
+    def _mha_result(self, recs, ths):
         hits = [np.array([float(r[f"h{t:g}"]) for t in ths]) for r in recs]
-        mean = np.mean(np.stack(hits), axis=0)
+        mean = np.mean(np.stack(hits), axis=0) if hits \
+            else np.full(len(ths), np.nan)
         result = {f"MHA@{t:g}": float(v) for t, v in zip(ths, mean)}
         for v in mean:
-            print("MHA ", v)
+            self._say("MHA ", v)
         result["per_pair"] = [list(map(float, h)) for h in hits]
         return result
+
+    def _run_mha_sharded(self, ds):
+        """The data-parallel batch path of brute-force MHA (JAX runner.py:
+        598-654); the ragged tail runs per pair."""
+        ths = tuple(float(t) for t in self.cfg.task_params.get(
+            "th", [3, 5, 7]))
+        sparse, match_dtype = self._sharded_sparse_opts()
+        log = self._metric_log({"task": "MHA", "th": list(ths)})
+        recs, _ = self._sharded_records(
+            ds, log, lambda mesh: sharded_mha_step(
+                mesh, self.model, self.detect_params, ths,
+                bf_max_distance=self.bf_max_distance, sparse=sparse,
+                match_dtype=match_dtype),
+            lambda samples: self._stack_homo_batch(samples)[:5],
+            lambda hits, j: {f"h{t:g}": float(hits[j, k])
+                             for k, t in enumerate(ths)},
+            lambda sample: self._mha_pair_record(None, sample, ths))
+        return self._mha_result(recs, ths)
+
+    def _run_mha(self, ds):
+        # the sharded path serves brute force alone; every other matcher
+        # runs the per-pair loop whatever the batch size
+        if int(self.cfg.data_params.get("batch_size", 1)) > 1 and \
+                self.matcher_type == "brute_force":
+            return self._run_mha_sharded(ds)
+        ths = tuple(self.cfg.task_params.get("th", [3, 5, 7]))
+        log = self._metric_log({"task": "MHA",
+                                "th": [float(t) for t in ths]})
+        recs = self._journaled(log, ds, lambda i, batch: self._mha_pair_record(
+            i, batch, ths))
+        return self._mha_result(recs, ths)
 
     def _auc_pair_record(self, i, batch):
         """Per-pair AUC record (reference AUC.py:40-155): match, essential
         RANSAC + recoverPose on the intrinsics-normalized matches, pose
         error; a failed pair counts 180 degrees and 0 inliers. With
-        save_images, pair i's match overlay (AUC.py:146-148)."""
+        save_images, pair i's match overlay (AUC.py:146-148; none for i
+        None, the sharded path's tail)."""
         img0, img1, s0, d0, k0, v0, s1, d1, k1, v1 = self._pair_maps(batch)
         wp01 = batch["warp01_params"]
         m0, m1, ok = self._match(k0, v0, k1, v1, d0, d1, img0.shape[1],
                                  img0.shape[0])
-        if self.cfg.task_params.get("save_images"):
+        if self.cfg.task_params.get("save_images") and i is not None:
             self._dump_matches(i, "auc_matches", img0, img1, m0, m1, ok)
         h0, w0 = img0.shape[0], img0.shape[1]
         h1, w1 = img1.shape[0], img1.shape[1]
@@ -530,28 +730,54 @@ class Evaluator:
         return {"error": float(err) if bool(okp) else 180.0,
                 "inliers": int(n_in) if bool(okp) else 0}
 
-    def _run_auc(self, ds):
-        # the JAX runner shards brute force alone; every other matcher runs
-        # the per-pair loop whatever the batch size
-        if int(self.cfg.data_params.get("batch_size", 1)) > 1 and \
-                self.matcher_type == "brute_force":
-            raise _not_ported("the sharded batch AUC path")
+    def _auc_result(self, recs):
         ths = tuple(self.cfg.task_params.get("th", [5, 10, 20]))
-        log = MetricLog(self.cfg.output_dir, self.cfg.resume,
-                        meta={"task": "AUC",
-                              "solver": self.cfg.task_params.get("solver",
-                                                                 "8pt")})
-        recs = self._journaled(log, ds, self._auc_pair_record)
         errors = [float(r["error"]) for r in recs]
         inliers = [float(r["inliers"]) for r in recs]
         aucs = pose_auc(errors, ths)
         result = {f"AUC@{t}": float(a) for t, a in zip(ths, aucs)}
-        result["AUC_inliers"] = float(np.mean(inliers))
+        result["AUC_inliers"] = float(np.mean(inliers)) if inliers else 0.0
         for a in aucs:
-            print("AUC ", a)
-        print("AUC inliers", result["AUC_inliers"])
+            self._say("AUC ", a)
+        self._say("AUC inliers", result["AUC_inliers"])
         result["per_pair_error"] = errors
         return result
+
+    def _run_auc_sharded(self, ds):
+        """The data-parallel batch path of brute-force AUC (JAX runner.py:
+        697-769): the images of a batch share one shape; the ragged tail
+        runs per pair, so the error list covers every pair."""
+        solver = self.cfg.task_params.get("solver", "8pt")
+        sparse, match_dtype = self._sharded_sparse_opts()
+        log = self._metric_log({"task": "AUC", "solver": solver})
+
+        def inputs(samples):
+            return _stack(samples, *_IMAGES, *(
+                lambda s, k=k: s["warp01_params"][k]
+                for k in ("intrinsics0", "intrinsics1", "pose01")))
+
+        recs, _ = self._sharded_records(
+            ds, log, lambda mesh: sharded_auc_step(
+                mesh, self.model, self.detect_params, solver=solver,
+                bf_max_distance=self.bf_max_distance, sparse=sparse,
+                match_dtype=match_dtype),
+            inputs,
+            lambda out, j: {"error": float(out[0][j]),
+                            "inliers": int(out[1][j])},
+            lambda sample: self._auc_pair_record(None, sample))
+        return self._auc_result(recs)
+
+    def _run_auc(self, ds):
+        # the sharded path serves brute force alone; every other matcher
+        # runs the per-pair loop whatever the batch size
+        if int(self.cfg.data_params.get("batch_size", 1)) > 1 and \
+                self.matcher_type == "brute_force":
+            return self._run_auc_sharded(ds)
+        log = self._metric_log({"task": "AUC",
+                                "solver": self.cfg.task_params.get("solver",
+                                                                   "8pt")})
+        return self._auc_result(self._journaled(log, ds,
+                                                self._auc_pair_record))
 
     def _iter_sequence(self, ds):
         """Frame-delay pairing for sequence datasets: yields (prev_batch,
@@ -598,9 +824,9 @@ class Evaluator:
             "fundamental_num": float(np.mean(nums)),
             "per_frame_error": [float(e) for e in errs],
         }
-        print("fundamental_error", result["fundamental_error"],
-              " fundamental_radio", result["fundamental_radio"],
-              " fundamental_num", result["fundamental_num"])
+        self._say("fundamental_error", result["fundamental_error"],
+                  " fundamental_radio", result["fundamental_radio"],
+                  " fundamental_num", result["fundamental_num"])
         return result
 
     @torch.inference_mode()
@@ -692,6 +918,8 @@ class Evaluator:
     def _dump_epipolar(self, i, img0, img1, m0, m1, p0, p1, ok, F):
         """FundamentalMatrix's images of pair i: the match overlay and the
         epipolar lines of the matched points over frame 1."""
+        if not self.writes:
+            return
         import cv2
         from keypoint_bench_tpu_torch.utils.visualization import \
             plot_epipolar_lines
@@ -715,14 +943,16 @@ class Evaluator:
                                            self.generator)
             radios.append(float(out["fundamental_radio"]))
         result = {"fundamental_radio": float(np.mean(radios))}
-        print("fundamental_radio", result["fundamental_radio"])
+        self._say("fundamental_radio", result["fundamental_radio"])
         return result
 
     def _vo_result(self, R_est, t_est):
-        """Write the KITTI trajectory; the VO result's common keys."""
-        os.makedirs(self.cfg.output_dir, exist_ok=True)
+        """Write the KITTI trajectory (rank 0); the VO result's common
+        keys."""
         traj = os.path.join(self.cfg.output_dir, "trajectory.txt")
-        write_kitti_trajectory(traj, R_est, t_est)
+        if self.writes:
+            os.makedirs(self.cfg.output_dir, exist_ok=True)
+            write_kitti_trajectory(traj, R_est, t_est)
         return {"num_frames": len(R_est) - 1, "trajectory_path": traj,
                 "R_est": R_est, "t_est": t_est}
 
@@ -733,10 +963,6 @@ class Evaluator:
         into windowed bundle adjustment (tasks/vo_ba.py)."""
         tp = self.cfg.task_params
         ba = bool(tp.get("ba_refine"))
-        if ba and tp.get("ba_distributed"):
-            raise _not_ported("visual_odometer's task_params.ba_distributed "
-                              "(the distributed Schur solver, "
-                              "ba/distributed.py)")
         metas = list(_iter(ds))
         frames = np.stack([np.asarray(b["image0"]) for b in metas])
         scales = [float(np.linalg.norm(np.asarray(b["ground_truth"])[0:3, 3]
@@ -751,16 +977,19 @@ class Evaluator:
         # dense sampling, no dense map; task_params.sparse_desc opts out)
         sparse = (self.cfg.model_type == "Alike_s2d"
                   and bool(tp.get("sparse_desc", True)))
+        # ba_distributed: the window refines through the distributed Schur
+        # solver over the Evaluator's ranks (each runs the same VO step)
         out = vo_step(self.model, frames, K, scales, self.detect_params,
                       self.generator, self.bf_max_distance, ba_refine=ba,
-                      sparse=sparse, device=self.device)
+                      sparse=sparse, device=self.device,
+                      mesh=self.mesh if tp.get("ba_distributed") else None)
         result = self._vo_result(out["R_est"], out["t_est"])
         if "ba_tracks" in out:
             result.update({k: v for k, v in out.items()
                            if k.startswith("ba_")})
-            print(f"BA window: {out['ba_tracks']} tracks, reproj "
-                  f"{out['ba_reproj_before']:.2f} -> "
-                  f"{out['ba_reproj_after']:.2f} px")
+            self._say(f"BA window: {out['ba_tracks']} tracks, reproj "
+                      f"{out['ba_reproj_before']:.2f} -> "
+                      f"{out['ba_reproj_after']:.2f} px")
         return result
 
     @torch.inference_mode()
@@ -772,7 +1001,7 @@ class Evaluator:
         if self.cfg.task_params.get("pipelined") and \
                 self.matcher_type == "brute_force":
             return self._run_vo_pipelined(ds)
-        log = MetricLog(self.cfg.output_dir, self.cfg.resume)
+        log = self._metric_log()
         rel_R, rel_t, oks, scales = [], [], [], []
         try:
             for i, (last, batch) in enumerate(self._iter_sequence(ds)):
@@ -846,7 +1075,7 @@ class Evaluator:
         per_pair = torch.stack(errs).cpu().tolist() if errs else []
         result = {"track_error": float(np.mean(per_pair)),
                   "per_pair": per_pair}
-        print("track_error", result["track_error"])
+        self._say("track_error", result["track_error"])
         return result
 
 

@@ -20,6 +20,15 @@ from keypoint_bench_tpu_torch.geometry.ransac import (
     _sample_minimal, ransac_essential_from_samples, recover_pose)
 
 
+def ransac_sample_shape(solver: str, n_hyp: int) -> tuple[int, int]:
+    """(samples, points a sample) that essential RANSAC draws: n_hyp
+    samples of 8 for "8pt"; max(n_hyp // 8, 64) of 5 for "5pt", whose
+    samples give up to 10 candidates each."""
+    if solver not in ("8pt", "5pt"):
+        raise ValueError(f"unknown solver {solver!r}")
+    return (max(n_hyp // 8, 64), 5) if solver == "5pt" else (n_hyp, 8)
+
+
 def estimate_pose_pair(m_pts0: torch.Tensor, m_pts1: torch.Tensor,
                        match_mask: torch.Tensor, K0: torch.Tensor,
                        K1: torch.Tensor, generator: torch.Generator | None,
@@ -35,8 +44,7 @@ def estimate_pose_pair(m_pts0: torch.Tensor, m_pts1: torch.Tensor,
     a sample, so max(n_hyp // 8, 64) samples explore at least as many
     hypotheses). The minimal samples [..., n, 8] or [..., n, 5] come from
     `generator` (on the tensors' device), or are given as `samples`."""
-    if solver not in ("8pt", "5pt"):
-        raise ValueError(f"unknown solver {solver!r}")
+    n, size = ransac_sample_shape(solver, n_hyp)
     f_mean = (K0[..., 0, 0] + K1[..., 1, 1] + K0[..., 0, 0]
               + K1[..., 1, 1]) / 4.0                        # AUC.py:45
     norm_th = thresh_px / f_mean
@@ -47,11 +55,8 @@ def estimate_pose_pair(m_pts0: torch.Tensor, m_pts1: torch.Tensor,
         return (p - c) / f
 
     p0n, p1n = normalize(m_pts0, K0), normalize(m_pts1, K1)
-    if solver == "5pt":
-        ransac, n, size = ransac_essential_5pt_from_samples, \
-            max(n_hyp // 8, 64), 5
-    else:
-        ransac, n, size = ransac_essential_from_samples, n_hyp, 8
+    ransac = ransac_essential_5pt_from_samples if solver == "5pt" \
+        else ransac_essential_from_samples
     if samples is None:
         samples = _sample_minimal(match_mask, n, size, generator)
     E, inl, ok_e = ransac(p0n, p1n, match_mask, samples, norm_th)

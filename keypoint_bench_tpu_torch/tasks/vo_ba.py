@@ -8,7 +8,9 @@ Pipeline:
   2. each track is triangulated linearly from its first and last
      observation using the chained VO poses,
   3. a BAProblem over the window refines poses + points with the
-     LM / Schur solver (ba/gauss_newton.py), first camera fixed.
+     LM / Schur solver (ba/gauss_newton.py), first camera fixed, or with
+     `mesh` its distributed form over the mesh's data ranks
+     (ba/distributed.py).
 
 The problem is built at its real size: the JAX package's power-of-two
 bucket padding and its gate jits only keep its jit cache warm. Padded
@@ -22,9 +24,12 @@ from dataclasses import replace
 import numpy as np
 import torch
 
+from keypoint_bench_tpu_torch.ba.distributed import (ba_solve_distributed,
+                                                     gather_points)
 from keypoint_bench_tpu_torch.ba.gauss_newton import (BAProblem, ba_solve,
                                                       reprojection_errors)
 from keypoint_bench_tpu_torch.device import resolve_device
+from keypoint_bench_tpu_torch.parallel.mesh import Mesh
 
 
 def chain_tracks(match_idx: np.ndarray, match_ok: np.ndarray):
@@ -168,17 +173,24 @@ def refine_window(kpts_px, tracks, R_w2c, t_w2c, K, iters: int = 8,
     float32, err_before, err_after) or None when the window has too few
     tracks. Observations whose initial reprojection error exceeds
     `max_init_err` px are masked out; the solve uses Huber reweighting and
-    damping 1e-2. The distributed Schur solver (`mesh`) is not ported."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "refine_window(mesh=...), the distributed Schur solver "
-            "(ba/distributed.py), is not ported to keypoint_bench_tpu_torch "
-            "yet (ROADMAP.md, Queue 1, the parallel item)")
+    damping 1e-2. With `mesh` (a parallel.mesh.Mesh whose every data rank
+    calls this with the same window) the solve is `ba_solve_distributed`,
+    with the same semantics, and every rank returns the same result."""
+    if mesh is not None and not isinstance(mesh, Mesh):
+        raise TypeError(f"mesh must be a parallel.mesh.Mesh, got "
+                        f"{type(mesh).__name__}")
     prob = build_ba_problem(kpts_px, tracks, R_w2c, t_w2c, K, device=device)
     if prob is None:
         return None
     prob, err0 = gate_window(prob, max_init_err)
-    R, t, p, err = ba_solve(prob, iters=iters, damping=1e-2,
-                            huber_delta=huber_delta)
+    if mesh is None:
+        R, t, p, err = ba_solve(prob, iters=iters, damping=1e-2,
+                                huber_delta=huber_delta)
+    else:
+        R, t, s_pts, meta = ba_solve_distributed(
+            mesh, prob, iters=iters, damping=1e-2, huber_delta=huber_delta)
+        p = gather_points(s_pts, meta, prob.points.shape[0])
+        err = reprojection_errors(replace(prob, R=R, t=t, points=p)).sum() \
+            / torch.clamp_min(prob.mask.sum(), 1)
     return (R.cpu().numpy(), t.cpu().numpy(), p.cpu().numpy(), float(err0),
             float(err))

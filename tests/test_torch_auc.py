@@ -482,6 +482,12 @@ def test_xfeat_light_glue_falls_back_only_when_asked(tmp_path, weights):
      "save_images")])
 def test_auc_runner_raises(tmp_path, change, exc, what):
     cfg = {**_auc_cfg(tmp_path, size=64, pairs=1), **change}
+    if what == "sharded batch AUC":
+        # ported since: brute force at batch_size 2 runs the data-parallel
+        # batch path (tests/test_torch_parallel_runner.py holds it)
+        res = Evaluator(EvalConfig(**cfg), "cpu").run()
+        assert len(res["per_pair_error"]) == 2
+        return
     if what == "save_images":
         # ported since: the run writes the JAX runner's match overlay of
         # its pair (its pixels against the JAX runner's:

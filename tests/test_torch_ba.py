@@ -315,7 +315,17 @@ def test_refine_window_matches_jax(seed):
 
 
 def test_refine_window_mesh_raises():
+    """A mesh that is not a parallel.mesh.Mesh raises; a one-rank Mesh
+    is the one-rank solve (the distributed one on several ranks:
+    tests/test_torch_parallel_ba.py)."""
+    from keypoint_bench_tpu_torch.parallel.mesh import Mesh
     kpts, idx, ok, R, t, Kc = _splat_window(0)
-    with pytest.raises(NotImplementedError, match="parallel"):
-        tvb.refine_window(kpts, tvb.chain_tracks(idx, ok), R, t, Kc,
-                          mesh=object(), device="cpu")
+    tracks = tvb.chain_tracks(idx, ok)
+    with pytest.raises(TypeError, match="parallel"):
+        tvb.refine_window(kpts, tracks, R, t, Kc, mesh=object(),
+                          device="cpu")
+    got = tvb.refine_window(kpts, tracks, R, t, Kc,
+                            mesh=Mesh.single("cpu"), device="cpu")
+    want = tvb.refine_window(kpts, tracks, R, t, Kc, device="cpu")
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)

@@ -188,6 +188,22 @@ def test_lightglue_without_weights_raises_or_falls_back(tmp_path):
     ({"debug_nans": True}, "debug_nans")])
 def test_unported_parts_raise(weights, tmp_path, change, what):
     cfg = {**_cfg(weights, tmp_path), **change}
+    if what == "visual_odometer":
+        # ported since: ba_distributed refines the window with the
+        # distributed Schur solver over the Evaluator's ranks (one here;
+        # tests/test_torch_parallel_ba.py holds it on 2 and against JAX)
+        cfg["data_params"] = {"type": "synthetic_splat_sequence",
+                              "num_frames": 3, "image_size": S}
+        res = Evaluator(EvalConfig(**cfg), "cpu").run()
+        assert res["num_frames"] == 3 and len(res["R_est"]) == 4
+        return
+    if what in ("sharded", "AUC"):
+        # ported since: brute force at batch_size 2 runs the data-parallel
+        # batch path (tests/test_torch_parallel_runner.py holds it)
+        res = Evaluator(EvalConfig(**cfg), "cpu").run()
+        key = "per_pair" if what == "sharded" else "per_pair_error"
+        assert len(res[key]) == 2
+        return
     if what == "save_images":
         # ported since: the run writes the JAX runner's match overlay of
         # each pair (its pixels against the JAX runner's:

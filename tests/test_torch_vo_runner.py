@@ -295,6 +295,19 @@ def test_vo_step_matches_the_pipelined_runner(tmp_path):
      "ba_distributed")])
 def test_vo_runner_raises(tmp_path, change, exc, what):
     cfg = {**_cfg(tmp_path, frames=2), **change}
+    if what == "ba_distributed":
+        # ported since: the window refines with the distributed Schur
+        # solver over the Evaluator's ranks (one here, where it is the
+        # one-rank solver; tests/test_torch_parallel_ba.py holds it on 2)
+        res = Evaluator(EvalConfig(**cfg), "cpu").run()
+        tp = {**cfg["task_params"], "ba_distributed": False}
+        want = Evaluator(EvalConfig(**{**cfg, "task_params": tp}),
+                         "cpu").run()
+        assert sorted(res) == sorted(want)
+        for k in res:
+            if k.startswith("ba_"):
+                np.testing.assert_array_equal(res[k], want[k])
+        return
     with pytest.raises(exc, match=what):
         Evaluator(EvalConfig(**cfg), "cpu").run()
 
