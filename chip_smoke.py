@@ -382,13 +382,39 @@ share of its time and the transfers that went through the host:
      ranks against the dense forward: matches agree above 99%, mscores
      within 1e-3, the 2-layer log scores within 1e-4 of their norm;
      kernel E 18 launches a rank; timed against the dense forward.
+The last modules of the JAX package (`sp_pp_phases`, after phase 56):
+ 57. ring attention, [4, 1000, 64] with a padded tail and the first 250
+     keys masked (rank 0's whole chunk at 4 ranks), over a one-rank NCCL
+     group and 2 and 4 gloo ranks on the card: within 1e-5 of the plain
+     dense attention; ring hops and their host staging printed, timed;
+ 58. sequence-parallel LightGlue (D = 256, 4 heads, 9 layers, K = 1000,
+     the golden weights, phase 56's pair) over 2 and 4 data ranks:
+     matches equal to the dense forward's (kernel E, 18 launches), mscores
+     within 2e-3, the 2-layer log scores within 1e-4 of their norm, no
+     kernel E launch on the ring path; timed against the dense forward;
+ 59. the two-stage pipeline, ALIKE-t on config 1's 16 images at 512^2 in
+     4 microbatches over 2 gloo ranks: `two_stage_pipeline` bit-equal to
+     the sequential map, `pipeline_extract` within 1e-6 (masks equal) of
+     `detection_batch` on the same forwards, kernel A once a microbatch,
+     held on its calls; timed against data-parallel extraction on the
+     same ranks, the bytes staged through the host printed (no speed
+     gate);
+ 60. `export_model` of ALIKE-t at 512^2 reloaded and run within 1e-5 of
+     the eager forward; `info --latency` (model_cost and latency) and a
+     `trace` with its device kernels, beside the card's name and power
+     limit;
+ 61. the runner with debug_nans on configs/repeatability_synthetic.yaml
+     and on 4 MHA pairs (SuperPoint + light_glue): equal to the runs
+     without it; a NaN planted in one pixel raises FloatingPointError.
 Exits non-zero without CUDA, or without the port's package beside it.
 """
 from __future__ import annotations
 
 import contextlib
 import ctypes
+import dataclasses
 import importlib.util
+import io
 import json
 import os
 import statistics
@@ -5418,6 +5444,324 @@ def parallel_phases(dev, card, errs, ctx):
     return out
 
 
+RING_WORLDS = (2, 4)    # phase 57: gloo thread ranks sharing the card
+SP_WORLDS = (2, 4)      # phase 58
+PP_MICRO = 4            # phase 59: microbatches of config 1's 16 images
+
+
+def ring_hops(mesh_stats):
+    """The ring hops a timed run made (calls of `ring_shift`)."""
+    return mesh_stats.get("ring_shift", (0, 0.0))[0]
+
+
+def sp_pp_phases(dev, card, errs, ctx):
+    """Phases 57-61: ring attention and sequence-parallel LightGlue over
+    data ranks, the two-stage pipeline, export / profiling / info, and
+    the runner's debug_nans. The launch counts are reset just before each
+    path and read just after. Returns the numbers for the sp_pp and
+    kernels JSON lines."""
+    import numpy as np
+    import torch
+
+    from keypoint_bench_tpu_torch import info as kbt_info
+    from keypoint_bench_tpu_torch import runner as kbt_runner
+    from keypoint_bench_tpu_torch.models import get_model
+    from keypoint_bench_tpu_torch.models.lightglue import (
+        lightglue_forward, lightglue_scores, sample_descriptors_lg)
+    from keypoint_bench_tpu_torch.ops.detect import (DetectParams,
+                                                     detection_batch)
+    from keypoint_bench_tpu_torch.parallel.lightglue_sp import (
+        lightglue_forward_sp, lightglue_scores_sp)
+    from keypoint_bench_tpu_torch.parallel.mesh import (collective_seconds,
+                                                        thread_ranks)
+    from keypoint_bench_tpu_torch.parallel.pipeline import (
+        make_stage_mesh, pipeline_extract, two_stage_pipeline)
+    from keypoint_bench_tpu_torch.parallel.ring_attention import (
+        dense_attention, gather_rows, ring_attention)
+    from keypoint_bench_tpu_torch.runner import EvalConfig, Evaluator
+    from keypoint_bench_tpu_torch.utils.export import (export_model,
+                                                       load_exported)
+    from keypoint_bench_tpu_torch.utils.profiling import trace
+    from keypoint_bench_tpu_torch.weights import load_params
+
+    t_start = time.perf_counter()
+    out = {}
+
+    def timed(fn, world, steps=3):
+        """(ms a step, collectives' share, ring hops a step, host-staged
+        ops) of fn(mesh) on `world` gloo thread ranks, rank 0's."""
+        def run(mesh):
+            fn(mesh)
+            mesh.timing = True
+            mesh.stats.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                fn(mesh)
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
+            return (sec, collective_seconds(mesh), ring_hops(mesh.stats),
+                    sorted(mesh.staged))
+        sec, coll, hops, staged = thread_ranks(run, world, device=DEVICE)[0]
+        return sec / steps * 1e3, coll / sec, hops // steps, staged
+
+    with phase(f"57. ring attention: [4, {K}, 64] over {RING_WORLDS} gloo "
+               f"ranks and a one-rank NCCL group against dense_attention"):
+        gen = torch.Generator(device=dev).manual_seed(57)
+        q, k, v = (torch.randn((4, K, 64), device=dev, generator=gen)
+                   for _ in range(3))
+        valid = torch.ones(K, dtype=torch.bool, device=dev)
+        valid[K - K // 25:] = False          # a padded tail
+        valid[:K // max(RING_WORLDS)] = False   # rank 0's chunk at world 4
+        want = dense_attention(q, k, v, valid)
+        out["ring"] = {}
+        for world in (1,) + RING_WORLDS:
+            if world == 1:
+                got, (ms, share, staged) = _with_group(lambda m: (
+                    gather_rows(m, ring_attention(m, q, k, v, valid), 1),
+                    timed_mesh(lambda m_: ring_attention(m_, q, k, v, valid),
+                               m)))
+                hops = 0
+            else:
+                got = thread_ranks(lambda m: gather_rows(
+                    m, ring_attention(m, q, k, v, valid), 1), world,
+                    device=DEVICE)[0]
+                ms, share, hops, staged = timed(
+                    lambda m: ring_attention(m, q, k, v, valid), world)
+            err = float((got - want).abs().max())
+            log(f"  world {world}: max abs err {err:.3g} against the dense "
+                f"softmax; ring hops a call {hops} (3 a step), host-staged "
+                f"{staged or 'none'}; {ms:.3f} ms a call, collectives "
+                f"{share:.4f} of it on {card}")
+            if not err <= 1e-5:
+                raise AssertionError(f"ring attention at world {world}: "
+                                     f"{err}")
+            out["ring"][f"world{world}"] = {
+                "max_abs_err": err, "ring_hops": hops, "ms": ms,
+                "collective_share": share, "host_staged": staged}
+
+    lg = ctx["lightglue"]
+    sk0, sva, sdm0, sk1, svb, sdm1 = ctx["superpoint"]
+    with torch.inference_mode():
+        p0, p1 = sk0[0, :, :2] * (SIZE - 1.0), sk1[0, :, :2] * (SIZE - 1.0)
+        lg_args = (p0, sva[0], sample_descriptors_lg(p0, sdm0[0], 8), p1,
+                   svb[0], sample_descriptors_lg(p1, sdm1[0], 8))
+    with phase(f"58. sequence-parallel LightGlue: D = 256, 4 heads, 9 "
+               f"layers, K = {K}, over {SP_WORLDS} data ranks against the "
+               f"dense forward"):
+        reset_launches()
+        m0_d, ms_d, _ = lightglue_forward(lg, *lg_args)
+        torch.cuda.synchronize()
+        dense_e = read_launches()["attention"]
+        sc_d = lightglue_scores(lg, *lg_args, n_layers=2)
+        ms_dense = cuda_ms(lambda: lightglue_forward(lg, *lg_args), iters=5)
+        out["sp"] = {"dense_launches_attention": dense_e,
+                     "ms_dense": ms_dense}
+        for world in SP_WORLDS:
+            reset_launches()
+            res = thread_ranks(
+                lambda m: lightglue_forward_sp(m, lg, *lg_args), world,
+                device=DEVICE)
+            torch.cuda.synchronize()
+            sp_e = read_launches()["attention"]
+            sc = thread_ranks(
+                lambda m: lightglue_scores_sp(m, lg, *lg_args, n_layers=2),
+                world, device=DEVICE)[0]
+            rel = float((sc - sc_d).norm() / sc_d.norm())
+            m0, msc, _ = res[0]
+            gap = float((msc - ms_d).abs().max())
+            ms_sp, share, hops, staged = timed(
+                lambda m: lightglue_forward_sp(m, lg, *lg_args), world)
+            log(f"  {world} data ranks: matches equal "
+                f"{bool(torch.equal(m0, m0_d))} ({int((m0 >= 0).sum())} "
+                f"matched), mscores within {gap:.3g}; 2-layer scores "
+                f"{rel:.3g} of their norm from the dense; kernel E "
+                f"{sp_e} launches (dense forward {dense_e}); {ms_sp:.3f} ms "
+                f"(dense {ms_dense:.3f}), collectives {share:.4f} of it, "
+                f"{hops} ring hops a forward, host-staged "
+                f"{staged or 'none'} on {card}")
+            if dense_e != 18 or sp_e != 0:
+                raise AssertionError(f"kernel E launches: dense {dense_e}, "
+                                     f"SP {sp_e}")
+            if not (torch.equal(m0, m0_d) and gap < 2e-3 and rel <= 1e-4
+                    and all(same_outputs(r, res[0]) for r in res)):
+                raise AssertionError(f"SP LightGlue on {world} ranks differs "
+                                     f"from the dense forward")
+            out["sp"][f"world{world}"] = {
+                "launches_attention": sp_e, "mscore_gap": gap,
+                "scores_rel": rel, "ms": ms_sp, "collective_share": share,
+                "ring_hops": hops, "host_staged": staged}
+
+    imgs = ctx["imgs0"]
+    alike = get_model("Alike")(load_params("Alike", device=dev)).eval()
+    dp = DetectParams(nms_dist=6, border_dist=8, top_k=K)
+    n, mb = len(imgs), len(imgs) // PP_MICRO
+    with phase(f"59. two-stage pipeline: ALIKE-t on {n} images at {SIZE}^2,"
+               f" {PP_MICRO} microbatches, over 2 gloo ranks"):
+        xs = imgs.reshape((PP_MICRO, mb) + tuple(imgs.shape[1:]))
+
+        def stage0(x):
+            with torch.inference_mode():
+                return alike(x)[0][..., 0]
+
+        def stage1(score):
+            return detection_batch(score, dp)
+
+        seq = [stage1(stage0(x)) for x in xs]
+        got = thread_ranks(lambda m: two_stage_pipeline(
+            make_stage_mesh(m), stage0, stage1, xs), 2, device=DEVICE)
+        for g in got:
+            if not all(torch.equal(g[i][j], seq[j][i]) for i in range(2)
+                       for j in range(PP_MICRO)):
+                raise AssertionError("two_stage_pipeline differs from the "
+                                     "sequential map")
+        scores = torch.cat([stage0(x) for x in xs])
+        kref, vref = detection_batch(scores, dp)
+        reset_launches()
+        with recorded_kernels() as calls:
+            res = thread_ranks(lambda m: pipeline_extract(
+                make_stage_mesh(m), alike, dp, imgs, PP_MICRO), 2,
+                device=DEVICE)
+            torch.cuda.synchronize()
+        pp_a = read_launches()["nms"]
+        held = hold_kernel_calls(calls, errs, "pipeline_extract")
+        kerr = max(float((k_ - kref).abs().max()) for k_, _ in res)
+        if not (kerr <= 1e-6 and all(torch.equal(v_, vref)
+                                     for _, v_ in res)):
+            raise AssertionError(f"pipeline_extract differs from "
+                                 f"detection_batch: {kerr}")
+        if pp_a != PP_MICRO:
+            raise AssertionError(f"pipeline_extract launched kernel A "
+                                 f"{pp_a} times")
+
+        def dp_extract(mesh):
+            b = n // mesh.n_data
+            with torch.inference_mode():
+                score = alike(imgs[mesh.rank * b:(mesh.rank + 1) * b])[0]
+            k_, v_ = detection_batch(score, dp)
+            return (torch.cat(mesh.all_gather(k_)),
+                    torch.cat(mesh.all_gather(v_)))
+
+        ms_pp, share_pp, _, staged = timed(lambda m: pipeline_extract(
+            make_stage_mesh(m), alike, dp, imgs, PP_MICRO), 2)
+        ms_dp, share_dp, _, _ = timed(dp_extract, 2)
+        hop_bytes = PP_MICRO * scores[:mb].numel() * scores.element_size()
+        ms_eval = ctx["eval_alike"]["ms_world2"]
+        log(f"  bit-equal to the sequential map (both ranks); keypoints "
+            f"within {kerr:.3g} of detection_batch, masks equal; kernel A "
+            f"{pp_a} launches (one a microbatch, on stage 1), calls held "
+            f"{held}; {ms_pp:.3f} ms the pipeline (collectives "
+            f"{share_pp:.4f}) against {ms_dp:.3f} ms data-parallel "
+            f"extraction on the same 2 ranks (collectives {share_dp:.4f}; "
+            f"phase 50's ALIKE-t step {ms_eval:.3f} ms for the pairs); "
+            f"{hop_bytes} bytes of activations through the host "
+            f"({staged or 'none'} staged) on {card}")
+        out["pipeline"] = {"launches_nms": pp_a, "kpts_gap": kerr,
+                           "ms_pipeline": ms_pp, "ms_data_parallel": ms_dp,
+                           "collective_share": share_pp,
+                           "bytes_staged": hop_bytes, "host_staged": staged,
+                           "ms_phase50_world2": ms_eval}
+
+    with phase(f"60. export, model_cost, info and trace: ALIKE-t at "
+               f"{SIZE}^2"):
+        path = export_model("Alike", os.path.join(
+            ROOT, "output", "chip_smoke_export", "alike.pt2"),
+            (1, SIZE, SIZE, 3), device=dev)
+        call = load_exported(path)
+        img = imgs[:1].float() / 255.0 if imgs.dtype == torch.uint8 \
+            else imgs[:1]
+        got = call(img)
+        with torch.inference_mode():
+            want = alike(img)
+        err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+        if not err <= 1e-5:
+            raise AssertionError(f"the exported ALIKE-t differs: {err}")
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            kbt_info.main(["Alike", "--size", str(SIZE), "--latency",
+                           "--device", DEVICE])
+        info = json.loads(buf.getvalue())
+        tr = trace(alike, (img,), os.path.join(ROOT, "output",
+                                               "chip_smoke_trace"))
+        with open(tr) as f:
+            events = json.load(f)["traceEvents"]
+        on_card = sum(1 for e in events if e.get("cat") == "kernel")
+        log(f"  export: {os.path.getsize(path)} bytes, reloaded forward "
+            f"within {err:.3g} of eager; info: {json.dumps(info)}; trace "
+            f"{os.path.getsize(tr)} bytes, {len(events)} events, {on_card} "
+            f"device kernels on {card}")
+        if not (os.path.getsize(tr) > 0 and events):
+            raise AssertionError("the trace is empty")
+        out["export"] = {"bytes": os.path.getsize(path), "max_abs_err": err,
+                         "info": info, "trace_events": len(events),
+                         "trace_device_kernels": on_card}
+
+    with phase("61. debug_nans: synthetic repeatability and MHA (SuperPoint "
+               "+ light_glue) with and without it; a planted NaN raises"):
+        rep_cfg = EvalConfig.from_yaml(os.path.join(
+            ROOT, "configs", "repeatability_synthetic.yaml"))
+        rep_cfg.output_dir = os.path.join(ROOT, "output", "chip_smoke_nans")
+        mha_cfg = EvalConfig(
+            model_type="SuperPoint", task_type="MHA",
+            data_params={"type": "synthetic_homography", "num_pairs": 4,
+                         "image_size": SIZE},
+            extractor_params={"nms_dist": 6, "border_dist": 8, "top_k": K,
+                              "threshold": 0, "min_score": 0.0},
+            matcher_params={"type": "light_glue"},
+            task_params={"th": [3, 5, 7]}, weights_dir=ctx["weights_dir"],
+            output_dir=os.path.join(ROOT, "output", "chip_smoke_nans"))
+        out["debug_nans"] = {}
+        for name, cfg in (("repeatability", rep_cfg), ("MHA", mha_cfg)):
+            plain = Evaluator(cfg, DEVICE).run()
+            reset_launches()
+            t0 = time.perf_counter()
+            checked = Evaluator(dataclasses.replace(cfg, debug_nans=True),
+                                DEVICE).run()
+            sec = time.perf_counter() - t0
+            got = read_launches()
+            same = (json.dumps(checked, sort_keys=True, default=float)
+                    == json.dumps(plain, sort_keys=True, default=float))
+            log(f"  {name}: with debug_nans equal to the run without it "
+                f"{same}; launches {got}; {sec:.2f} s (every operation's "
+                f"and kernel's output checked)")
+            if not same:
+                raise AssertionError(f"{name} with debug_nans differs")
+            out["debug_nans"][name] = {"launches": got, "seconds": sec}
+
+        real_get = kbt_runner.get_dataset
+
+        def planted(params):
+            ds = real_get(params)
+
+            class NanPixel:
+                def __len__(self):
+                    return len(ds)
+
+                def __getitem__(self, i):
+                    item = dict(ds[i])
+                    if i == 0:
+                        img = np.array(item["image0"], np.float32)
+                        img[SIZE // 2, SIZE // 2, 0] = np.nan
+                        item["image0"] = img
+                    return item
+            return NanPixel()
+
+        kbt_runner.get_dataset = planted
+        try:
+            Evaluator(dataclasses.replace(rep_cfg, debug_nans=True),
+                      DEVICE).run()
+        except FloatingPointError as e:
+            log(f"  a NaN pixel raises FloatingPointError: {e}")
+            out["debug_nans"]["planted"] = str(e)
+        else:
+            raise AssertionError("a planted NaN pixel did not raise under "
+                                 "debug_nans")
+        finally:
+            kbt_runner.get_dataset = real_get
+    out["seconds"] = time.perf_counter() - t_start
+    return out
+
+
 def _with_group(fn):
     """fn(mesh) on the one-rank NCCL group."""
     with one_rank_group() as mesh:
@@ -6404,6 +6748,11 @@ def main() -> int:
         "auc_items": auc["items"], "vo": vo["data"],
         "vo_window": vo["window"], "lightglue": lg_params,
         "superpoint": (sk0, sva, sdm0, sk1, svb, sdm1)})
+    spp = sp_pp_phases(dev, card, errs, {
+        "lightglue": lg_params, "superpoint": (sk0, sva, sdm0, sk1, svb, sdm1),
+        "imgs0": imgs0, "eval_alike": par["eval_Alike"],
+        "weights_dir": stage_golden_weights(os.path.join(
+            ROOT, "output", "chip_smoke_weights"))})
 
     def parallel_launches(kernel):
         """The kernel's launches on the data-parallel steps (phases 50-52)
@@ -6447,7 +6796,8 @@ def main() -> int:
          "launches_tracking_error": {k: v["nms"] for k, v in tracks.items()},
          **loop_launches("nms"),
          **file_backed("nms", "nms "),
-         **parallel_launches("nms")},
+         **parallel_launches("nms"),
+         "launches_pipeline_extract": spp["pipeline"]["launches_nms"]},
         {"name": "sparse_sample", "route": "cuda",
          "source": "keypoint_bench_tpu_torch/csrc/sample.cu",
          "replaces": "keypoint_bench_tpu/ops/pallas_sample.py:107",
@@ -6512,7 +6862,9 @@ def main() -> int:
                 ("library_ms", ad[mode]["sdpa_ms_call"]))},
          "launches_mha_runner_adaptive": ad["runner_launches"],
          "launches_lightglue_tp": {n: v["launches_attention"]
-                                   for n, v in par["tp"].items()}},
+                                   for n, v in par["tp"].items()},
+         "launches_lightglue_sp": {w: spp["sp"][f"world{w}"][
+             "launches_attention"] for w in SP_WORLDS}},
         {"name": "lk_level", "route": "cuda",
          "source": "keypoint_bench_tpu_torch/csrc/lk.cu",
          "replaces": "keypoint_bench_tpu/ops/pallas_lk.py:78",
@@ -6577,6 +6929,7 @@ def main() -> int:
         "five_point": fp, "tracking_error": te}, default=float))
     log(json.dumps({"loop_closure": lc, "save_images": si}, default=float))
     log(json.dumps({"parallel": par}, default=float))
+    log(json.dumps({"sp_pp": spp}, default=float))
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

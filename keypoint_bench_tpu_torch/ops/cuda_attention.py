@@ -12,6 +12,7 @@ import ctypes
 import torch
 
 from keypoint_bench_tpu_torch.ops._build import Kernel
+from keypoint_bench_tpu_torch.utils.debug_nans import check_kernel_outputs
 
 HEAD_DIM = 64   # the kernel's feature width (LightGlue: 256 / 4 heads)
 # csrc/attention.cu's tile: query rows of a block, keys of one ring stage
@@ -83,4 +84,5 @@ def attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         KERNEL.launch(1, q3.data_ptr(), k3.data_ptr(), v3.data_ptr(),
                       mask.data_ptr(), out.data_ptr(), q3.shape[0], n, m,
                       float(scale), torch.cuda.current_stream().cuda_stream)
+    check_kernel_outputs(KERNEL.symbol, out)
     return out.reshape(q.shape)

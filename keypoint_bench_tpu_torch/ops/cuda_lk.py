@@ -12,6 +12,7 @@ import ctypes
 import torch
 
 from keypoint_bench_tpu_torch.ops._build import Kernel
+from keypoint_bench_tpu_torch.utils.debug_nans import check_kernel_outputs
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 KERNEL = Kernel("lk", "kbt_lk_level",
@@ -91,4 +92,5 @@ def lk_level_cuda(imgs1: torch.Tensor, imgs2: torch.Tensor,
                       w, c, win,
                       iterations, threads,
                       torch.cuda.current_stream().cuda_stream)
+    check_kernel_outputs(KERNEL.symbol, out)
     return out

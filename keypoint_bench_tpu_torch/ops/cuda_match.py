@@ -13,6 +13,7 @@ import ctypes
 import torch
 
 from keypoint_bench_tpu_torch.ops._build import Kernel
+from keypoint_bench_tpu_torch.utils.debug_nans import check_kernel_outputs
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 KERNEL = Kernel("match", "kbt_nn_dists",
@@ -56,5 +57,6 @@ def nn_dists_cuda(a: torch.Tensor, b: torch.Tensor):
                       nn01.data_ptr(), d01.data_ptr(), nn10.data_ptr(),
                       d10.data_ptr(), keys.data_ptr(),
                       torch.cuda.current_stream().cuda_stream)
+    check_kernel_outputs(KERNEL.symbol, d01, d10)
     return (nn01.reshape(*lead, m), d01.reshape(*lead, m),
             nn10.reshape(*lead, n), d10.reshape(*lead, n))

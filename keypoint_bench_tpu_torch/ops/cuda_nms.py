@@ -18,6 +18,7 @@ import torch
 
 from keypoint_bench_tpu_torch.ops import _build
 from keypoint_bench_tpu_torch.ops._build import Kernel
+from keypoint_bench_tpu_torch.utils.debug_nans import check_kernel_outputs
 
 # the tile's d-pixel halo stays inside its 3x3 tile neighbourhood (d < 32,
 # which the changed-tile test needs) and in 48 KB of shared memory
@@ -92,6 +93,7 @@ def nms_cuda(maps: torch.Tensor, nms_dist: int, max_iter: int = 30,
                       0 if stats is None else stats.data_ptr(), b, h, w,
                       nms_dist, max_iter, mv,
                       torch.cuda.current_stream().cuda_stream)
+    check_kernel_outputs(KERNEL.symbol, p)
     return p.to(maps.dtype)
 
 
@@ -158,6 +160,7 @@ def peel_cuda(nms: torch.Tensor, border: int, per_chunk: int = 8):
         PEEL_KERNEL.launch(1, maps.data_ptr(), vals.data_ptr(),
                            idx.data_ptr(), b, h, w, border, per_chunk,
                            torch.cuda.current_stream().cuda_stream)
+    check_kernel_outputs(PEEL_KERNEL.symbol, vals)
     return vals, idx
 
 

@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from keypoint_bench_tpu_torch.ops._build import Kernel
+from keypoint_bench_tpu_torch.utils.debug_nans import check_kernel_outputs
 
 MAX_BRANCHES = 4
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -133,4 +134,5 @@ def sample_cuda(feats_b, px_b: torch.Tensor, py_b: torch.Tensor,
         kernel.launch(1, ptrs, hs, ws, sy, sx, nb, c, h, w, px_b.data_ptr(),
                       py_b.data_ptr(), out.data_ptr(), b, k,
                       torch.cuda.current_stream().cuda_stream)
+    check_kernel_outputs(kernel.symbol, out)
     return out

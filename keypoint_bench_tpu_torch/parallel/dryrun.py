@@ -14,10 +14,11 @@ each asserted as the JAX dryrun asserts it:
          dense forward, scores within 1e-3;
   ba     `ba_solve_distributed` over N data ranks: its reprojection error
          at most the single-rank `ba_solve`'s + 1e-3;
+  sp     `lightglue_forward_sp` (ring attention over N data ranks) on
+         the golden LightGlue, where N divides both keypoint sets:
+         matches equal to the dense forward's, scores within 2e-3;
   vo-ba  `refine_window(mesh=...)`: refines, within 5% of the
          single-rank refinement's error, rotations within 2e-3.
-The JAX dryrun's `sp` certificate (ring attention) is not ported yet;
-one line says so.
 """
 from __future__ import annotations
 
@@ -38,6 +39,8 @@ from keypoint_bench_tpu_torch.models import get_model
 from keypoint_bench_tpu_torch.models.lightglue import lightglue_forward
 from keypoint_bench_tpu_torch.ops.detect import DetectParams
 from keypoint_bench_tpu_torch.parallel.evaluate import sharded_eval_step
+from keypoint_bench_tpu_torch.parallel.lightglue_sp import \
+    lightglue_forward_sp
 from keypoint_bench_tpu_torch.parallel.lightglue_tp import (
     lightglue_forward_tp, shard_lightglue_params)
 from keypoint_bench_tpu_torch.parallel.mesh import thread_ranks
@@ -146,14 +149,14 @@ def dryrun(n: int, device="cuda", log=print) -> dict:
     log(f"dryrun dp ok: rep={rep:.3f} err={err:.3f} ransac_inliers="
         f"{inl:.1f} over {n} warped textured pairs on {n} data ranks")
 
+    g = np.load(f"{GOLDEN_DIR}/lightglue.npz")
+    lg = load_golden_params("lightglue", dev)
+    k0, d0, k1, d1 = (torch.as_tensor(g[k][0], device=dev)
+                      for k in ("kpts0", "desc0", "kpts1", "desc1"))
+    args = (k0, torch.ones(len(k0), dtype=torch.bool, device=dev), d0,
+            k1, torch.ones(len(k1), dtype=torch.bool, device=dev), d1)
+    m0_d, ms_d, _ = lightglue_forward(lg, *args)
     if n >= 2 and n % 2 == 0:
-        g = np.load(f"{GOLDEN_DIR}/lightglue.npz")
-        lg = load_golden_params("lightglue", dev)
-        k0, d0, k1, d1 = (torch.as_tensor(g[k][0], device=dev)
-                          for k in ("kpts0", "desc0", "kpts1", "desc1"))
-        args = (k0, torch.ones(len(k0), dtype=torch.bool, device=dev), d0,
-                k1, torch.ones(len(k1), dtype=torch.bool, device=dev), d1)
-        m0_d, ms_d, _ = lightglue_forward(lg, *args)
         sp = shard_lightglue_params(lg, 2)
         m0_t, ms_t, _ = thread_ranks(
             lambda mesh: lightglue_forward_tp(mesh, sp, *args), n // 2, 2,
@@ -165,8 +168,16 @@ def dryrun(n: int, device="cuda", log=print) -> dict:
         out["tp"] = {"match_agreement": agree, "max_score_dev": max_dev}
         log(f"dryrun tp ok: heads over 2 model ranks == dense (match agree "
             f"{agree:.3f}, max score dev {max_dev:.2e})")
-    log("dryrun sp: not run: ring attention (parallel/ring_attention.py, "
-        "lightglue_sp.py) is not ported yet (ROADMAP.md)")
+    if len(k0) % n == 0 and len(k1) % n == 0:
+        m0_s, ms_s, _ = thread_ranks(
+            lambda mesh: lightglue_forward_sp(mesh, lg, *args), n,
+            device=dev)[0]
+        assert bool((m0_s == m0_d).all()), "sp != dense: matches"
+        max_dev = float((ms_s - ms_d).abs().max())
+        assert max_dev < 2e-3, f"sp != dense: score dev {max_dev}"
+        out["sp"] = {"max_score_dev": max_dev}
+        log(f"dryrun sp ok: ring attention over {n} data ranks == dense "
+            f"(max score dev {max_dev:.2e})")
 
     err_single = float(ba_solve(prob, iters=4, damping=1e-4)[3])
     assert np.isfinite(err_dist), err_dist

@@ -9,9 +9,11 @@ two axes, its device and one process group per axis. Rank r sits at data
 index r // n_model and model index r % n_model, the JAX layout
 (`np.array(devices).reshape(n_data, n_model)`).
 
-The collectives are the ones the JAX code uses: `psum` (`all_reduce`), the
-ring `ppermute` of the sequence-sharded VO (`ring_shift`) and the host
-gather of data-sharded outputs (`all_gather`), plus `broadcast_json` for
+The collectives are the ones the JAX code uses: `psum` (`all_reduce`),
+`ppermute` (the pipeline's one-way hop between the two ranks of a
+`make_stage_mesh` 'stage' axis, and `ring_shift`, the ring of the
+sequence-sharded VO and of ring attention) and the host gather of
+data-sharded outputs (`all_gather`), plus `broadcast_json` for
 what rank 0 alone reads (the resume journal). Each is a method call on a
 group object (`allreduce`, `allgather`, `broadcast`, `send` / `recv`), so
 the same code serves the groups of `dist.new_group` and the thread ranks'
@@ -32,7 +34,7 @@ import json
 import os
 import threading
 import time
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 from datetime import timedelta
 from typing import Callable
 
@@ -148,16 +150,35 @@ class Mesh:
         g = self.groups.get(axis)
         if g is None or g.size() == 1:
             return t
-        n, r = g.size(), g.rank()
+        n = g.size()
+        return self.ppermute(t, [(i, (i + 1) % n) for i in range(n)], axis,
+                             "ring_shift")
+
+    def ppermute(self, t: torch.Tensor, perm, axis: str = "data",
+                 op: str = "ppermute") -> torch.Tensor:
+        """jax.lax.ppermute on the axis: for each (src, dst) of `perm`
+        (axis ranks), rank dst gets rank src's t; a rank that no pair
+        sends to gets zeros shaped like its own t, which is also the shape
+        it receives. With the pipeline's [(0, 1)] stage 1 gets stage 0's
+        activations and stage 0 zeros. On a gloo group a CUDA t goes
+        through a host copy (`staged`); the seconds count under `op`."""
+        g = self.groups.get(axis)
+        if g is None:
+            raise ValueError(f"ppermute on axis {axis!r}, which holds this "
+                             f"rank alone")
+        r = g.rank()
+        dst = [d for s, d in perm if s == r]
+        src = [s for s, d in perm if d == r]
         buf = t.contiguous()
         host = self.backend == "gloo" and buf.is_cuda
         if host:
             self.staged.update(GLOO_HOST_OPS)
             buf = buf.cpu()
-        out = torch.empty_like(buf)
+        out = torch.zeros_like(buf)
         t0 = self._start()
-        self._wait("ring_shift", [g.send([buf], (r + 1) % n, 0),
-                                  g.recv([out], (r - 1) % n, 0)], t0)
+        works = [g.send([buf], d, 0) for d in dst]
+        works += [g.recv([out], s, 0) for s in src]
+        self._wait(op, works, t0)
         return out.to(t.device) if host else out
 
     def broadcast_json(self, obj, src: int = 0, axis: str = "world"):
@@ -179,6 +200,20 @@ class Mesh:
         t0 = self._start()
         self._wait("broadcast", [g.broadcast([buf], opts)], t0)
         return json.loads(bytes(buf.cpu().tolist()).decode())
+
+
+def make_stage_mesh(mesh: Mesh) -> "Mesh | None":
+    """Two pipeline stages, a 'stage' axis over data ranks 0 and 1 of a
+    'data'-only mesh (JAX's make_stage_mesh over the first two devices).
+    Every rank calls it; the ranks outside get None. The stage mesh
+    shares the mesh's timing, stats and staged ops."""
+    if mesh.n_data < 2:
+        raise ValueError("pipeline parallelism needs >= 2 ranks")
+    sub = mesh.subset(2)
+    if sub is None:
+        return None
+    return replace(
+        sub, groups={**sub.groups, "stage": sub.groups["data"]})
 
 
 def collective_seconds(mesh: Mesh) -> float:

@@ -31,8 +31,10 @@ refines VO's window with the distributed Schur solver
 (`ba/distributed.py`), on the ranks of the Evaluator's mesh: the process
 group's (`python -m keypoint_bench_tpu_torch.cli` under `torchrun`), or
 one rank. Rank 0 alone writes progress.jsonl, results.json, images and
-the trajectory; every rank returns the same results. debug_nans raises
-NotImplementedError (ROADMAP.md).
+the trajectory; every rank returns the same results. `debug_nans: true`
+runs the task under `utils.debug_nans.DebugNans`: the first operation or
+kernel whose output holds a NaN raises FloatingPointError, as
+`jax.debug_nans` makes the JAX runner raise.
 
 `resume: true` re-enters a run from its `progress.jsonl` journal
 (`MetricLog`) on the paths the JAX runner journals: per-pair
@@ -45,6 +47,7 @@ so the RANSAC draws of the pairs after the cut differ from an uncut run's
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import warnings
@@ -82,6 +85,7 @@ from keypoint_bench_tpu_torch.tasks.mha import mha_pair
 from keypoint_bench_tpu_torch.tasks.repeatability import repeatability_pair
 from keypoint_bench_tpu_torch.tasks.vo import (chain_poses, vo_pair_pose,
                                                write_kitti_trajectory)
+from keypoint_bench_tpu_torch.utils.debug_nans import DebugNans
 from keypoint_bench_tpu_torch.weights import load_params
 from keypoint_bench_tpu_torch.weights.io import check_precision
 
@@ -251,12 +255,6 @@ def _plot_image(img) -> np.ndarray:
     return img.astype(np.float32)
 
 
-def _not_ported(what: str):
-    return NotImplementedError(
-        f"{what} is not ported to keypoint_bench_tpu_torch yet (ROADMAP.md, "
-        f"Queue 1); run it with keypoint_bench_tpu")
-
-
 class Evaluator:
     def __init__(self, cfg: EvalConfig, device: str | torch.device = "cuda",
                  mesh: Mesh | None = None):
@@ -270,8 +268,6 @@ class Evaluator:
             raise ValueError("the Evaluator runs on a 'data'-only mesh")
         self.writes = self.mesh.rank == 0    # files and prints: rank 0
         check_precision(cfg.precision)
-        if cfg.debug_nans:
-            raise _not_ported("debug_nans")
         if cfg.model_type in _PARAM_MODELS:
             self.params = dict(cfg.model_params or {})
         else:
@@ -298,7 +294,11 @@ class Evaluator:
         mp = cfg.matcher_params
         self.matcher_type = mp.get("type", "brute_force")
         if self.matcher_type not in _MATCHERS:
-            raise _not_ported(f"matcher {self.matcher_type!r}")
+            # the JAX runner matches by brute force under any other label;
+            # the port names the ones it knows instead
+            raise ValueError(f"unknown matcher_params.type "
+                             f"{self.matcher_type!r}; known: "
+                             f"{', '.join(_MATCHERS)}")
         self.bf_max_distance = float(mp.get("brute_force_params", {}).get(
             "max_distance", 5.0))
         of = mp.get("optical_flow_params", {})
@@ -409,7 +409,8 @@ class Evaluator:
               }.get(task)
         if fn is None:
             raise ValueError(f"unknown task_type {task!r}")
-        results = fn(ds)
+        with DebugNans() if self.cfg.debug_nans else contextlib.nullcontext():
+            results = fn(ds)
         if self.matcher_fallback is not None:
             results["matcher_fallback"] = self.matcher_fallback
         if self.writes:

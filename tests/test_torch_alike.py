@@ -22,6 +22,17 @@ from keypoint_bench_tpu_torch.models.alike import Alike
 from keypoint_bench_tpu_torch.weights import (load_npz, load_params,
                                               params_from_jax)
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Many small ops a test, which torch's intra-op threads slow down
+    where the test workers share the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden",
                       "Alike.npz")
 

@@ -17,6 +17,16 @@ from keypoint_bench_tpu_torch.ops import _build, cuda_attention
 from keypoint_bench_tpu_torch.ops.attention import fused_attention
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Many small ops a test, which torch's intra-op threads slow down
+    where the test workers share the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _case(h, n, m, dh, seed, valid="mixed"):
     rng = np.random.default_rng(seed)
     q, k, v = (rng.normal(0, 1, (h, r, dh)).astype(np.float32)

@@ -61,6 +61,17 @@ from keypoint_bench_tpu_torch.weights import (lightglue_input_proj_params,
                                               stage_golden_weights)
 from keypoint_bench_tpu_torch.weights.io import golden_npz
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Many small ops a test, which torch's intra-op threads slow down
+    where the test workers share the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 F_PX, C_PX = 230.4, 128.0       # SyntheticSE3Dataset's intrinsics at 256^2
 K = np.array([[F_PX, 0, C_PX], [0, F_PX, C_PX], [0, 0, 1]], np.float32)
 
@@ -473,28 +484,28 @@ def test_xfeat_light_glue_falls_back_only_when_asked(tmp_path, weights):
     assert len(res["per_pair_error"]) == 1
 
 
-@pytest.mark.parametrize("change,exc,what", [
-    ({"task_params": {"solver": "7pt"}}, ValueError, "unknown solver"),
-    ({"data_params": {"type": "synthetic_se3", "num_pairs": 2,
-                      "image_size": 64, "batch_size": 2}},
-     NotImplementedError, "sharded batch AUC"),
-    ({"task_params": {"save_images": True}}, NotImplementedError,
-     "save_images")])
-def test_auc_runner_raises(tmp_path, change, exc, what):
-    cfg = {**_auc_cfg(tmp_path, size=64, pairs=1), **change}
-    if what == "sharded batch AUC":
-        # ported since: brute force at batch_size 2 runs the data-parallel
-        # batch path (tests/test_torch_parallel_runner.py holds it)
-        res = Evaluator(EvalConfig(**cfg), "cpu").run()
-        assert len(res["per_pair_error"]) == 2
-        return
-    if what == "save_images":
-        # ported since: the run writes the JAX runner's match overlay of
-        # its pair (its pixels against the JAX runner's:
-        # tests/test_torch_visualization.py)
+def test_auc_runner_raises_on_an_unknown_solver(tmp_path):
+    cfg = {**_auc_cfg(tmp_path, size=64, pairs=1),
+           "task_params": {"solver": "7pt"}}
+    with pytest.raises(ValueError, match="unknown solver"):
         Evaluator(EvalConfig(**cfg), "cpu").run()
-        assert [p.name for p in tmp_path.glob("*.png")] == [
-            "auc_matches_0.png"]
-        return
-    with pytest.raises(exc, match=what):
-        Evaluator(EvalConfig(**cfg), "cpu").run()
+
+
+def test_auc_batch_size_runs_the_batch_path(tmp_path):
+    """Brute force at batch_size 2 runs the data-parallel batch path
+    (tests/test_torch_parallel_runner.py holds it against the JAX
+    runner)."""
+    cfg = {**_auc_cfg(tmp_path, size=64, pairs=1),
+           "data_params": {"type": "synthetic_se3", "num_pairs": 2,
+                           "image_size": 64, "batch_size": 2}}
+    res = Evaluator(EvalConfig(**cfg), "cpu").run()
+    assert len(res["per_pair_error"]) == 2
+
+
+def test_save_images_writes_the_auc_match_overlay(tmp_path):
+    """The run writes the JAX runner's match overlay of its pair (its
+    pixels against the JAX runner's: tests/test_torch_visualization.py)."""
+    cfg = {**_auc_cfg(tmp_path, size=64, pairs=1),
+           "task_params": {"save_images": True}}
+    Evaluator(EvalConfig(**cfg), "cpu").run()
+    assert [p.name for p in tmp_path.glob("*.png")] == ["auc_matches_0.png"]

@@ -48,6 +48,17 @@ from keypoint_bench_tpu_torch.datasets.synthetic import (
     SyntheticSplatSequenceDataset, rodrigues)
 from keypoint_bench_tpu_torch.tasks import vo_ba as tvb
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Many small ops a test, which torch's intra-op threads slow down
+    where the test workers share the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 K = np.array([[400.0, 0, 320], [0, 400.0, 240], [0, 0, 1]], np.float32)
 gauge_gap = runpy.run_path(
     os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),

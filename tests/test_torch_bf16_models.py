@@ -37,6 +37,17 @@ from keypoint_bench_tpu_torch.models.common import cast_params_bf16
 from keypoint_bench_tpu_torch.weights import load_params, params_from_jax
 from keypoint_bench_tpu_torch.weights.io import golden_npz
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Many small ops a test, which torch's intra-op threads slow down
+    where the test workers share the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 GOLDEN_PARAMS = ("SuperPoint", "XFeat", "DISK", "sfd2", "D2Net")
 # (cap ulps, share beyond 4 ulps) of the score and of the descriptor map;
 # seen at 64^2 / 96x128 in the comments (max ulps, share beyond 4)

@@ -54,6 +54,17 @@ from keypoint_bench_tpu_torch.weights import (lightglue_input_proj_params,
                                               stage_golden_weights)
 from keypoint_bench_tpu_torch.weights.io import golden_npz
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Many small ops a test, which torch's intra-op threads slow down
+    where the test workers share the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 S = 128
 BF = "bfloat16"
 JACCARD = 0.7

@@ -37,6 +37,17 @@ from keypoint_bench_tpu_torch.pipeline import lk_fundamental_step
 from keypoint_bench_tpu_torch.runner import EvalConfig, Evaluator
 from keypoint_bench_tpu_torch.weights import load_params
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Many small ops a test, which torch's intra-op threads slow down
+    where the test workers share the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 S = 128
 EP = {"nms_dist": 4, "threshold": 0, "border_dist": 8, "top_k": 120,
       "min_score": 0.0}
@@ -221,34 +232,43 @@ def test_cli_runs_fund_synthetic_config_on_cpu(tmp_path, capsys):
     assert 0.0 <= json.loads(line)["fundamental_radio"] <= 1.0
 
 
-@pytest.mark.parametrize("change,what", [
-    ({"task_params": {"save_images": True}}, "save_images"),
-    ({"task_type": "visual_odometer",
-      "matcher_params": {"type": "brute_force"},
-      "task_params": {"pipelined": True, "ba_refine": True,
-                      "ba_distributed": True}}, "visual_odometer"),
-    ({"debug_nans": True}, "debug_nans")])
-def test_unported_parts_raise(tmp_path, change, what):
-    cfg = {**_cfg(tmp_path), **change}
-    if what == "visual_odometer":
-        # ported since: ba_distributed refines the window with the
-        # distributed Schur solver over the Evaluator's ranks (one here;
-        # tests/test_torch_parallel_ba.py holds it on 2 and against JAX)
-        res = Evaluator(EvalConfig(**cfg), "cpu").run()
-        assert res["num_frames"] == 4
-        assert (tmp_path / "trajectory.txt").exists()
-        return
-    if what == "save_images":
-        # ported since: the per-pair run writes the JAX runner's match and
-        # epipolar overlays of its 4 frame pairs (their pixels against the
-        # JAX runner's: tests/test_torch_visualization.py)
-        Evaluator(EvalConfig(**cfg), "cpu").run()
-        assert sorted(p.name for p in tmp_path.glob("*.png")) == sorted(
-            f"fund_{k}_{i}.png" for k in ("matches", "epipolar")
-            for i in range(4))
-        return
-    with pytest.raises(NotImplementedError, match=what):
-        Evaluator(EvalConfig(**cfg), "cpu").run()
+def _assert_same_results(got, want):
+    assert sorted(got) == sorted(want)
+    for k in want:
+        np.testing.assert_equal(got[k], want[k], k)
+
+
+def test_save_images_writes_the_fundamental_overlays(tmp_path):
+    """The per-pair run writes the JAX runner's match and epipolar
+    overlays of its 4 frame pairs (their pixels against the JAX runner's:
+    tests/test_torch_visualization.py)."""
+    cfg = {**_cfg(tmp_path), "task_params": {"save_images": True}}
+    Evaluator(EvalConfig(**cfg), "cpu").run()
+    assert sorted(p.name for p in tmp_path.glob("*.png")) == sorted(
+        f"fund_{k}_{i}.png" for k in ("matches", "epipolar")
+        for i in range(4))
+
+
+def test_ba_distributed_refines_the_window_on_one_rank(tmp_path):
+    """ba_distributed refines the window with the distributed Schur
+    solver over the Evaluator's ranks (one here;
+    tests/test_torch_parallel_ba.py holds it on 2 and against JAX)."""
+    cfg = {**_cfg(tmp_path), "task_type": "visual_odometer",
+           "matcher_params": {"type": "brute_force"},
+           "task_params": {"pipelined": True, "ba_refine": True,
+                           "ba_distributed": True}}
+    res = Evaluator(EvalConfig(**cfg), "cpu").run()
+    assert res["num_frames"] == 4
+    assert (tmp_path / "trajectory.txt").exists()
+
+
+def test_debug_nans_run_equals_the_plain_run(tmp_path):
+    """debug_nans checks every operation for NaN and leaves the results
+    as they are (tests/test_torch_debug_nans.py holds it against the JAX
+    runner's jax.debug_nans on every task type)."""
+    plain = Evaluator(EvalConfig(**_cfg(tmp_path)), "cpu").run()
+    cfg = {**_cfg(tmp_path), "debug_nans": True}
+    _assert_same_results(Evaluator(EvalConfig(**cfg), "cpu").run(), plain)
 
 
 def test_desc_map_flow_sources_raise_and_pipelined_matchers(tmp_path):

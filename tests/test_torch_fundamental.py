@@ -37,6 +37,17 @@ from keypoint_bench_tpu_torch.geometry import ransac as tr
 from keypoint_bench_tpu_torch.geometry import se3 as tse3
 from keypoint_bench_tpu_torch.tasks import fundamental as tf
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Many small ops a test, which torch's intra-op threads slow down
+    where the test workers share the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 S = 256.0
 K = np.array([[230.0, 0, S / 2], [0, 230.0, S / 2], [0, 0, 1]])
 

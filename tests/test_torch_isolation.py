@@ -82,7 +82,9 @@ def _default_device_calls(tmp_path):
     from keypoint_bench_tpu_torch.models import get_model
     from keypoint_bench_tpu_torch.ops.detect import DetectParams
     from keypoint_bench_tpu_torch.ops.lk import LKParams
-    from keypoint_bench_tpu_torch import sweep
+    from keypoint_bench_tpu_torch import info, sweep
+    from keypoint_bench_tpu_torch.utils.export import export_model
+    from keypoint_bench_tpu_torch.utils.profiling import model_cost
     from keypoint_bench_tpu_torch.pipeline import (dense_detect,
                                                    dense_extract_match,
                                                    extract_match,
@@ -133,6 +135,10 @@ def _default_device_calls(tmp_path):
             get_model("Harris")({}), imgs, DetectParams()),
         "run_sweep": lambda: sweep.run_sweep(cfg, ["Harris", "DISK"]),
         "sweep_cli": lambda: sweep.main(["-c", str(sweep_path)]),
+        "info": lambda: info.main(["LETNet", "--size", "64"]),
+        "export_model": lambda: export_model(
+            "LETNet", str(tmp_path / "m.pt2"), (1, 64, 64, 3)),
+        "model_cost": lambda: model_cost("LETNet", (1, 64, 64, 3)),
     }
 
 
@@ -140,7 +146,8 @@ def _default_device_calls(tmp_path):
                                    "lk_fundamental_step", "xfeat_auc_step",
                                    "vo_step", "refine_window", "Evaluator",
                                    "cli", "dense_extract_match",
-                                   "dense_detect", "run_sweep", "sweep_cli"])
+                                   "dense_detect", "run_sweep", "sweep_cli",
+                                   "info", "export_model", "model_cost"])
 def test_default_device_raises_without_cuda(tmp_path, entry):
     if torch.cuda.is_available():
         pytest.skip("this host has CUDA")

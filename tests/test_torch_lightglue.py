@@ -26,6 +26,16 @@ from keypoint_bench_tpu_torch.weights import load_golden_params
 from keypoint_bench_tpu_torch.weights.io import GOLDEN_DIR, golden_npz
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Many small ops a test, which torch's intra-op threads slow down
+    where the test workers share the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def golden():
     return np.load(f"{GOLDEN_DIR}/lightglue.npz")

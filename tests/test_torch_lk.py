@@ -24,6 +24,16 @@ from keypoint_bench_tpu_torch.ops import lk as tlk
 from keypoint_bench_tpu_torch.ops.cuda_lk import lk_level, lk_level_cuda
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Many small ops a test, which torch's intra-op threads slow down
+    where the test workers share the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _textured(h, w, seed, c=3):
     rng = np.random.default_rng(seed)
     base = rng.random((h // 4, w // 4, c)).astype(np.float32)

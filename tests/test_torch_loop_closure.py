@@ -31,6 +31,16 @@ from test_loop_closure import (_ate, _geometric_loop_fixture, _loop_frames,
                                _noisy_odometry)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Many small ops a test, which torch's intra-op threads slow down
+    where the test workers share the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _jax_draws(seed=0, n_hyp=1024):
     """draw_samples as JAX's detect_loop_closures_scaled draws them: one
     split of its key per candidate, in pair order."""

@@ -13,6 +13,16 @@ from keypoint_bench_tpu.ops import matching as jm
 from keypoint_bench_tpu_torch.ops import matching as tm
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Many small ops a test, which torch's intra-op threads slow down
+    where the test workers share the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _case(kind, seed):
     rng = np.random.default_rng(seed)
     m, n, d = 40, 50, 8

@@ -8,10 +8,11 @@ different random streams on the two sides, so the MHA hits are compared
 in tests/test_torch_ransac_mha.py on shared samples; here they must be
 well-formed. The batched `superpoint_mha_step` must give the runner's
 per-pair matches. Also the JAX runner's error semantics for LightGlue
-without weights, and the parts that raise NotImplementedError (the AUC
-case is the sharded batch AUC path: brute force at batch_size 2);
-LightGlue with data_params.batch_size > 1 runs the per-pair loop, as in
-the JAX runner.
+without weights; what the runner's options do on this config
+(save_images, ba_distributed, brute force at batch_size 2 on MHA and
+AUC, debug_nans); an unknown matcher, which the port refuses where the
+JAX runner runs brute force; and LightGlue with data_params.batch_size >
+1, which runs the per-pair loop, as in the JAX runner.
 """
 import json
 
@@ -29,6 +30,17 @@ from keypoint_bench_tpu_torch.ops.detect import DetectParams
 from keypoint_bench_tpu_torch.pipeline import superpoint_mha_step
 from keypoint_bench_tpu_torch.runner import EvalConfig, Evaluator
 from keypoint_bench_tpu_torch.weights import load_npz, stage_golden_weights
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Many small ops a test, which torch's intra-op threads slow down
+    where the test workers share the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 
 S = 128
 EP = {"nms_dist": 4, "threshold": 0, "border_dist": 8, "top_k": 150,
@@ -174,46 +186,65 @@ def test_lightglue_without_weights_raises_or_falls_back(tmp_path):
         Evaluator.__new__(Evaluator)._init_matcher(EvalConfig(**cfg))
 
 
-@pytest.mark.parametrize("change,what", [
-    ({"task_params": {"save_images": True}}, "save_images"),
-    ({"task_type": "visual_odometer",
-      "matcher_params": {"type": "brute_force"},
-      "task_params": {"pipelined": True, "ba_refine": True,
-                      "ba_distributed": True}}, "visual_odometer"),
-    ({"data_params": {"type": "synthetic_homography", "num_pairs": 2,
-                      "image_size": S, "batch_size": 2}}, "sharded"),
-    ({"task_type": "AUC",
-      "data_params": {"type": "synthetic_se3", "num_pairs": 2,
-                      "image_size": S, "batch_size": 2}}, "AUC"),
-    ({"debug_nans": True}, "debug_nans")])
-def test_unported_parts_raise(weights, tmp_path, change, what):
-    cfg = {**_cfg(weights, tmp_path), **change}
-    if what == "visual_odometer":
-        # ported since: ba_distributed refines the window with the
-        # distributed Schur solver over the Evaluator's ranks (one here;
-        # tests/test_torch_parallel_ba.py holds it on 2 and against JAX)
-        cfg["data_params"] = {"type": "synthetic_splat_sequence",
-                              "num_frames": 3, "image_size": S}
-        res = Evaluator(EvalConfig(**cfg), "cpu").run()
-        assert res["num_frames"] == 3 and len(res["R_est"]) == 4
-        return
-    if what in ("sharded", "AUC"):
-        # ported since: brute force at batch_size 2 runs the data-parallel
-        # batch path (tests/test_torch_parallel_runner.py holds it)
-        res = Evaluator(EvalConfig(**cfg), "cpu").run()
-        key = "per_pair" if what == "sharded" else "per_pair_error"
-        assert len(res[key]) == 2
-        return
-    if what == "save_images":
-        # ported since: the run writes the JAX runner's match overlay of
-        # each pair (its pixels against the JAX runner's:
-        # tests/test_torch_visualization.py)
-        Evaluator(EvalConfig(**cfg), "cpu").run()
-        assert sorted(p.name for p in tmp_path.glob("*.png")) == [
-            "mha_matches_0.png", "mha_matches_1.png"]
-        return
-    with pytest.raises(NotImplementedError, match=what):
-        Evaluator(EvalConfig(**cfg), "cpu").run()
+def test_save_images_writes_the_match_overlays(weights, tmp_path):
+    """The run writes the JAX runner's match overlay of each pair (their
+    pixels against the JAX runner's: tests/test_torch_visualization.py)."""
+    cfg = {**_cfg(weights, tmp_path), "task_params": {"save_images": True}}
+    Evaluator(EvalConfig(**cfg), "cpu").run()
+    assert sorted(p.name for p in tmp_path.glob("*.png")) == [
+        "mha_matches_0.png", "mha_matches_1.png"]
+
+
+def test_ba_distributed_refines_the_window_on_one_rank(weights, tmp_path):
+    """ba_distributed refines the window with the distributed Schur
+    solver over the Evaluator's ranks (one here;
+    tests/test_torch_parallel_ba.py holds it on 2 and against JAX)."""
+    cfg = {**_cfg(weights, tmp_path), "task_type": "visual_odometer",
+           "matcher_params": {"type": "brute_force"},
+           "task_params": {"pipelined": True, "ba_refine": True,
+                           "ba_distributed": True},
+           "data_params": {"type": "synthetic_splat_sequence",
+                           "num_frames": 3, "image_size": S}}
+    res = Evaluator(EvalConfig(**cfg), "cpu").run()
+    assert res["num_frames"] == 3 and len(res["R_est"]) == 4
+
+
+@pytest.mark.parametrize("task,key", [("MHA", "per_pair"),
+                                      ("AUC", "per_pair_error")])
+def test_brute_force_batch_size_runs_the_batch_path(weights, tmp_path, task,
+                                                    key):
+    """Brute force at batch_size 2 runs the data-parallel batch path
+    (tests/test_torch_parallel_runner.py holds it against the JAX
+    runner)."""
+    data = "synthetic_homography" if task == "MHA" else "synthetic_se3"
+    cfg = {**_cfg(weights, tmp_path), "task_type": task,
+           "data_params": {"type": data, "num_pairs": 2, "image_size": S,
+                           "batch_size": 2}}
+    assert len(Evaluator(EvalConfig(**cfg), "cpu").run()[key]) == 2
+
+
+def test_debug_nans_run_equals_the_plain_run(weights, tmp_path):
+    """debug_nans checks every operation for NaN and leaves the results
+    as they are (tests/test_torch_debug_nans.py holds it against the JAX
+    runner's jax.debug_nans on every task type)."""
+    plain = Evaluator(EvalConfig(**_cfg(weights, tmp_path)), "cpu").run()
+    cfg = {**_cfg(weights, tmp_path), "debug_nans": True}
+    assert Evaluator(EvalConfig(**cfg), "cpu").run() == plain
+
+
+def test_unknown_matcher_raises_where_jax_runs_brute_force(weights,
+                                                           tmp_path):
+    """The JAX runner matches by brute force under any matcher label it
+    does not know; the port raises ValueError naming the four it knows."""
+    ds = get_dataset(_cfg(weights, tmp_path)["data_params"])
+    jax_runs = [_pair_matches(JaxEvaluator(JaxEvalConfig(
+        **_cfg(weights, tmp_path, m))), ds[0], np.asarray)
+        for m in ("superglue", "brute_force")]
+    for a, b in zip(*jax_runs):
+        np.testing.assert_array_equal(a, b)
+    with pytest.raises(ValueError, match="brute_force, light_glue, "
+                       "optical_flow, optical_flow_cv"):
+        Evaluator(EvalConfig(**_cfg(weights, tmp_path, "superglue")), "cpu")
 
 
 def test_light_glue_batch_size_runs_per_pair_loop(weights, tmp_path):

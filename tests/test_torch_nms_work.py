@@ -21,6 +21,17 @@ import torch.nn.functional as F
 from keypoint_bench_tpu.ops import detect as jd
 from keypoint_bench_tpu_torch.ops import detect as td
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Many small ops a test, which torch's intra-op threads slow down
+    where the test workers share the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 

@@ -33,6 +33,17 @@ from keypoint_bench_tpu_torch.parallel import evaluate as tev
 from keypoint_bench_tpu_torch.parallel.mesh import Mesh, thread_ranks
 from keypoint_bench_tpu_torch.weights import load_params
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Many small ops a test, which torch's intra-op threads slow down
+    where the test workers share the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 B, S = 8, 64
 DP = dict(nms_dist=4, border_dist=4, top_k=64, max_nms_iter=8)
 
@@ -207,11 +218,12 @@ def test_shard_takes_the_rank_block():
 
 def test_dryrun_certificates():
     """The port's counterpart of __graft_entry__.py's dryrun on 4 ranks:
-    the dp, tp, ba and vo-ba certificates hold (the JAX dryrun's numbers
-    on 8 devices: MULTICHIP_r05.json)."""
+    the dp, tp, sp, ba and vo-ba certificates hold (the JAX dryrun's
+    numbers on 8 devices: MULTICHIP_r05.json)."""
     from keypoint_bench_tpu_torch.parallel.dryrun import dryrun
     lines = []
     out = dryrun(4, "cpu", log=lines.append)
-    assert sorted(out) == ["ba", "dp", "tp", "vo-ba"]
+    assert sorted(out) == ["ba", "dp", "sp", "tp", "vo-ba"]
     assert out["dp"]["repeatability"] > 0.5
-    assert any("sp: not run" in ln for ln in lines)
+    assert out["sp"]["max_score_dev"] < 2e-3
+    assert any(ln.startswith("dryrun sp ok") for ln in lines)

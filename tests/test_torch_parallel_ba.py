@@ -45,6 +45,16 @@ from tests.test_torch_ba import (KINDS, _assert_same_solution, _both,
                                  _splat_window, make_problem)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Many small ops a test, which torch's intra-op threads slow down
+    where the test workers share the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _solution(prob, R, t, pts):
     return (np.asarray(R), np.asarray(t), np.asarray(pts))
 

@@ -37,6 +37,17 @@ from keypoint_bench_tpu_torch.parallel.mesh import thread_ranks
 from keypoint_bench_tpu_torch.runner import EvalConfig, Evaluator
 from keypoint_bench_tpu_torch.tasks import auc as ta
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Many small ops a test, which torch's intra-op threads slow down
+    where the test workers share the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 N, BATCH, S = 7, 4, 64
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

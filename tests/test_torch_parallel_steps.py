@@ -40,6 +40,16 @@ from keypoint_bench_tpu_torch.parallel.mesh import thread_ranks
 from keypoint_bench_tpu_torch.weights import load_params
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Many small ops a test, which torch's intra-op threads slow down
+    where the test workers share the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture
 def highest():
     set_conv_precision(jax.lax.Precision.HIGHEST)

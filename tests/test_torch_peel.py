@@ -19,6 +19,16 @@ from keypoint_bench_tpu_torch.ops import cuda_nms
 from keypoint_bench_tpu_torch.ops import detect as td
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Many small ops a test, which torch's intra-op threads slow down
+    where the test workers share the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _maps(kind, shape, seed):
     rng = np.random.default_rng(seed)
     base = rng.random(shape).astype(np.float32)

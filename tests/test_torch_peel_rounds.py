@@ -33,6 +33,17 @@ from jax.experimental import pallas as pl
 from keypoint_bench_tpu.ops.pallas_nms import _peel_kernel
 from keypoint_bench_tpu_torch.ops import detect as td
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Many small ops a test, which torch's intra-op threads slow down
+    where the test workers share the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CHUNK, GROUP = 128, 4
 SIGN = 0x80000000

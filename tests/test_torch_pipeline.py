@@ -32,6 +32,17 @@ from keypoint_bench_tpu_torch.pipeline import extract_match
 from keypoint_bench_tpu_torch.runner import EvalConfig, Evaluator
 from keypoint_bench_tpu_torch.weights import load_params
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Many small ops a test, which torch's intra-op threads slow down
+    where the test workers share the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 S = 128
 
 
@@ -131,23 +142,14 @@ def test_runner_normalizes_uint8(tmp_path):
     np.testing.assert_array_equal(v8.numpy(), vf.numpy())
 
 
-@pytest.mark.parametrize("field,value,extra", [
-    # the five-point solver this case raised for is ported
-    # (tests/test_torch_fivepoint.py), and so are the plots
-    pytest.param("task_params", {"save_images": True}, {},
-                 id="task_params-save_images")])
-def test_unported_options_raise(tmp_path, field, value, extra):
-    cfg = {**_config(tmp_path, "x"), field: value, **extra}
-    if value == {"save_images": True}:
-        # the run writes the JAX runner's keypoint overlays of both sides
-        # of its 2 pairs (their pixels against the JAX runner's:
-        # tests/test_torch_visualization.py)
-        Evaluator(EvalConfig.from_dict(cfg), device="cpu").run()
-        assert sorted(p.name for p in (tmp_path / "x").glob("*.png")) == [
-            f"{i}_repeatability_{s}.png" for i in (0, 1) for s in (0, 1)]
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Evaluator(EvalConfig.from_dict(cfg), device="cpu").run()
+def test_save_images_writes_the_keypoint_overlays(tmp_path):
+    """The run writes the JAX runner's keypoint overlays of both sides of
+    its 2 pairs (their pixels against the JAX runner's:
+    tests/test_torch_visualization.py)."""
+    cfg = {**_config(tmp_path, "x"), "task_params": {"save_images": True}}
+    Evaluator(EvalConfig.from_dict(cfg), device="cpu").run()
+    assert sorted(p.name for p in (tmp_path / "x").glob("*.png")) == [
+        f"{i}_repeatability_{s}.png" for i in (0, 1) for s in (0, 1)]
 
 
 def test_extract_match_accepts_uint8(highest):

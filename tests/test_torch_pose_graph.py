@@ -19,6 +19,16 @@ from keypoint_bench_tpu_torch.ba import pose_graph as tpg
 from test_pose_graph import _make_circle_graph
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Many small ops a test, which torch's intra-op threads slow down
+    where the test workers share the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _torch_graph(g, dtype=torch.float32):
     def t(x, dt=dtype):
         return torch.tensor(np.asarray(x), dtype=dt)

@@ -18,6 +18,17 @@ from keypoint_bench_tpu.tasks.mha import mha_pair as jax_mha_pair
 from keypoint_bench_tpu_torch.geometry import ransac as tr
 from keypoint_bench_tpu_torch.tasks.mha import mha_pair
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Many small ops a test, which torch's intra-op threads slow down
+    where the test workers share the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 S = 256.0
 
 

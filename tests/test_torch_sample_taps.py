@@ -26,6 +26,17 @@ from keypoint_bench_tpu.ops import sparse_desc as jsd
 from keypoint_bench_tpu_torch.ops import cuda_sample
 from keypoint_bench_tpu_torch.ops import sparse_desc as tsd
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Many small ops a test, which torch's intra-op threads slow down
+    where the test workers share the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 # (full resolution, branch sizes) of ALIKE at a 512^2, a 96^2 (last branch
 # 3 x 3) and a 64^2 (last branch 2 x 2) image
 IMAGES = {512: (512, 256, 64, 16), 96: (96, 48, 12, 3), 64: (64, 32, 8, 2)}

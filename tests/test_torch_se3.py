@@ -24,6 +24,17 @@ from keypoint_bench_tpu_torch.datasets import get_dataset
 from keypoint_bench_tpu_torch.datasets import synthetic as tsyn
 from keypoint_bench_tpu_torch.geometry import warp as tw
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Many small ops a test, which torch's intra-op threads slow down
+    where the test workers share the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 S = 128
 
 

@@ -23,6 +23,17 @@ from keypoint_bench_tpu.weights import load_params as jax_load_params
 from keypoint_bench_tpu_torch.ops import sparse_desc as tsd
 from keypoint_bench_tpu_torch.weights import load_npz, params_from_jax
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Many small ops a test, which torch's intra-op threads slow down
+    where the test workers share the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 H, W = 128, 160
 SHAPES = [(128, 160), (64, 80), (16, 20), (4, 5)]
 

@@ -18,6 +18,7 @@ import os
 import jax
 import numpy as np
 import pytest
+import torch
 
 from keypoint_bench_tpu.models.common import set_conv_precision
 from keypoint_bench_tpu.runner import EvalConfig as JaxEvalConfig
@@ -25,6 +26,17 @@ from keypoint_bench_tpu.runner import Evaluator as JaxEvaluator
 from keypoint_bench_tpu.utils import visualization as jv
 from keypoint_bench_tpu_torch.runner import EvalConfig, Evaluator
 from keypoint_bench_tpu_torch.utils import visualization as tv
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Many small ops a test, which torch's intra-op threads slow down
+    where the test workers share the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 
 cv2 = pytest.importorskip("cv2")
 

@@ -45,6 +45,16 @@ from keypoint_bench_tpu_torch.tasks import vo as tvo
 from keypoint_bench_tpu_torch.tasks.vo_ba import chain_w2c
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Many small ops a test, which torch's intra-op threads slow down
+    where the test workers share the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _similar(seed):
     rng = np.random.default_rng(seed)
     gt = rng.normal(0, 2, (30, 3))

@@ -47,6 +47,17 @@ from keypoint_bench_tpu_torch.runner import EvalConfig, Evaluator
 from keypoint_bench_tpu_torch.tasks.trajectory import ate_rmse
 from keypoint_bench_tpu_torch.weights import load_params
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Many small ops a test, which torch's intra-op threads slow down
+    where the test workers share the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 S = 256
 EP = {"nms_dist": 4, "threshold": 0, "border_dist": 8, "top_k": 300,
       "min_score": 0.0}
