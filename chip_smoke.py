@@ -406,6 +406,34 @@ The last modules of the JAX package (`sp_pp_phases`, after phase 56):
  61. the runner with debug_nans on configs/repeatability_synthetic.yaml
      and on 4 MHA pairs (SuperPoint + light_glue): equal to the runs
      without it; a NaN planted in one pixel raises FloatingPointError.
+The last entry points (`convert_demo_phases`, after phase 61):
+ 62. the reference's checkpoints of every SPECS entry, written from the
+     repository's parameters in the upstream layout and nesting (one a
+     git-LFS pointer, one absent), converted by the port's converter on
+     this machine, which has no JAX: each npz bit-equal to its source,
+     the skipped list the pointer's and the absent name, no JAX module
+     loaded; the seconds printed;
+ 63. DISK + LightGlue MHA through the runner from phase 62's converted
+     weights (DISK 128-d, the 128 -> 256 input_proj, d = 256, 4 heads, 9
+     layers) on a synthetic HPatches tree at 512^2 (6 pairs), top_k 1000,
+     at fixed depth and adaptive: no fallback; per pair the keypoints
+     equal to the plain twin's, and LightGlue on the runner's inputs held
+     against a float64 witness on the host (`lightglue_witness`): the
+     randomized weights' scores of thousands carry float32 rounding from
+     ~2e-5 of the largest score at depth 1 to ~0.3 at depth 9, so the card
+     must be as close to float64 as its plain twin at depths 1, 2 and 9
+     and at every adaptive decision, and card and plain twin may part
+     (matches, or a stop or prune decision) only where float64 shows the
+     decision within their measured error; the matches of the pairs that
+     do not part equal the plain twin's, their MHA too; some match at
+     depth 2; kernel E on each call no further from the float64 softmax
+     than 4x the plain twin + 1e-5 max(1, |v|); 18 launches a pair at
+     fixed depth; E's launches a pair, ms a pair, E's time at this shape
+     (CUDA events) beside its bound and SDPA's time;
+ 64. `python -m keypoint_bench_tpu_torch.demo`'s `run` (Alike at 512^2:
+     A twice, D, RANSAC-H) against its plain twin: keypoint and match
+     counts equal, PNGs byte-equal, both homographies' corners within 3
+     px of the ground truth's; timed.
 Exits non-zero without CUDA, or without the port's package beside it.
 """
 from __future__ import annotations
@@ -2917,20 +2945,12 @@ def kitti_tree(root, frames=None, hw=None, seed=0, step=(0.3, 0.02, 0.1)):
     return seq + "/", gt
 
 
-def rotmat_to_quat(R):
-    """(x, y, z, w) of a rotation matrix with trace > -1."""
-    import numpy as np
-    w = np.sqrt(max(1.0 + R[0, 0] + R[1, 1] + R[2, 2], 0.0)) / 2
-    return np.array([(R[2, 1] - R[1, 2]) / (4 * w),
-                     (R[0, 2] - R[2, 0]) / (4 * w),
-                     (R[1, 0] - R[0, 1]) / (4 * w), w])
-
-
 def tartanair_tree(root, frames=None, hw=None, seed=0):
     """TartanAir mono's layout: <root>/mono/ME000/NNNNNN.png (RGB) and
     <root>/mono_gt/ME000.txt (x y z qx qy qz qw, world-from-cam). Returns
     (image path with its trailing '/', ground-truth file)."""
     import numpy as np
+    from keypoint_bench_tpu_torch.geometry.se3 import rotmat_to_quat
     frames, hw = frames or TARTAN_FRAMES, hw or TARTAN_HW
     seq = os.path.join(root, "mono", "ME000")
     os.makedirs(seq, exist_ok=True)
@@ -3026,6 +3046,7 @@ def euroc_tree(root, frames=None, hw=None, seed=0):
     """EuRoC MAV's layout: cam0 / cam1 data.csv and PNGs, the ground-truth
     CSV and an IMU CSV. Returns the root with its trailing '/'."""
     import numpy as np
+    from keypoint_bench_tpu_torch.geometry.se3 import rotmat_to_quat
     frames, hw = frames or EUROC_FRAMES, hw or EUROC_HW
     K = ((435.2046959714599, 0.0, 367.4517211914062),
          (0.0, 435.2046959714599, 252.2008514404297), (0.0, 0.0, 1.0))
@@ -5762,6 +5783,515 @@ def sp_pp_phases(dev, card, errs, ctx):
     return out
 
 
+DISK_LG_IMAGES = 3      # phase 63's HPatches tree: 2 pairs a sequence
+
+
+def decision_margins(s, valid0, valid1, filter_threshold=0.1):
+    """How far each row's match decision in log assignment scores s
+    [K0, K1] lies from flipping: the least of the gap between the row's
+    best and second-best score, the gap that decides whether the row is
+    its best column's arg-max, and, for a mutual pair, the distance of its
+    score from log(filter_threshold). inf outside valid0."""
+    import math
+
+    import torch
+    top = s.topk(2, dim=-1)
+    j, best = top.indices[:, 0], top.values[:, 0]
+    col = s.topk(2, dim=-2)
+    mutual = col.indices[0, j] == torch.arange(len(s), device=s.device)
+    col_gap = torch.where(mutual, col.values[0, j] - col.values[1, j],
+                          col.values[0, j] - best)
+    inf = torch.full_like(best, math.inf)
+    thr = torch.where(mutual, (best - math.log(filter_threshold)).abs(), inf)
+    gap = torch.minimum(torch.minimum(best - top.values[:, 1], col_gap), thr)
+    return torch.where(valid0, gap, inf)
+
+
+def largest(t):
+    """t's largest entry, 0 for an empty t."""
+    return float(t.max()) if t.numel() else 0.0
+
+
+def parted_rows(m_a, m_b, ref, valid0, valid1, err):
+    """(rows whose match indices m_a and m_b differ, those of them that a
+    rounding error of err in every score of ref cannot explain: a decision
+    margin in ref above 2 err, since each of two scores may be off by
+    err)."""
+    differ = m_a.cpu() != m_b.cpu()
+    far = decision_margins(ref, valid0.cpu(), valid1.cpu()) > 2 * err
+    return int(differ.sum()), int((differ & far).sum())
+
+
+def adaptive_decisions(stats, i_fin):
+    """Per deciding layer of an adaptive forward: (the masks it decided
+    over, whether it stopped there, the masks after it), on the host."""
+    vals = stats["values"]
+    out = []
+    for i, v in enumerate(vals):
+        after = vals[i + 1][5:7] if i + 1 < len(vals) else stats["masks"]
+        out.append((v[5].cpu(), v[6].cpu(), i_fin == i + 1, after[0].cpu(),
+                    after[1].cpu()))
+    return out
+
+
+def same_decision(a, b):
+    import torch
+    return a[2] == b[2] and torch.equal(a[3], b[3]) and torch.equal(a[4],
+                                                                    b[4])
+
+
+def value_gap(stats, ref, i):
+    """The largest |v - v_ref| at deciding layer i over the tokens valid
+    there (ref's masks): of the confidences and matchabilities, and of the
+    confident share."""
+    import torch
+    v, w = stats["values"][i], ref["values"][i]
+    a0, a1 = w[5].cpu(), w[6].cpu()
+    gap = 0.0
+    for x, y, m in zip(v[:4], w[:4], (a0, a1, a0, a1)):
+        d = (x.cpu().double() - y.cpu().double()).abs()
+        gap = max(gap, float(torch.where(m, d, torch.zeros_like(d)).max()))
+    return max(gap, abs(float(v[4]) - float(w[4])))
+
+
+def lightglue_witness(params, ins, adaptive):
+    """LightGlue on one pair's inputs ins (CUDA) on the card, through the
+    plain twins and in float64 on the host (the witness of how far float32
+    rounding carries at these logits). Fixed depth: the scores at depths
+    1, 2 and 9; each one's largest error against float64 (card within 4x
+    the plain twin's + 1e-6 of the largest score), and the matches at
+    depths 2 and 9: card and plain twin may part only in rows whose float64
+    decision margin is within twice the measured error; the matched
+    mscores within 4x the plain twin's error + 1e-5. Adaptive: the
+    decision values (confidences, matchabilities, confident share) of
+    every layer the three runs decide over the same masks, card within 4x
+    the plain twin's error + 1e-6; card and plain twin may decide
+    differently only where the reference's margin (float64's where it
+    agreed with both till then, else the plain twin's) is within their
+    measured gap; with the same decisions, their matches part only in
+    rows as above. Raises AssertionError on a failed gate; returns the
+    readings."""
+    import torch
+
+    from keypoint_bench_tpu_torch.models.lightglue import (
+        filter_matches, lightglue_scores)
+    from keypoint_bench_tpu_torch.models.lightglue_adaptive import \
+        lightglue_forward_adaptive
+    p64 = {k: v.detach().cpu().double() for k, v in params.items()}
+    ins64 = [x.cpu().double() if x.is_floating_point() else x.cpu()
+             for x in ins]
+    v0, v1 = ins64[1], ins64[4]
+    live = v0[:, None] & v1[None, :]
+    row = {}
+
+    def fail(msg):
+        raise AssertionError(f"LightGlue card vs plain twin vs float64: "
+                             f"{msg}")
+
+    if not adaptive:
+        depth = {}
+        for n in (1, 2, 9):
+            a = lightglue_scores(params, *ins, n_layers=n).cpu().double()
+            with plain_twins():
+                b = lightglue_scores(params, *ins, n_layers=n).cpu().double()
+            w = lightglue_scores(p64, *ins64, n_layers=n)
+            scale = float(w[live].abs().max())
+            ec = float((a - w)[live].abs().max())
+            ep = float((b - w)[live].abs().max())
+            depth[n] = (ec / scale, ep / scale)
+            if ec > 4 * ep + 1e-6 * scale:
+                fail(f"depth {n}: the card's scores {ec:.4g} from float64, "
+                     f"the plain twin's {ep:.4g}")
+            if n == 1:
+                continue
+            mc, mp, m64 = (filter_matches(x, v0, v1, 0.1) for x in (a, b, w))
+            n_diff, n_far = parted_rows(mc[0], mp[0], w, v0, v1, max(ec, ep))
+            both = mc[2] & mp[2] & m64[2]
+            msc = largest((mc[1] - m64[1])[both].abs())
+            msp = largest((mp[1] - m64[1])[both].abs())
+            row[f"depth{n}"] = {
+                "matches": [int(x[2].sum()) for x in (mc, mp, m64)],
+                "parted_rows": n_diff, "ms_err": [msc, msp],
+                "ms_max": largest(m64[1][m64[2]])}
+            if n_far or msc > 4 * msp + 1e-5:
+                fail(f"depth {n}: {n_far} of {n_diff} parted rows beyond "
+                     f"the error, mscores {msc:.3g} from float64 (plain "
+                     f"{msp:.3g})")
+        row["depth_err"] = depth
+        return row
+
+    runs = {}
+    for name, p, x in (("card", params, ins), ("plain", params, ins),
+                       ("f64", p64, ins64)):
+        st = {}
+        with plain_twins() if name == "plain" else contextlib.nullcontext():
+            o = lightglue_forward_adaptive(p, *x, stats=st)
+        runs[name] = (o, st, adaptive_decisions(st, o[3]))
+    (oc, stc, dc), (op, stp, dp), (o64, st64, d64) = (
+        runs[n] for n in ("card", "plain", "f64"))
+    n = min(len(dc), len(dp), len(d64))
+    first = next((i for i in range(n) if not (
+        same_decision(dc[i], d64[i]) and same_decision(dp[i], d64[i]))), n)
+    errs = []
+    for i in range(min(first + 1, n)):
+        ec, ep = value_gap(stc, st64, i), value_gap(stp, st64, i)
+        errs.append((ec, ep, float(st64["margin"][i])))
+        if ec > 4 * ep + 1e-6:
+            fail(f"layer {i}: the card's decision values {ec:.4g} from "
+                 f"float64, the plain twin's {ep:.4g}")
+    split = next((i for i in range(n) if not same_decision(dc[i], dp[i])),
+                 None)
+    row.update(i_fin=[int(o[3]) for o in (oc, op, o64)],
+               matches=[int(o[2].sum()) for o in (oc, op, o64)],
+               ms_max=largest(o64[1][o64[2]]),
+               decision_err=errs, first_f64_split=first if first < n
+               else None, card_plain_split=split)
+    if split is not None:
+        # the layer's decision must lie within the measured gap
+        if split == first and split < len(errs):
+            gap, margin = max(errs[split][:2]), errs[split][2]
+        else:
+            gap = value_gap(stc, stp, split)
+            margin = float(stp["margin"][split])
+        row["split"] = {"layer": split, "gap": gap, "margin": margin}
+        if margin > gap:
+            fail(f"card and plain twin decide differently at layer {split} "
+                 f"with a margin of {margin:.3g} beyond their gap "
+                 f"{gap:.3g}")
+        return row
+    a0, a1 = stc["masks"]
+    if first == n:
+        ref, w = st64["scores"], st64["scores"]
+        m = a0.cpu()[:, None] & a1.cpu()[None, :]
+        ec = float((stc["scores"].cpu().double() - w)[m].abs().max())
+        ep = float((stp["scores"].cpu().double() - w)[m].abs().max())
+        scale = float(w[m].abs().max())
+        if ec > 4 * ep + 1e-6 * scale:
+            fail(f"the card's final scores {ec:.4g} from float64, the "
+                 f"plain twin's {ep:.4g}")
+        err = max(ec, ep)
+    else:
+        ref = stp["scores"].cpu().double()
+        err = float((stc["scores"].cpu().double() - ref).abs().max())
+    n_diff, n_far = parted_rows(oc[0], op[0], ref, a0, a1, err)
+    row.update(parted_rows=n_diff, score_err=err)
+    if n_far:
+        fail(f"{n_far} of {n_diff} parted rows beyond the error {err:.3g}")
+    return row
+
+
+def witness_summary(rows, adaptive):
+    """The float64 witness's readings of phase 63's pairs, for its JSON
+    line: pair 0's errors at depths 1, 2, 9 (card, plain twin), the depth-2
+    and depth-9 matches (card, plain twin, float64) or the adaptive layers
+    run and matches, and the adaptive decisions' first split from
+    float64."""
+    if not adaptive:
+        return {"depth_err_pair0": rows[0]["depth_err"],
+                "matches_depth2": [r["depth2"]["matches"] for r in rows],
+                "matches_depth9": [r["depth9"]["matches"] for r in rows],
+                "ms_max_depth2": max(r["depth2"]["ms_max"] for r in rows)}
+    return {"i_fin": [r["i_fin"] for r in rows],
+            "lightglue_matches": [r["matches"] for r in rows],
+            "ms_max": max(r["ms_max"] for r in rows),
+            "first_f64_split": [r["first_f64_split"] for r in rows],
+            "decision_err_max": max(max(e[:2]) for r in rows
+                                    for e in r["decision_err"])}
+
+
+def e_against_f64(args, kwargs):
+    """Kernel E and its plain twin on one call's inputs against the float64
+    masked softmax: (E's largest error, the plain twin's, max |v|, max
+    |logit| over valid keys, E's largest gap to the plain twin). Logits of
+    thousands make the f32 softmax sensitive at ulp(logit) (about 1e-3 at
+    1e4): both f32 routes part from float64 there."""
+    import torch
+
+    from keypoint_bench_tpu_torch.ops import cuda_attention
+    from keypoint_bench_tpu_torch.ops.attention import fused_attention
+    q, k, v, m = args[:4]
+    scale = args[4] if len(args) > 4 else kwargs.get("scale")
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    s = (q.double() @ k.double().transpose(-1, -2)) * scale
+    live = m[..., None, :].expand_as(s)
+    ref = torch.softmax(torch.where(live, s, -1e9), -1) @ v.double()
+    got = cuda_attention.attention_cuda(*args, **kwargs).double()
+    plain = fused_attention(*args, **kwargs).double()
+    return (float((got - ref).abs().max()), float((plain - ref).abs().max()),
+            float(v.abs().max()), float(s[live].abs().max()),
+            float((got - plain).abs().max()))
+
+
+def convert_demo_phases(dev, card, errs):
+    """Phases 62-64: the reference's checkpoints converted on this machine
+    (no JAX), DISK + LightGlue MHA through the runner from the converted
+    weights, and the demo. The launch counts are reset just before each
+    path and read just after. Returns the numbers for the convert_demo
+    and kernels JSON lines."""
+    import shutil
+
+    import torch
+    import torch.nn.functional as F
+
+    from keypoint_bench_tpu_torch import demo
+    from keypoint_bench_tpu_torch.datasets import get_dataset
+    from keypoint_bench_tpu_torch.datasets.synthetic import \
+        SyntheticHomographyDataset
+    from keypoint_bench_tpu_torch.models.lightglue import \
+        sample_descriptors_lg
+    from keypoint_bench_tpu_torch.ops import cuda_attention
+    from keypoint_bench_tpu_torch.ops.attention import fused_attention
+    from keypoint_bench_tpu_torch.runner import EvalConfig, Evaluator
+    from keypoint_bench_tpu_torch.weights import SPECS
+    from keypoint_bench_tpu_torch.weights.convert import main as convert
+    from keypoint_bench_tpu_torch.weights.upstream import (
+        npz_equal, upstream_params, write_upstream_checkpoints)
+
+    out = {}
+    t_start = time.perf_counter()
+    base = os.path.join(ROOT, "output", "chip_smoke_convert")
+    shutil.rmtree(base, ignore_errors=True)
+    src, dst = os.path.join(base, "upstream"), os.path.join(base, "npz")
+    pointers, absent = ("lightglue_aliked",), ("lightglue_superpoint",)
+    with phase(f"the reference's checkpoints converted without JAX: "
+               f"{len(SPECS)} SPECS entries, one a git-LFS pointer, one "
+               f"absent"):
+        t0 = time.perf_counter()
+        params = upstream_params([n for n in SPECS if n not in absent])
+        write_upstream_checkpoints(src, params, pointers)
+        t1 = time.perf_counter()
+        converted, skipped = convert(src, dst)
+        t2 = time.perf_counter()
+        names = [n for n, _ in converted]
+        unequal = [n for n in names if not npz_equal(
+            os.path.join(dst, f"{n}.npz"), params[n])]
+        jax_mods = sorted(m for m in sys.modules if m.split(".")[0] in (
+            "jax", "jaxlib", "keypoint_bench_tpu"))
+        out["convert"] = {
+            "converted": names, "tensors": sum(n for _, n in converted),
+            "skipped": skipped, "write_s": t1 - t0, "convert_s": t2 - t1,
+            "npz_bytes": sum(os.path.getsize(os.path.join(dst, f))
+                             for f in os.listdir(dst))}
+        log(f"  converted {len(names)} checkpoints "
+            f"({out['convert']['tensors']} tensors, "
+            f"{out['convert']['npz_bytes']} npz bytes) in "
+            f"{t2 - t1:.3f} s (writing them {t1 - t0:.3f} s); skipped "
+            f"{skipped}; npz unequal to their source: {unequal}; JAX "
+            f"modules loaded: {jax_mods}")
+        if (skipped != [n for n in SPECS if n in pointers + absent]
+                or names != [n for n in SPECS if n not in skipped]
+                or unequal or jax_mods):
+            raise AssertionError("the converter's output differs")
+
+    tree = hpatches_tree(os.path.join(base, "hpatches"),
+                         sizes=((SIZE, SIZE),) * 3, n_images=DISK_LG_IMAGES,
+                         seed=63)
+    n_pairs = 3 * (DISK_LG_IMAGES - 1)
+    out["disk_lightglue"] = {}
+
+    def pair_outputs(ev, item):
+        """(k0, v0, m1, ok, E launches, E calls, LightGlue's inputs) of one
+        pair through the runner's maps and matcher."""
+        img0, _, _, d0, k0, v0, _, d1, k1, v1 = ev._pair_maps(item)
+        _, _, va = ev._warp(k0, v0, item["warp01_params"])
+        _, _, vb = ev._warp(k1, v1, item["warp10_params"])
+        w, h = img0.shape[1], img0.shape[0]
+        reset_launches()
+        with recording(cuda_attention, "attention_cuda") as calls:
+            _, m1, ok = ev._match(k0, va, k1, vb, d0, d1, w, h)
+            torch.cuda.synchronize()
+        n_e = read_launches()["attention"]
+        p0, p1 = k0[:, :2] * (w - 1.0), k1[:, :2] * (w - 1.0)
+        ins = (p0, va, sample_descriptors_lg(p0, d0, 1), p1, vb,
+               sample_descriptors_lg(p1, d1, 1))
+        return k0, v0, m1, ok, n_e, list(calls), ins
+
+    for mode in ("fixed", "adaptive"):
+        adaptive = mode == "adaptive"
+        with phase(f"MHA runner: DISK + light_glue ({mode}) from the "
+                   f"converted weights, {n_pairs} HPatches pairs at "
+                   f"{SIZE}^2, top_k {K}, card vs plain twin vs float64"):
+            cfg = file_config("mha_hpatches", os.path.join(
+                base, f"mha_{mode}"), root=tree, image_size=SIZE)
+            cfg["extractor_params"] = {**cfg["extractor_params"], "top_k": K}
+            cfg.update(model_type="DISK", weights_dir=dst, matcher_params={
+                "type": "light_glue", "light_glue_params": {
+                    "adaptive": adaptive, "allow_fallback": False}})
+            ev = Evaluator(EvalConfig(**cfg), DEVICE)
+            proj = tuple(ev.lightglue_params["input_proj.weight"].shape)
+            if ev.matcher_fallback is not None or proj != (256, 128):
+                raise AssertionError(f"the runner did not load the disk "
+                                     f"LightGlue: {ev.matcher_fallback}, "
+                                     f"input_proj {proj}")
+            reset_launches()
+            res = ev.run()
+            torch.cuda.synchronize()
+            got = read_launches()
+            with plain_twins():
+                res_p = Evaluator(EvalConfig(**cfg), DEVICE).run()
+            t0 = time.perf_counter()        # a warm run, for its time
+            ev.run()
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t0
+            ds = get_dataset(cfg["data_params"])
+            rows, e_err, first_calls = [], 0.0, None
+            worst = (0.0,)
+            t_wit = 0.0
+            for i in range(len(ds)):
+                c = pair_outputs(ev, ds[i])
+                with plain_twins():
+                    pl = pair_outputs(ev, ds[i])
+                for j, (a, kw) in enumerate(c[5]):
+                    e, p, vmax, smax, gap_plain = e_against_f64(a, kw)
+                    e_err = max(e_err, gap_plain)
+                    worst = max(worst, (e / (4 * p + 1e-5 * max(1.0, vmax)),
+                                        i, j, e, p, vmax, smax))
+                first_calls = first_calls or c[5]
+                if not (torch.equal(c[0], pl[0]) and torch.equal(c[1], pl[1])):
+                    raise AssertionError(f"DISK's keypoints on pair {i} "
+                                         f"differ from the plain twin's")
+                same = (torch.equal(c[3], pl[3])
+                        and torch.equal(c[2][c[3]], pl[2][pl[3]]))
+                t1 = time.perf_counter()
+                wit = lightglue_witness(ev.lightglue_params, c[6], adaptive)
+                t_wit += time.perf_counter() - t1
+                rows.append({"valid": [int(c[6][1].sum()),
+                                       int(c[6][4].sum())],
+                             "launches": c[4],
+                             "runner_matches": int(c[3].sum()),
+                             "plain_equal": same, **wit})
+                if c[4] <= 0 or c[4] > 18 or (not adaptive and c[4] != 18):
+                    raise AssertionError(f"kernel E launched {c[4]} times "
+                                         f"on pair {i} ({mode})")
+            _, wi, wj, we, wp, wv, ws = worst
+            log(f"  kernel E against the float64 softmax on every call: "
+                f"the largest share of its gate, {worst[0]:.3g}, on pair "
+                f"{wi}'s call {wj}: E {we:.3g}, the plain twin {wp:.3g}, "
+                f"max |v| {wv:.4g}, max |logit| {ws:.6g}; E against the "
+                f"plain twin within {e_err:.3g}")
+            if worst[0] > 1.0:
+                raise AssertionError("kernel E is further from the float64 "
+                                     "softmax than 4x the plain twin + "
+                                     "1e-5 max(1, |v|)")
+            for i, r in enumerate(rows):
+                wit = {k: v for k, v in r.items() if k not in (
+                    "valid", "launches", "runner_matches", "plain_equal")}
+                log(f"  pair {i}: valid {r['valid']}, E launches "
+                    f"{r['launches']}, the runner's matches "
+                    f"{r['runner_matches']} "
+                    f"(equal to the plain twin's: {r['plain_equal']}); "
+                    f"witness {json.dumps(wit, default=float)}")
+            if adaptive:
+                parted = [i for i, r in enumerate(rows)
+                          if r["card_plain_split"] is not None
+                          or r["parted_rows"]]
+            else:
+                parted = [i for i, r in enumerate(rows)
+                          if r["depth9"]["parted_rows"]]
+                if not sum(r["depth2"]["matches"][0] for r in rows):
+                    raise AssertionError("no match at depth 2 to hold")
+            mha = [res[f"MHA@{t}"] for t in (3, 5, 7)]
+            log(f"  MHA@3/5/7 {mha} (plain "
+                f"{[res_p[f'MHA@{t}'] for t in (3, 5, 7)]}); the run's "
+                f"launches {got}; a warm run {run_s:.3f} s; pairs whose "
+                f"LightGlue parted from the plain twin within the float32 "
+                f"error {parted}; the float64 witness {t_wit:.1f} s")
+            kept = [i for i, r in enumerate(rows) if r["plain_equal"]]
+            if (any(res["per_pair"][i] != res_p["per_pair"][i] for i in kept)
+                    or any(not rows[i]["plain_equal"] for i in range(
+                        len(rows)) if i not in parted)
+                    or "matcher_fallback" in res or got["attention"] <= 0
+                    or got["nms"] != 2 * n_pairs):
+                raise AssertionError(f"the DISK + LightGlue runner ({mode}) "
+                                     f"differs from its plain twin or "
+                                     f"missed a kernel: {got}")
+            item = ds[0]
+            img0, _, _, d0, k0, v0, _, d1, k1, v1 = ev._pair_maps(item)
+            match_ms = host_ms(lambda: ev._match(k0, v0, k1, v1, d0, d1,
+                                                 SIZE, SIZE))
+            r = {"MHA": mha, "launches": got["attention"],
+                 "launches_per_pair": [r["launches"] for r in rows],
+                 "matches_per_pair": [r["runner_matches"] for r in rows],
+                 "parted_pairs": parted, **witness_summary(rows, adaptive),
+                 "e_err_plain": e_err, "e_gate_share": worst[0],
+                 "e_err_f64": we, "plain_err_f64": wp, "max_logit": ws,
+                 "ms_pair_runner": run_s * 1e3 / n_pairs,
+                 "ms_pair_lightglue": match_ms}
+            calls = first_calls
+            n = len(calls)
+            masks = [torch.where(a[3], 0.0, -1e9)[..., None, :]
+                     for a, _ in calls]
+            e_ms, lib_ms, turns = in_turns(
+                lambda: [cuda_attention.attention_cuda(*a, **kw)
+                         for a, kw in calls],
+                lambda: [F.scaled_dot_product_attention(
+                    a[0], a[1], a[2], attn_mask=m, scale=a[4])
+                    for (a, _), m in zip(calls, masks)])
+            plain_ms = cuda_ms(lambda: [fused_attention(*a, **kw)
+                                        for a, kw in calls], iters=3)
+            bound, by = adaptive_attention_bound(calls)
+            r.update(shape=list(calls[0][0][0].shape), calls=n,
+                     e_ms_call=e_ms / n, sdpa_ms_call=lib_ms / n,
+                     plain_ms_call=plain_ms / n, bound_ms_call=bound / n,
+                     bound_by=by)
+            log(f"  a pair: runner {r['ms_pair_runner']:.3f} ms (warm, the "
+                f"PPM loads included), LightGlue match {match_ms:.3f} ms; "
+                f"kernel E on pair 0's {n} calls ({r['shape']}, the valid "
+                f"counts of DISK's detections): {e_ms / n:.4f} ms a call "
+                f"(events over back-to-back calls, which the kernel's "
+                f"time paces), sdpa {lib_ms / n:.4f}, plain "
+                f"{plain_ms / n:.4f}, bound {bound / n:.4f} ({by}); in "
+                f"turns kernel, sdpa, sdpa, kernel "
+                f"{[round(t / n, 4) for t in turns]} on {card}")
+            out["disk_lightglue"][mode] = r
+
+    with phase(f"the demo on the card: Alike at {SIZE}^2 (A, D, RANSAC-H) "
+               f"against its plain twin"):
+        douts = [os.path.join(base, d) for d in ("demo", "demo_plain")]
+        reset_launches()
+        res = demo.run("Alike", douts[0], SIZE, DEVICE)
+        torch.cuda.synchronize()
+        got = read_launches()
+        with plain_twins():
+            res_p = demo.run("Alike", douts[1], SIZE, DEVICE)
+        same_png = all(
+            open(os.path.join(douts[0], f), "rb").read()
+            == open(os.path.join(douts[1], f), "rb").read()
+            for f in res["files"])
+        gaps = [demo.corner_gap(r["H"], r["gt"], SIZE)
+                for r in (res, res_p)]
+        quiet = io.StringIO()
+        with contextlib.redirect_stdout(quiet):
+            demo_ms = host_ms(lambda: demo.run("Alike", douts[0], SIZE,
+                                               DEVICE), iters=3)
+        sample = SyntheticHomographyDataset(1, SIZE)[0]
+        im0, im1 = (torch.as_tensor(sample[k], device=dev)
+                    for k in ("image0", "image1"))
+        model = demo.load_model("Alike", dev)
+        pipe_ms = cuda_ms(lambda: demo.pipeline(model, im0, im1))
+        out["demo"] = {"keypoints": list(res["keypoints"]),
+                       "matches": res["matches"],
+                       "keypoints_plain": list(res_p["keypoints"]),
+                       "matches_plain": res_p["matches"],
+                       "png_equal": same_png, "corner_gap_px": gaps,
+                       "launches": got, "ms": demo_ms,
+                       "ms_pipeline": pipe_ms}
+        log(f"  keypoints {res['keypoints']} matches {res['matches']} "
+            f"(plain {res_p['keypoints']} {res_p['matches']}); PNGs equal "
+            f"{same_png}; H's corners within {gaps[0]:.3f} px of the "
+            f"ground truth's (plain {gaps[1]:.3f}); launches {got}; the "
+            f"demo {demo_ms:.3f} ms (PNGs included), forwards + detection "
+            f"+ brute force {pipe_ms:.3f} ms on {card}")
+        if not (res["keypoints"] == res_p["keypoints"]
+                and res["matches"] == res_p["matches"] and same_png
+                and max(gaps) < 3.0 and got["nms"] == 2
+                and got["nn_match"] > 0):
+            raise AssertionError("the demo differs from its plain twin or "
+                                 "missed a kernel")
+    out["seconds"] = time.perf_counter() - t_start
+    return out
+
+
 def _with_group(fn):
     """fn(mesh) on the one-rank NCCL group."""
     with one_rank_group() as mesh:
@@ -6753,6 +7283,8 @@ def main() -> int:
         "imgs0": imgs0, "eval_alike": par["eval_Alike"],
         "weights_dir": stage_golden_weights(os.path.join(
             ROOT, "output", "chip_smoke_weights"))})
+    cd = convert_demo_phases(dev, card, errs)
+    dl = cd["disk_lightglue"]
 
     def parallel_launches(kernel):
         """The kernel's launches on the data-parallel steps (phases 50-52)
@@ -6797,7 +7329,8 @@ def main() -> int:
          **loop_launches("nms"),
          **file_backed("nms", "nms "),
          **parallel_launches("nms"),
-         "launches_pipeline_extract": spp["pipeline"]["launches_nms"]},
+         "launches_pipeline_extract": spp["pipeline"]["launches_nms"],
+         "launches_demo": cd["demo"]["launches"]["nms"]},
         {"name": "sparse_sample", "route": "cuda",
          "source": "keypoint_bench_tpu_torch/csrc/sample.cu",
          "replaces": "keypoint_bench_tpu/ops/pallas_sample.py:107",
@@ -6838,7 +7371,8 @@ def main() -> int:
          **parallel_launches("nn_match"),
          "launches_vo_sharded": {w: v["launches_nn_match"] for w, v in
                                  par["vo_sharded"].items()
-                                 if isinstance(v, dict)}},
+                                 if isinstance(v, dict)},
+         "launches_demo": cd["demo"]["launches"]["nn_match"]},
         {"name": "attention", "route": "cuda",
          "source": "keypoint_bench_tpu_torch/csrc/attention.cu",
          "replaces": "keypoint_bench_tpu/ops/pallas_attention.py:33",
@@ -6864,7 +7398,15 @@ def main() -> int:
          "launches_lightglue_tp": {n: v["launches_attention"]
                                    for n, v in par["tp"].items()},
          "launches_lightglue_sp": {w: spp["sp"][f"world{w}"][
-             "launches_attention"] for w in SP_WORLDS}},
+             "launches_attention"] for w in SP_WORLDS},
+         **{f"{k}_disk_lightglue_{mode}": dl[mode][v] for mode in dl
+            for k, v in (("launches", "launches"),
+                         ("launches_per_pair", "launches_per_pair"),
+                         ("shape", "shape"), ("ms", "e_ms_call"),
+                         ("plain_ms", "plain_ms_call"),
+                         ("bound_ms", "bound_ms_call"),
+                         ("bound_by", "bound_by"),
+                         ("library_ms", "sdpa_ms_call"))}},
         {"name": "lk_level", "route": "cuda",
          "source": "keypoint_bench_tpu_torch/csrc/lk.cu",
          "replaces": "keypoint_bench_tpu/ops/pallas_lk.py:78",
@@ -6930,6 +7472,7 @@ def main() -> int:
     log(json.dumps({"loop_closure": lc, "save_images": si}, default=float))
     log(json.dumps({"parallel": par}, default=float))
     log(json.dumps({"sp_pp": spp}, default=float))
+    log(json.dumps({"convert_demo": cd}, default=float))
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -1,6 +1,8 @@
-"""SE3 helpers the sequence datasets need: the port's own copy of
-`inv_T`, `skew`, `pose_to_fundamental`, `quat_to_rotmat` and `make_T` of
-keypoint_bench_tpu/geometry/se3.py. Numpy only, float64 like the original."""
+"""SE3 helpers: the port's own copy of keypoint_bench_tpu/geometry/se3.py
+(`inv_T`, `skew`, `pose_to_fundamental`, `quat_to_rotmat`,
+`rotmat_to_quat`, `make_T`, `relative_pose`). Numpy only, float64 like the
+original; quaternions are (x, y, z, w), the order of the KITTI, TartanAir
+and EuRoC ground-truth files."""
 from __future__ import annotations
 
 import numpy as np
@@ -40,9 +42,45 @@ def quat_to_rotmat(q):
     ])
 
 
+def rotmat_to_quat(R):
+    """Rotation matrix [3,3] -> quaternion (x, y, z, w)."""
+    R = np.asarray(R)
+    tr = np.trace(R)
+    if tr > 0:
+        s = np.sqrt(tr + 1.0) * 2
+        w = 0.25 * s
+        x = (R[2, 1] - R[1, 2]) / s
+        y = (R[0, 2] - R[2, 0]) / s
+        z = (R[1, 0] - R[0, 1]) / s
+    elif R[0, 0] > R[1, 1] and R[0, 0] > R[2, 2]:
+        s = np.sqrt(1.0 + R[0, 0] - R[1, 1] - R[2, 2]) * 2
+        w = (R[2, 1] - R[1, 2]) / s
+        x = 0.25 * s
+        y = (R[0, 1] + R[1, 0]) / s
+        z = (R[0, 2] + R[2, 0]) / s
+    elif R[1, 1] > R[2, 2]:
+        s = np.sqrt(1.0 + R[1, 1] - R[0, 0] - R[2, 2]) * 2
+        w = (R[0, 2] - R[2, 0]) / s
+        x = (R[0, 1] + R[1, 0]) / s
+        y = 0.25 * s
+        z = (R[1, 2] + R[2, 1]) / s
+    else:
+        s = np.sqrt(1.0 + R[2, 2] - R[0, 0] - R[1, 1]) * 2
+        w = (R[1, 0] - R[0, 1]) / s
+        x = (R[0, 2] + R[2, 0]) / s
+        y = (R[1, 2] + R[2, 1]) / s
+        z = 0.25 * s
+    return np.array([x, y, z, w])
+
+
 def make_T(R, t):
     """(R [3,3], t [3]) -> homogeneous [4,4]."""
     T = np.eye(4)
     T[:3, :3] = R
     T[:3, 3] = np.reshape(t, 3)
     return T
+
+
+def relative_pose(T_w0, T_w1):
+    """World-from-cam poses [4,4] -> T_01 mapping cam0 points into cam1."""
+    return inv_T(T_w1) @ T_w0

@@ -1,3 +1,5 @@
-from keypoint_bench_tpu_torch.models.registry import get_model, register
+from keypoint_bench_tpu_torch.models.registry import (PARAM_MODELS,
+                                                     get_model, list_models,
+                                                     register)
 
-__all__ = ["get_model", "register"]
+__all__ = ["PARAM_MODELS", "get_model", "list_models", "register"]

@@ -76,8 +76,12 @@ def lightglue_forward_adaptive(params: dict, kpts0_px, valid0, desc0,
     layer ("keep": (n0, n1) device tensors), the smallest distance of any
     compared value from its threshold ("margin": the valid tokens'
     confidences and matchabilities, and the confident share; a device
-    scalar a layer that decides), and the host reads of `stop`
-    ("syncs")."""
+    scalar a layer that decides), the compared values themselves
+    ("values": (c0, c1, z0, z1, confident share, a0, a1) a layer that
+    decides, a0 / a1 the masks it decides over), the last masks and the
+    log assignment scores the matches are filtered from ("masks",
+    "scores"), and the host reads of `stop` ("syncs"); a check in another
+    precision holds the values and scores against its own."""
     attn = resolve_attn(attn, desc0.device)
     p = params
     if "input_proj.weight" in p:
@@ -92,7 +96,7 @@ def lightglue_forward_adaptive(params: dict, kpts0_px, valid0, desc0,
     m_count = (valid0.sum() + valid1.sum()).clamp_min(1).float()
     unmatchable = 1 - width_confidence
     if stats is not None:
-        stats.update(keep=[], margin=[], syncs=0)
+        stats.update(keep=[], margin=[], values=[], syncs=0)
 
     d0, d1, a0, a1 = desc0, desc1, valid0, valid1
     i_fin = n_layers
@@ -134,6 +138,7 @@ def lightglue_forward_adaptive(params: dict, kpts0_px, valid0, desc0,
                 gaps += [_margin(z0, unmatchable, a0),
                          _margin(z1, unmatchable, a1)]
             stats["margin"].append(torch.stack(gaps).amin())
+            stats["values"].append((c0, c1, z0, z1, ratio, a0, a1))
             stats["syncs"] += 1
         if bool(stop):
             if stats is not None:
@@ -147,4 +152,6 @@ def lightglue_forward_adaptive(params: dict, kpts0_px, valid0, desc0,
 
     scores = _assignment_scores(p, f"log_assignment.{i_fin - 1}", d0, d1,
                                 a0, a1)
+    if stats is not None:
+        stats.update(masks=(a0, a1), scores=scores)
     return (*filter_matches(scores, a0, a1, filter_threshold), i_fin)

@@ -4,6 +4,8 @@ from __future__ import annotations
 import importlib
 
 _REGISTRY: dict[str, type] = {}
+# models configured by `model_params` instead of weights
+PARAM_MODELS = ("Harris", "ORB", "SIFT")
 _MODULES = ("alike", "letnet", "goodpoint", "superpoint", "xfeat",
             "edgepoint", "keynet", "harris", "disk", "r2d2", "sfd2", "d2net",
             "orb", "sift")
@@ -33,3 +35,12 @@ def get_model(name: str):
     if name not in _REGISTRY:
         raise KeyError(f"unknown model {name!r}; have {sorted(_REGISTRY)}")
     return _REGISTRY[name]
+
+
+def list_models() -> list[str]:
+    """The registered model names, sorted, after the lazy imports."""
+    try:
+        get_model("__none__")   # forces the lazy imports
+    except KeyError:
+        pass
+    return sorted(_REGISTRY)

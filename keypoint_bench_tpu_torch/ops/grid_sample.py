@@ -38,10 +38,19 @@ def sample_bilinear_pixels(img: torch.Tensor, px: torch.Tensor,
             + dy * dx * tap(y0i + 1, x0i + 1))
 
 
+def grid_sample_align_corners(img: torch.Tensor,
+                              pts01: torch.Tensor) -> torch.Tensor:
+    """Sample img [..., H, W, C] at pts01 [..., N, 2] of (x, y) in [0, 1]
+    -> [..., N, C]: torch grid_sample(align_corners=True) on the grid
+    (p - 0.5) * 2, i.e. at pixel coordinate p * (S - 1)."""
+    h, w = img.shape[-3], img.shape[-2]
+    return sample_bilinear_pixels(img, pts01[..., 0] * (w - 1),
+                                  pts01[..., 1] * (h - 1))
+
+
 def sample_at_points(feature_map: torch.Tensor,
                      kpts: torch.Tensor) -> torch.Tensor:
-    """Descriptor lookup: feature_map [..., H, W, C], kpts [..., K, >=2]
-    normalized (x, y) -> [..., K, C]."""
-    h, w = feature_map.shape[-3], feature_map.shape[-2]
-    return sample_bilinear_pixels(feature_map, kpts[..., 0] * (w - 1),
-                                  kpts[..., 1] * (h - 1))
+    """Descriptor lookup (reference utils/matcher.py:221-226):
+    feature_map [..., H, W, C], kpts [..., K, >=2] with normalized (x, y)
+    in columns 0:2 -> [..., K, C]."""
+    return grid_sample_align_corners(feature_map, kpts[..., 0:2])

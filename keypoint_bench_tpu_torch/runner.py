@@ -59,7 +59,7 @@ import torch
 from keypoint_bench_tpu_torch.datasets import get_dataset
 from keypoint_bench_tpu_torch.device import resolve_device
 from keypoint_bench_tpu_torch.geometry.warp import warp_points
-from keypoint_bench_tpu_torch.models import get_model
+from keypoint_bench_tpu_torch.models import PARAM_MODELS, get_model
 from keypoint_bench_tpu_torch.models.common import to_float_image
 from keypoint_bench_tpu_torch.models.lightglue import lightglue_match
 from keypoint_bench_tpu_torch.models.lightglue_adaptive import \
@@ -155,8 +155,6 @@ _LIGHTGLUE_WEIGHTS = {"SuperPoint": "lightglue_superpoint",
 _MATCHERS = ("brute_force", "light_glue", "optical_flow", "optical_flow_cv")
 # models that track on their 3-channel local descriptor maps
 _DESC_FLOW_MODELS = ("LETNet", "GoodPoint")
-# models configured by `model_params` instead of weights
-_PARAM_MODELS = ("Harris", "ORB", "SIFT")
 
 
 class MetricLog:
@@ -268,7 +266,7 @@ class Evaluator:
             raise ValueError("the Evaluator runs on a 'data'-only mesh")
         self.writes = self.mesh.rank == 0    # files and prints: rank 0
         check_precision(cfg.precision)
-        if cfg.model_type in _PARAM_MODELS:
+        if cfg.model_type in PARAM_MODELS:
             self.params = dict(cfg.model_params or {})
         else:
             self.params = load_params(cfg.model_type, cfg.weights_dir,

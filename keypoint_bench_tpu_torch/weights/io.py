@@ -1,8 +1,10 @@
 """Weight loading: the JAX package's converted `.npz` files, read with numpy.
 
-`weights_npz/<name>.npz` holds the torch parameter names with conv kernels
-in HWIO and linears in [in, out] (the JAX layout); `params_from_jax`
-(weights/convert.py) turns them back into torch's OIHW / [out, in].
+`weights_npz/<name>.npz` (or `$KBT_WEIGHTS_DIR/<name>.npz`) holds the torch
+parameter names with conv kernels in HWIO and linears in [in, out] (the
+JAX layout); `params_from_jax` (weights/convert.py) turns them back into
+torch's OIHW / [out, in], and `save_params` writes such a file (the
+converter's output).
 
 `tests/golden/<name>.npz` fixtures hold the same layout under `param:`
 keys: full-width parameters with randomized values for the models whose
@@ -24,7 +26,10 @@ from keypoint_bench_tpu_torch.weights.convert import params_from_jax
 
 REPO_DIR = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
-WEIGHTS_DIR = os.path.join(REPO_DIR, "weights_npz")
+# KBT_WEIGHTS_DIR points at converted weights outside the checkout, as in
+# the JAX package
+WEIGHTS_DIR = os.environ.get("KBT_WEIGHTS_DIR",
+                             os.path.join(REPO_DIR, "weights_npz"))
 GOLDEN_DIR = os.path.join(REPO_DIR, "tests", "golden")
 
 # the *_s2d models are TPU layout variants of the same checkpoint and
@@ -44,6 +49,17 @@ def load_npz(name: str, weights_dir: str | None = None) -> dict:
     path = os.path.join(weights_dir or WEIGHTS_DIR, f"{name}.npz")
     with np.load(path) as data:
         return {k: data[k] for k in data.files}
+
+
+def save_params(name: str, params: dict, weights_dir: str | None = None):
+    """Write `params` ({name: array in the JAX layout}; CPU tensors are
+    taken as they are) to <weights_dir>/<name>.npz with `np.savez`, as the
+    JAX package's `save_params` writes it, so that both packages read the
+    file."""
+    d = weights_dir or WEIGHTS_DIR
+    os.makedirs(d, exist_ok=True)
+    np.savez(os.path.join(d, f"{name}.npz"),
+             **{k: np.asarray(v) for k, v in params.items()})
 
 
 PRECISIONS = ("float32", "bfloat16")

@@ -82,7 +82,7 @@ def _default_device_calls(tmp_path):
     from keypoint_bench_tpu_torch.models import get_model
     from keypoint_bench_tpu_torch.ops.detect import DetectParams
     from keypoint_bench_tpu_torch.ops.lk import LKParams
-    from keypoint_bench_tpu_torch import info, sweep
+    from keypoint_bench_tpu_torch import demo, info, sweep
     from keypoint_bench_tpu_torch.utils.export import export_model
     from keypoint_bench_tpu_torch.utils.profiling import model_cost
     from keypoint_bench_tpu_torch.pipeline import (dense_detect,
@@ -139,6 +139,8 @@ def _default_device_calls(tmp_path):
         "export_model": lambda: export_model(
             "LETNet", str(tmp_path / "m.pt2"), (1, 64, 64, 3)),
         "model_cost": lambda: model_cost("LETNet", (1, 64, 64, 3)),
+        "demo": lambda: demo.main(["--size", "64", "--out",
+                                   str(tmp_path / "demo")]),
     }
 
 
@@ -147,7 +149,8 @@ def _default_device_calls(tmp_path):
                                    "vo_step", "refine_window", "Evaluator",
                                    "cli", "dense_extract_match",
                                    "dense_detect", "run_sweep", "sweep_cli",
-                                   "info", "export_model", "model_cost"])
+                                   "info", "export_model", "model_cost",
+                                   "demo"])
 def test_default_device_raises_without_cuda(tmp_path, entry):
     if torch.cuda.is_available():
         pytest.skip("this host has CUDA")
