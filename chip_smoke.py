@@ -251,14 +251,17 @@ for its time a pair and the share of it its dataset's loads took:
  38. image pairs: 4 PNG pairs at 480 x 640 and their list file;
      configs/long_term.yaml (FundamentalMatrixRansac, brute force: A, D):
      the inlier ratio within 0.005 of the plain twin's;
- 39. MegaDepth (2 pairs at 1066 x 1600, JPEG and h5; configs/
-     auc_megadepth.yaml, per-pair errors within 1e-3 degrees of the plain
-     twin's) where h5py and PIL import, and EuRoC's loader and IMU
-     preintegration where cv2 imports; otherwise one line names what is
-     missing;
+ 39. MegaDepth: the committed HDF5 fixtures that h5py wrote
+     (tests/data/h5/*.h5: chunked, filtered, libver "latest") read by
+     datasets/h5.py equal to the .npy arrays saved beside them; 2 pairs
+     at 1066 x 1600 (JPEG, and h5 files that `write_h5` writes, as the
+     card has no h5py), configs/auc_megadepth.yaml, per-pair errors within
+     1e-3 degrees of the plain twin's, ms a pair and the loader's share (a
+     missing PIL fails the phase); EuRoC's loader and IMU preintegration
+     where cv2 imports, otherwise one line says it is missing;
  40. kernels A, B, D and F at these shapes: A bit-equal on the runs' own
      score maps ([1,512,512], [1,352,1216], [1,480,640], MegaDepth's
-     [1,1056,1600], rendered where MegaDepth did not run), B at batch 1
+     [1,1056,1600]), B at batch 1
      on ALIKE-t's branches of those sizes (within 1e-5), D on the MHA,
      image-pair and MegaDepth runs' own calls (`check_nn`), F on the
      KITTI and TartanAir runs' own calls (99% of the points within 1e-2
@@ -2828,6 +2831,97 @@ def write_png(path, img):
         f.write(png_bytes(img))
 
 
+def h5_bytes(datasets):
+    """An HDF5 file of {name: numpy array} in the root group, as the
+    library writes with libver "earliest": superblock 0, v1 object headers,
+    a symbol-table root group (one B-tree leaf, one local heap, one SNOD;
+    names sorted, as lookups bisect them) and contiguous datasets of
+    little-endian integers or IEEE floats. Offsets and lengths are 8
+    bytes."""
+    import struct
+
+    import numpy as np
+    undef = b"\xff" * 8
+    arrays = {k.strip("/"): np.array(v, order="C") for k, v in
+              datasets.items()}
+    names = sorted(arrays)
+    leaf_k, internal_k = max(4, -(-len(names) // 2)), 16
+
+    def pad8(b):
+        return b + b"\0" * (-len(b) % 8)
+
+    def message(mtype, body):
+        body = pad8(body)
+        return struct.pack("<HHB3x", mtype, len(body), 0) + body
+
+    def header(*msgs):
+        body = b"".join(msgs)
+        return struct.pack("<BBHII4x", 1, 0, len(msgs), 1, len(body)) + body
+
+    def datatype(dt):
+        if dt.kind in "iu":
+            return struct.pack("<B3sIHH", 0x10, bytes([8 * (dt.kind == "i"),
+                                                       0, 0]),
+                               dt.itemsize, 0, 8 * dt.itemsize)
+        exp, mant, bias = {2: (5, 10, 15), 4: (8, 23, 127),
+                           8: (11, 52, 1023)}[dt.itemsize]
+        return struct.pack("<B3sIHHBBBBI", 0x11, bytes(
+            [0x20, 8 * dt.itemsize - 1, 0]), dt.itemsize, 0,
+            8 * dt.itemsize, mant, exp, 0, mant, bias)
+
+    def dataset_header(a, data_at):
+        space = struct.pack("<BBBx4x", 1, a.ndim, 0) + b"".join(
+            struct.pack("<Q", d) for d in a.shape)
+        return header(message(0x01, space), message(0x03, datatype(a.dtype)),
+                      message(0x08, struct.pack("<BBQQ", 3, 1, data_at,
+                                                a.nbytes)))
+
+    def entry(name_offset, obj, cache=0, scratch=b"\0" * 16):
+        return struct.pack("<QQI4x", name_offset, obj, cache) + scratch
+
+    heap_data, name_off = b"\0" * 8, {}     # offset 0: the empty name
+    for n in names:
+        name_off[n] = len(heap_data)
+        heap_data += pad8(n.encode() + b"\0")
+    # superblock (96 bytes), root header (40), heap, B-tree, SNOD, then
+    # each dataset's header and data
+    heap_at = 96 + 40
+    btree_at = heap_at + 32 + len(heap_data)
+    btree_len = 24 + (4 * internal_k + 1) * 8
+    snod_at = btree_at + btree_len
+    snod_len = 8 + 2 * leaf_k * 40
+    pos, objects, blobs = snod_at + snod_len, {}, []
+    for n in names:
+        a = arrays[n].astype(arrays[n].dtype.newbyteorder("<"))
+        if a.dtype.kind not in "iuf":
+            raise ValueError(f"{n}: dtype {a.dtype} is not written here")
+        hdr = dataset_header(a, pos + len(dataset_header(a, 0)))
+        objects[n] = pos
+        blobs.append(hdr + pad8(a.tobytes()))
+        pos += len(blobs[-1])
+    stab = struct.pack("<QQ", btree_at, heap_at)
+    out = (b"\x89HDF\r\n\x1a\n" + bytes([0, 0, 0, 0, 0, 8, 8, 0])
+           + struct.pack("<HHIQ", leaf_k, internal_k, 0, 0) + undef
+           + struct.pack("<Q", pos) + undef + entry(0, 96, 1, stab)
+           + header(message(0x11, stab))
+           + b"HEAP" + bytes(4) + struct.pack("<QQQ", len(heap_data), 1,
+                                              heap_at + 32) + heap_data)
+    btree = (b"TREE" + bytes([0, 0]) + struct.pack("<H", 1) + undef + undef
+             + struct.pack("<QQQ", 0, snod_at,
+                           name_off[names[-1]] if names else 0))
+    snod = b"SNOD" + bytes([1, 0]) + struct.pack("<H", len(names)) + \
+        b"".join(entry(name_off[n], objects[n]) for n in names)
+    out += (btree.ljust(btree_len, b"\0") + snod.ljust(snod_len, b"\0")
+            + b"".join(blobs))
+    assert len(out) == pos
+    return out
+
+
+def write_h5(path, datasets):
+    with open(path, "wb") as f:
+        f.write(h5_bytes(datasets))
+
+
 def write_ppm(path, img):
     """Binary PPM (P6), as HPatches ships them (no comment line)."""
     h, w = img.shape[:2]
@@ -2989,14 +3083,43 @@ def image_pairs_tree(root, pairs=None, hw=None, seed=0):
     return path
 
 
+H5_FIXTURES = os.path.join(ROOT, "tests", "data", "h5")
+
+
+def h5_fixture_check():
+    """Every dataset that tests/data/h5/MANIFEST.json lists (files that
+    h5py wrote: tools/make_h5_fixtures.py) read with datasets/h5.py and
+    held equal to its .npy: dtype, shape and bytes. Returns {file:
+    [dataset names]}."""
+    import numpy as np
+
+    from keypoint_bench_tpu_torch.datasets import h5
+    with open(os.path.join(H5_FIXTURES, "MANIFEST.json")) as f:
+        manifest = json.load(f)
+    seen = {}
+    for fname, entry in sorted(manifest.items()):
+        with h5.File(os.path.join(H5_FIXTURES, fname)) as f:
+            for name, npy in sorted(entry["datasets"].items()):
+                got = f[name]
+                want = np.load(os.path.join(H5_FIXTURES, npy))
+                if not (got.dtype == want.dtype and got.shape == want.shape
+                        and got.tobytes() == want.tobytes()):
+                    raise AssertionError(f"{fname}:{name} read as "
+                                         f"{got.dtype}{got.shape}, not "
+                                         f"equal to {npy}")
+        seen[fname] = sorted(entry["datasets"])
+    if not seen:
+        raise AssertionError("no HDF5 fixtures listed")
+    return seen
+
+
 def megadepth_tree(root, pairs=None, hw=None, seed=0, n_blobs=2400):
     """MegaDepth's layout (dataset.json, JPEG images, h5 depths and
     calibrations); each pair two views of its own splat scene, drawn as
     SyntheticSE3Dataset draws them (rotation ~0.03 rad, 0.3-0.7 m
-    sideways); needs PIL and h5py."""
+    sideways); the h5 files by `write_h5`, the JPEGs by PIL."""
     import json
 
-    import h5py
     import numpy as np
     from PIL import Image
 
@@ -3026,14 +3149,10 @@ def megadepth_tree(root, pairs=None, hw=None, seed=0, n_blobs=2400):
             names.append(name + ".jpg")
             Image.fromarray(to_u8(img)).save(
                 os.path.join(root, "imgs", names[-1]), quality=95)
-            with h5py.File(os.path.join(root, "depths", name + ".h5"),
-                           "w") as fh:
-                fh.create_dataset("/depth", data=depth.astype("float32"))
-            with h5py.File(os.path.join(root, "calib",
-                                        f"calibration_{name}.h5"), "w") as fh:
-                fh.create_dataset("K", data=K)
-                fh.create_dataset("R", data=R)
-                fh.create_dataset("T", data=t)
+            write_h5(os.path.join(root, "depths", name + ".h5"),
+                     {"/depth": depth.astype("float32")})
+            write_h5(os.path.join(root, "calib", f"calibration_{name}.h5"),
+                     {"K": K, "R": R, "T": t})
     with open(os.path.join(root, "dataset.json"), "w") as fh:
         json.dump({"scene0": {
             "image_path": "imgs", "depth_path": "depths",
@@ -3170,6 +3289,7 @@ def file_phases(dev, card, errs):
                                               cuda_sample)
     from keypoint_bench_tpu_torch.ops.detect import (DetectParams,
                                                      detection_batch,
+                                                     fast_nms,
                                                      fast_nms_rounds)
     from keypoint_bench_tpu_torch.ops.lk import _lk_level
     from keypoint_bench_tpu_torch.ops.matching import nn_dists
@@ -3443,34 +3563,31 @@ def file_phases(dev, card, errs):
                     <= 0.005):
                 raise AssertionError("long_term differs from its plain twin")
 
-        with phase("MegaDepth (configs/auc_megadepth.yaml) and EuRoC, where "
-                   "their readers import"):
-            missing = [m for m in ("h5py", "PIL")
-                       if importlib.util.find_spec(m) is None]
-            if missing:
-                log(f"  MegaDepth did not run: {', '.join(missing)} not "
-                    f"installed")
-                out["configs"]["auc_megadepth"] = {"not_run_missing": missing}
-            else:
-                root = megadepth_tree(os.path.join(tmp, "megadepth"))
-                cfg = file_config("auc_megadepth", os.path.join(
-                    tmp, "out", "auc_megadepth"), root=root)
-                res, res_p, secs, load = run_both(
-                    "auc_megadepth", cfg, pairs.MegaDepthDataset,
-                    {"nms": 2 * MEGADEPTH_PAIRS, "sample": 0,
-                     "nn_match": 2 * MEGADEPTH_PAIRS, "lk": 0},
-                    recorded=("nms", "nn_match"))
-                e, e_p = (np.asarray(r["per_pair_error"])
-                          for r in (res, res_p))
-                rec = {"per_pair_error": e.tolist(), "plain": e_p.tolist(),
-                       "AUC@20": res["AUC@20"],
-                       "ms_per_pair": 1e3 * secs / MEGADEPTH_PAIRS,
-                       "loader_share": load / secs}
-                out["configs"]["auc_megadepth"] = rec
-                log(f"  auc_megadepth: {rec} ({card})")
-                if not (np.abs(e - e_p) <= 1e-3).all():
-                    raise AssertionError("auc_megadepth differs from its "
-                                         "plain twin run")
+        with phase("MegaDepth: the h5py fixtures, then configs/"
+                   "auc_megadepth.yaml; EuRoC where cv2 imports"):
+            fixtures = h5_fixture_check()
+            log(f"  {len(fixtures)} h5py-written fixtures read equal to "
+                f"their .npy arrays: {fixtures}")
+            root = megadepth_tree(os.path.join(tmp, "megadepth"))
+            cfg = file_config("auc_megadepth", os.path.join(
+                tmp, "out", "auc_megadepth"), root=root)
+            res, res_p, secs, load = run_both(
+                "auc_megadepth", cfg, pairs.MegaDepthDataset,
+                {"nms": 2 * MEGADEPTH_PAIRS, "sample": 0,
+                 "nn_match": 2 * MEGADEPTH_PAIRS, "lk": 0},
+                recorded=("nms", "nn_match"))
+            e, e_p = (np.asarray(r["per_pair_error"]) for r in (res, res_p))
+            rec = {"per_pair_error": e.tolist(), "plain": e_p.tolist(),
+                   "AUC@20": res["AUC@20"], "pairs": MEGADEPTH_PAIRS,
+                   "hw": list(MEGADEPTH_HW),
+                   "ms_per_pair": 1e3 * secs / MEGADEPTH_PAIRS,
+                   "loader_share": load / secs, "h5_fixtures": fixtures}
+            out["configs"]["auc_megadepth"] = rec
+            log(f"  auc_megadepth: {rec} ({card})")
+            if not (len(e) == MEGADEPTH_PAIRS and np.isfinite(e).all()
+                    and (np.abs(e - e_p) <= 1e-3).all()):
+                raise AssertionError("auc_megadepth differs from its plain "
+                                     "twin run")
             if importlib.util.find_spec("cv2") is None:
                 log("  EuRoC did not run: cv2 not installed (its loader "
                     "undistorts with cv2.undistort)")
@@ -3501,17 +3618,10 @@ def file_phases(dev, card, errs):
                 calls = rec_calls["nms"].get(name)
                 if calls:
                     maps_by[name] = calls[0][0][0]
-            if "auc_megadepth" not in maps_by:
-                # MegaDepth's size from a rendered view, where the phase
-                # above could not read the dataset
-                hw = (MEGADEPTH_HW[0] // 32 * 32, MEGADEPTH_HW[1])
-                img = splat_frames(*hw, ((1440.0, 0, 800), (0, 1440.0, 528),
-                                         (0, 0, 1)),
-                                   sequence_poses(1), 3)[0]
-                with torch.inference_mode():
-                    s, _ = model(torch.from_numpy(img).to(dev)[None])
-                maps_by["auc_megadepth (rendered)"] = \
-                    s[..., 0].contiguous()
+            if not (rec_calls["nms"].get("auc_megadepth")
+                    and rec_calls["nn_match"].get("auc_megadepth")):
+                raise AssertionError("the MegaDepth run recorded no calls "
+                                     "of kernels A and D")
             for name, maps in maps_by.items():
                 got = cuda_nms.nms_cuda(maps, 6, 30)
                 want, rounds = fast_nms_rounds(maps, 6, 30)
@@ -3531,6 +3641,29 @@ def file_phases(dev, card, errs):
                     "bound_ms": bound, "bound_by": by,
                     "rounds": rounds.tolist(), "max_abs_err": diff}
                 log(f"  kernel A [{shape}] ({name}): {r}")
+            # every call of the MegaDepth run, replayed with its own
+            # arguments: A bit-equal to the plain NMS, D by check_nn
+            md_a, md_d = rec_calls["nms"]["auc_megadepth"], \
+                rec_calls["nn_match"]["auc_megadepth"]
+            for args, kw in md_a:
+                kw = {k: v for k, v in kw.items() if k != "stats"}
+                if not torch.equal(cuda_nms.nms_cuda(*args, **kw),
+                                   fast_nms(*args, **kw)):
+                    raise AssertionError("kernel A differs on a call of the "
+                                         "MegaDepth run")
+            md_near = [0, 0]
+            for args, _ in md_d:
+                a, b = (x.reshape(-1, *x.shape[-2:]) for x in args[:2])
+                near, err_free, _ = check_nn(cuda_match.nn_dists_cuda(a, b),
+                                             nn_dists(a, b), a, b)
+                errs["nn_match"] = max(errs["nn_match"], err_free)
+                md_near = [md_near[0] + near[0], md_near[1] + near[1]]
+            out["megadepth_calls"] = {
+                "nms": [list(c[0][0].shape) for c in md_a],
+                "nn_match": [[list(x.shape) for x in c[0][:2]] for c in md_d],
+                "nn_near_ties": md_near}
+            log(f"  MegaDepth run's own calls held: "
+                f"{out['megadepth_calls']}")
             # kernel B at batch 1 on ALIKE-t's branches of these frames:
             # no shipped config samples sparsely (the runner samples the
             # dense map), so B is held at the shapes a sparse step would

@@ -6,8 +6,8 @@ datasets/megadepth.py:329-354, datasets/image_pairs.py:19-57) with NHWC
 numpy images: the same keys, dtypes and shapes as the JAX package's
 items. Images decode without OpenCV (datasets/imageio.py, and the native
 PNM loader for HPatches in colour); MegaDepth reads its depths and
-calibrations with h5py and its JPEGs with PIL, imported when a pair is
-read.
+calibrations without h5py (datasets/h5.py) and its JPEGs with PIL,
+imported when a pair is read.
 """
 from __future__ import annotations
 
@@ -17,6 +17,7 @@ from pathlib import Path
 
 import numpy as np
 
+from keypoint_bench_tpu_torch.datasets import h5
 from keypoint_bench_tpu_torch.datasets.imageio import (_pnm_tokens,
                                                        read_image,
                                                        resize_linear)
@@ -119,21 +120,13 @@ def _central_match(depth0, K0, depth1, K1, pose01, rng, downsample=10):
     return (np.array([y0, x0]) * downsample, uv1[::-1] * downsample)
 
 
-def _import_megadepth_readers():
-    missing = []
-    try:
-        import h5py
-    except ImportError:
-        h5py, missing = None, missing + ["h5py"]
+def _import_pil_image():
     try:
         from PIL import Image
     except ImportError:
-        Image, missing = None, missing + ["PIL (Pillow)"]
-    if missing:
-        raise ImportError(f"MegaDepthDataset reads its depths and "
-                          f"calibrations with h5py and its JPEGs with PIL; "
-                          f"missing: {', '.join(missing)}")
-    return h5py, Image
+        raise ImportError("MegaDepthDataset reads its JPEGs with PIL; "
+                          "missing: PIL (Pillow)") from None
+    return Image
 
 
 class MegaDepthDataset:
@@ -179,19 +172,18 @@ class MegaDepthDataset:
         return len(self.pairs)
 
     def _read_one(self, paths):
-        h5py, Image = _import_megadepth_readers()
+        Image = _import_pil_image()
         ipath, dpath, cpath = paths
-        with h5py.File(self.root / dpath, "r") as f:
-            depth = np.array(f["/depth"]).astype("float32")
+        depth = h5.read(self.root / dpath, "/depth").astype("float32")
         with Image.open(self.root / ipath) as img:
             if img.mode != "RGB":
                 img = img.convert("RGB")
             img = np.array(img).astype("float32") / 255.0
         pose = np.eye(4, dtype="float32")
-        with h5py.File(cpath, "r") as f:
-            K = np.array(f["K"]).astype("float32")
-            pose[:3, :3] = f["R"][()]
-            pose[:3, 3] = f["T"][()]
+        with h5.File(cpath) as f:
+            K = f["K"].astype("float32")
+            pose[:3, :3] = f["R"]
+            pose[:3, 3] = f["T"]
         return img, depth, K, pose
 
     @staticmethod

@@ -7,9 +7,10 @@ imageio in the port, the native HPatches loader), within RESIZE_TOL where
 JAX resizes with cv2.resize and the port with resize_linear (one float32
 ulp of [0, 1] measured); poses and fundamental matrices equal; IMU deltas
 in float64 within 1e-9 (JAX in x64, its float32 GRAVITY constant on both
-sides). With cv2, PIL and h5py blocked (the card's condition), HPatches,
-KITTI, TartanAir, image pairs, UMA and Images still load, and MegaDepth,
-EuRoC and Video raise ImportError naming what they need."""
+sides). With h5py blocked (the card's condition) MegaDepth's items still
+equal the JAX loader's; with cv2, PIL and h5py blocked, HPatches, KITTI,
+TartanAir, image pairs, UMA and Images still load, and MegaDepth (its
+JPEGs), EuRoC and Video raise ImportError naming what they need."""
 import json
 import os
 import shutil
@@ -404,13 +405,19 @@ def test_loaders_without_cv2_pil_h5py(tree, monkeypatch):
         "images": lambda: sequences.ImagesDataset(tree["images"]),
     }
     want = {k: make()[len(make()) - 1] for k, make in cases.items()}
-    for mod in ("cv2", "PIL", "PIL.Image", "h5py"):
+    md_want = jpairs.MegaDepthDataset(tree["megadepth"], 32)[0]
+    monkeypatch.setitem(sys.modules, "h5py", None)
+    # MegaDepth's depths and calibrations without h5py (datasets/h5.py)
+    _assert_items_equal(pairs.MegaDepthDataset(tree["megadepth"], 32)[0],
+                        md_want, path="megadepth")
+    for mod in ("cv2", "PIL", "PIL.Image"):
         monkeypatch.setitem(sys.modules, mod, None)
     for k, make in cases.items():
         ds = make()
         _assert_items_equal(ds[len(ds) - 1], want[k], path=k)
-    with pytest.raises(ImportError, match="h5py.*PIL"):
+    with pytest.raises(ImportError, match="PIL") as e:
         pairs.MegaDepthDataset(tree["megadepth"])[0]
+    assert "h5py" not in str(e.value)
     with pytest.raises(ImportError, match="cv2"):
         sequences.EurocDataset(tree["euroc"])[0]
     with pytest.raises(ImportError, match="cv2"):

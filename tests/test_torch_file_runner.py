@@ -15,7 +15,8 @@ hit counts equal (tests/test_torch_fund_runner.py); VO's pair-solver
 inputs with JAX's solver on both sides: keypoints within a float32 ulp,
 masks equal, tracks within 1e-2 px (tests/test_torch_vo_runner.py). The port's runs of the HPatches, KITTI,
 TartanAir and image-pair configs take place with cv2, PIL and h5py
-blocked (the card's condition), after the JAX runner's. The VO runs solve
+blocked (the card's condition), after the JAX runner's; its MegaDepth run
+with h5py blocked (its JPEGs need PIL). The VO runs solve
 at 256 hypotheses on both sides (RANSAC-E at the runner's 4096 dominates
 a CPU run). Then the resume journal per task: a run cut after one pair
 and resumed replays the journal and computes the rest only."""
@@ -131,10 +132,12 @@ def _jax(cfg):
     return JaxEvaluator(JaxEvalConfig(**cfg)).run()
 
 
-def _block_readers(monkeypatch):
-    """The card's condition: no OpenCV, PIL or h5py."""
+def _block_readers(monkeypatch, keep=()):
+    """The card's condition: no OpenCV, PIL or h5py (less those in
+    `keep`)."""
     for mod in ("cv2", "PIL", "PIL.Image", "h5py"):
-        monkeypatch.setitem(sys.modules, mod, None)
+        if mod not in keep:
+            monkeypatch.setitem(sys.modules, mod, None)
 
 
 VO_NHYP = 256
@@ -195,12 +198,14 @@ def test_long_term_matches_jax(trees, tmp_path, highest, jax_draws,
     assert abs(got["fundamental_radio"] - ref["fundamental_radio"]) <= 0.02
 
 
-def test_auc_megadepth_matches_jax(trees, tmp_path, highest, jax_draws):
+def test_auc_megadepth_matches_jax(trees, tmp_path, highest, jax_draws,
+                                  monkeypatch):
     if "megadepth" not in trees:
-        pytest.skip("h5py or PIL is not installed")
+        pytest.skip("PIL is not installed")
     cfg = _config("auc_megadepth", trees, tmp_path / "t")
-    got = _port_cli(cfg)
     ref = _jax(dict(cfg, output_dir=str(tmp_path / "j")))
+    _block_readers(monkeypatch, keep=("PIL", "PIL.Image"))
+    got = _port_cli(cfg)
     np.testing.assert_allclose(got["per_pair_error"], ref["per_pair_error"],
                                rtol=0, atol=3.0)
     assert abs(np.median(got["per_pair_error"])
@@ -280,7 +285,7 @@ def test_resume_replays_the_journal_and_computes_the_rest(
     other tasks' later pairs take the generator's draws from the start of
     the run, as the JAX runner's keys do (runner.py's docstring)."""
     if SHIPPED[name] not in trees:
-        pytest.skip("h5py or PIL is not installed")
+        pytest.skip("PIL is not installed")
     monkeypatch.setattr(trunner, "vo_pair_pose", functools.partial(
         trunner.vo_pair_pose, n_hyp=VO_NHYP))
     cfg = _config(name, trees, tmp_path / "run")

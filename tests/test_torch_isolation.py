@@ -256,6 +256,24 @@ def test_no_eager_cv2_pil_h5py_imports(path):
         assert not bad, f"{path}:{node.lineno} imports {bad} eagerly"
 
 
+@pytest.mark.parametrize("path", _port_files(),
+                         ids=lambda p: os.path.relpath(p, ROOT))
+def test_no_h5py_imports_anywhere(path):
+    """HDF5 files are read by datasets/h5.py: no module of the port, and
+    not chip_smoke.py, imports h5py, in a function or at the top."""
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module]
+        else:
+            continue
+        bad = [n for n in names if n.split(".")[0] == "h5py"]
+        assert not bad, f"{path}:{node.lineno} imports {bad}"
+
+
 def test_the_port_imports_with_cv2_pil_h5py_blocked():
     """Every module of the port, and chip_smoke.py, import where cv2, PIL
     and h5py cannot, and the file-backed registry builds its loaders."""
