@@ -22,6 +22,8 @@ import math
 
 import torch
 
+from keypoint_bench_tpu_torch.utils import profiling
+
 
 def _sample_minimal(mask: torch.Tensor, n_hyp: int, sample_size: int,
                     generator: torch.Generator) -> torch.Tensor:
@@ -130,21 +132,26 @@ def ransac_homography_from_samples(p0: torch.Tensor, p1: torch.Tensor,
     """RANSAC over given minimal samples idx [..., n_hyp, 4]; p0, p1
     [..., K, 2] pixel coordinates, mask [..., K]. Returns (H [..., 3, 3]
     with H[2, 2] = 1, inliers [..., K], ok [...])."""
-    q0, q1 = _take(p0, idx), _take(p1, idx)
-    hs = _solve_dlt_h(q0, q1, torch.ones_like(q0[..., 0]))
-    res = _homography_residual(hs, p0[..., None, :, :], p1[..., None, :, :])
-    inl = (res < thresh) & mask[..., None, :]
-    counts = inl.sum(-1)
-    best = counts.argmax(-1)
-    w = _rows(inl, best).float()
-    t0 = _normalize_pts(p0, w)
-    t1 = _normalize_pts(p1, w)
-    hn = _solve_dlt_h(_apply_T(t0, p0), _apply_T(t1, p1), w)
-    H = torch.linalg.inv_ex(t1)[0] @ (hn @ t0)
-    h22 = H[..., 2:3, 2:3]
-    H = H / torch.where(h22.abs() > 1e-12, h22, torch.full_like(h22, 1e-12))
-    final = (_homography_residual(H, p0, p1) < thresh) & mask
-    ok = (mask.sum(-1) >= 4) & (_rows(counts, best) >= 4)
+    with profiling.span("kbt.geometry.ransac.solve"):
+        q0, q1 = _take(p0, idx), _take(p1, idx)
+        hs = _solve_dlt_h(q0, q1, torch.ones_like(q0[..., 0]))
+    with profiling.span("kbt.geometry.ransac.score"):
+        res = _homography_residual(hs, p0[..., None, :, :],
+                                   p1[..., None, :, :])
+        inl = (res < thresh) & mask[..., None, :]
+        counts = inl.sum(-1)
+        best = counts.argmax(-1)
+    with profiling.span("kbt.geometry.ransac.refit"):
+        w = _rows(inl, best).float()
+        t0 = _normalize_pts(p0, w)
+        t1 = _normalize_pts(p1, w)
+        hn = _solve_dlt_h(_apply_T(t0, p0), _apply_T(t1, p1), w)
+        H = torch.linalg.inv_ex(t1)[0] @ (hn @ t0)
+        h22 = H[..., 2:3, 2:3]
+        H = H / torch.where(h22.abs() > 1e-12, h22,
+                            torch.full_like(h22, 1e-12))
+        final = (_homography_residual(H, p0, p1) < thresh) & mask
+        ok = (mask.sum(-1) >= 4) & (_rows(counts, best) >= 4)
     return H, final, ok
 
 
@@ -324,20 +331,23 @@ def ransac_essential_from_samples(p0n: torch.Tensor, p1n: torch.Tensor,
     `_solve_eightpoint_e`).
     `thresh` is a Sampson threshold, scalar or [...]. Returns (E [..., 3,
     3], inliers [..., K], ok [...])."""
-    q0, q1 = _take(p0n, idx), _take(p1n, idx)
-    e9, valid = _solve_minimal_e(q0, q1)
-    es = _essential_project(e9)
-    res = _sampson(es, p0n[..., None, :, :], p1n[..., None, :, :])
-    inl = (res < _threshold(thresh, res, 2)) & mask[..., None, :] \
-        & valid[..., None]
-    counts = inl.sum(-1)
-    best = counts.argmax(-1)
-    th = _threshold(thresh, res, 1)
-    w = _rows(inl, best).float()
-    for _ in range(3):
-        E = _essential_project(_solve_eightpoint_e(p0n, p1n, w))
-        w = ((_sampson(E, p0n, p1n) < th) & mask).float()
-    ok = (mask.sum(-1) >= 8) & (_rows(counts, best) >= 8)
+    with profiling.span("kbt.geometry.ransac.solve"):
+        q0, q1 = _take(p0n, idx), _take(p1n, idx)
+        e9, valid = _solve_minimal_e(q0, q1)
+        es = _essential_project(e9)
+    with profiling.span("kbt.geometry.ransac.score"):
+        res = _sampson(es, p0n[..., None, :, :], p1n[..., None, :, :])
+        inl = (res < _threshold(thresh, res, 2)) & mask[..., None, :] \
+            & valid[..., None]
+        counts = inl.sum(-1)
+        best = counts.argmax(-1)
+    with profiling.span("kbt.geometry.ransac.refit"):
+        th = _threshold(thresh, res, 1)
+        w = _rows(inl, best).float()
+        for _ in range(3):
+            E = _essential_project(_solve_eightpoint_e(p0n, p1n, w))
+            w = ((_sampson(E, p0n, p1n) < th) & mask).float()
+        ok = (mask.sum(-1) >= 8) & (_rows(counts, best) >= 8)
     return E, w > 0, ok
 
 

@@ -19,6 +19,7 @@ import torch
 from keypoint_bench_tpu_torch.ops import _build
 from keypoint_bench_tpu_torch.ops._build import Kernel
 from keypoint_bench_tpu_torch.utils.debug_nans import check_kernel_outputs
+from keypoint_bench_tpu_torch.utils import profiling
 
 # the tile's d-pixel halo stays inside its 3x3 tile neighbourhood (d < 32,
 # which the changed-tile test needs) and in 48 KB of shared memory
@@ -34,11 +35,20 @@ PEEL_CHUNK = 128
 def nms_fixpoint(maps: torch.Tensor, nms_dist: int, max_iter: int = 30,
                  min_value: float = 0.0) -> torch.Tensor:
     """NMS fixpoint of [B,H,W] maps, each map stopping on its own; same
-    dtype out. Equal bit for bit to detect.fast_nms."""
+    dtype out. Equal bit for bit to detect.fast_nms.
+
+    While a torch profiler runs, kernel A adds its `stats` into the
+    counter `kernel_A.stats.B<B>.iter<max_iter>` (`profiling.counter`);
+    otherwise it gets none."""
     if not maps.is_cuda:
         from keypoint_bench_tpu_torch.ops.detect import fast_nms
         return fast_nms(maps, nms_dist, max_iter, min_value)
-    return nms_cuda(maps, nms_dist, max_iter, min_value)
+    b = maps.shape[0]
+    stats = profiling.counter(f"kernel_A.stats.B{b}.iter{max_iter}",
+                              b + 2 * (max_iter + 1), maps.device)
+    if stats is None:       # the kernel's plain stand-ins take no stats
+        return nms_cuda(maps, nms_dist, max_iter, min_value)
+    return nms_cuda(maps, nms_dist, max_iter, min_value, stats=stats)
 
 
 def nms_cuda(maps: torch.Tensor, nms_dist: int, max_iter: int = 30,

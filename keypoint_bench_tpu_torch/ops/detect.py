@@ -18,6 +18,8 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
+from keypoint_bench_tpu_torch.utils import profiling
+
 
 @dataclasses.dataclass(frozen=True)
 class DetectParams:
@@ -133,11 +135,15 @@ def detection_batch(score_maps: torch.Tensor,
     if score_maps.dim() == 4:
         score_maps = score_maps[..., 0]
     b, h, w = score_maps.shape
-    nms = cuda_nms.nms_fixpoint(score_maps, params.nms_dist,
-                                params.max_nms_iter)
-    flat = remove_border(nms, params.border_dist).reshape(b, h * w).float()
-    scores, idx = topk_select(flat, min(params.top_k, h * w))
-    return _kpts_from_topk(scores, idx, h, w, params)
+    with profiling.span("kbt.ops.detect"):
+        with profiling.span("kbt.ops.detect.nms"):
+            nms = cuda_nms.nms_fixpoint(score_maps, params.nms_dist,
+                                        params.max_nms_iter)
+        with profiling.span("kbt.ops.detect.topk"):
+            flat = remove_border(nms, params.border_dist).reshape(
+                b, h * w).float()
+            scores, idx = topk_select(flat, min(params.top_k, h * w))
+        return _kpts_from_topk(scores, idx, h, w, params)
 
 
 def peel_topk(nms: torch.Tensor, border: int, per_chunk: int = 8):

@@ -19,6 +19,7 @@ import math
 import torch
 
 from keypoint_bench_tpu_torch.ops.grid_sample import sample_at_points
+from keypoint_bench_tpu_torch.utils import profiling
 
 _BIG = 1e30
 _PEN = 1e8  # kernel D: penalty per invalid endpoint, via a sqrt feature
@@ -119,7 +120,8 @@ def brute_force_match(kpts0, valid0, kpts1, valid1, desc_map0, desc_map1,
                       max_distance: float = 5.0):
     """Reference brute-force matcher on dense descriptor maps [H,W,D]:
     (kpts0 [K,3], matched kpts1 rows [K,3], match mask [K])."""
-    desc0 = sample_at_points(desc_map0, kpts0)
-    desc1 = sample_at_points(desc_map1, kpts1)
+    with profiling.span("kbt.ops.describe"):
+        desc0 = sample_at_points(desc_map0, kpts0)
+        desc1 = sample_at_points(desc_map1, kpts1)
     nn01, ok = mutual_nn_match(desc0, desc1, valid0, valid1, max_distance)
     return kpts0, take_rows(kpts1, nn01), ok

@@ -43,6 +43,7 @@ from keypoint_bench_tpu_torch.tasks.auc import (estimate_pose_pair,
                                                 ransac_sample_shape)
 from keypoint_bench_tpu_torch.tasks.mha import mha_pair
 from keypoint_bench_tpu_torch.tasks.repeatability import repeatability_pair
+from keypoint_bench_tpu_torch.utils import profiling
 
 N_HYP_H = 256     # RANSAC-H hypotheses of the batched steps (JAX's)
 
@@ -53,12 +54,13 @@ def pair_samples(mask: torch.Tensor, seeds, n_hyp: int,
     [b, K]: pair j's uniform draws from a generator on mask's device
     seeded with seeds[j], whatever rank draws them; `_sample_minimal` of
     one pair with that generator gives the same samples."""
-    u = []
-    for seed in seeds:
-        g = torch.Generator(device=mask.device).manual_seed(int(seed))
-        u.append(torch.rand((n_hyp, mask.shape[-1]), generator=g,
-                            device=mask.device))
-    return peel_samples(mask, torch.stack(u), size)
+    with profiling.span("kbt.geometry.ransac.samples"):
+        u = []
+        for seed in seeds:
+            g = torch.Generator(device=mask.device).manual_seed(int(seed))
+            u.append(torch.rand((n_hyp, mask.shape[-1]), generator=g,
+                                device=mask.device))
+        return peel_samples(mask, torch.stack(u), size)
 
 
 def block(mesh: Mesh, n: int) -> slice:
@@ -131,10 +133,12 @@ def match_block(k0, va, k1, vb, d0, d1, max_distance: float, sparse: bool,
     on CUDA). On the sparse path d0 / d1 are the keypoint descriptors
     (`pipeline.match_sparse`, in `match_dtype` where given); dense maps are
     sampled at the keypoints (brute_force_match)."""
-    if sparse:
-        m1, ok = match_sparse(k1, d0, d1, va, vb, max_distance, match_dtype)
-        return k0, m1, ok
-    return brute_force_match(k0, va, k1, vb, d0, d1, max_distance)
+    with profiling.span("kbt.ops.match"):
+        if sparse:
+            m1, ok = match_sparse(k1, d0, d1, va, vb, max_distance,
+                                  match_dtype)
+            return k0, m1, ok
+        return brute_force_match(k0, va, k1, vb, d0, d1, max_distance)
 
 
 def _tensor(x, dev) -> torch.Tensor:
@@ -152,7 +156,8 @@ def _warps(sizes, k0, v0, k1, v1, Hs, Hinvs):
     def warp(w, h, k0, v0, k1, v1, H, Hi):
         return (*warp_homography(k0, v0, H, w, h),
                 *warp_homography(k1, v1, Hi, w, h))
-    return _per_size(sizes, warp, k0, v0, k1, v1, Hs, Hinvs)
+    with profiling.span("kbt.geometry.warp"):
+        return _per_size(sizes, warp, k0, v0, k1, v1, Hs, Hinvs)
 
 
 @torch.inference_mode()
@@ -166,30 +171,31 @@ def batched_repeatability_step(model, detect_params: DetectParams, imgs0,
     [b] and RANSAC seeds [b] -> per-pair repeatability, mean_error,
     num_feat (float), gt_num and homography_inliers (float; 0 for a
     detector-only model), each [b], on `device`."""
-    device = resolve_device(device)
-    _check_weights(model.params, device)
-    k0, v0, d0, k1, v1, d1 = forward_detect(model, detect_params, imgs0,
-                                            imgs1, sparse, device)
-    sizes = _host(sizes)
-    a0, a01, va, b0, b10, vb = _warps(sizes, k0, v0, k1, v1,
-                                      _tensor(Hs, device),
-                                      _tensor(Hinvs, device))
-    rep = repeatability_pair(k0, v0, k1, v1, a0, a01, va, b0, b10, vb,
-                             _tensor(scales, device), th)
-    n_inl = torch.zeros(len(sizes), device=device)
-    if d0 is not None:
-        m0, m1, ok = match_block(k0, va, k1, vb, d0, d1, bf_max_distance,
-                                 sparse, match_dtype)
-        s = torch.as_tensor(sizes - 1.0, dtype=torch.float32,
-                            device=device)[:, None, :]
-        _, inl, ok_h = ransac_homography_from_samples(
-            m0[..., 0:2] * s, m1[..., 0:2] * s, ok,
-            pair_samples(ok, seeds, N_HYP_H, 4))
-        n_inl = torch.where(ok_h, inl.sum(-1), 0).float()
-    return {"repeatability": rep["repeatability"],
-            "mean_error": rep["mean_error"],
-            "num_feat": rep["num_feat"].float(), "gt_num": rep["gt_num"],
-            "homography_inliers": n_inl}
+    with profiling.span("kbt.step.repeatability"):
+        device = resolve_device(device)
+        _check_weights(model.params, device)
+        k0, v0, d0, k1, v1, d1 = forward_detect(model, detect_params, imgs0,
+                                                imgs1, sparse, device)
+        sizes = _host(sizes)
+        a0, a01, va, b0, b10, vb = _warps(sizes, k0, v0, k1, v1,
+                                          _tensor(Hs, device),
+                                          _tensor(Hinvs, device))
+        rep = repeatability_pair(k0, v0, k1, v1, a0, a01, va, b0, b10, vb,
+                                 _tensor(scales, device), th)
+        n_inl = torch.zeros(len(sizes), device=device)
+        if d0 is not None:
+            m0, m1, ok = match_block(k0, va, k1, vb, d0, d1, bf_max_distance,
+                                     sparse, match_dtype)
+            s = torch.as_tensor(sizes - 1.0, dtype=torch.float32,
+                                device=device)[:, None, :]
+            _, inl, ok_h = ransac_homography_from_samples(
+                m0[..., 0:2] * s, m1[..., 0:2] * s, ok,
+                pair_samples(ok, seeds, N_HYP_H, 4))
+            n_inl = torch.where(ok_h, inl.sum(-1), 0).float()
+        return {"repeatability": rep["repeatability"],
+                "mean_error": rep["mean_error"],
+                "num_feat": rep["num_feat"].float(), "gt_num": rep["gt_num"],
+                "homography_inliers": n_inl}
 
 
 @torch.inference_mode()
@@ -200,27 +206,28 @@ def batched_mha_step(model, detect_params: DetectParams, imgs0, imgs1, Hs,
     """b homography pairs (inputs as `batched_repeatability_step`) -> the
     MHA hit matrix [b, len(thresholds)]: matches between the covisible
     keypoints, RANSAC-H with 256 hypotheses, the corner test."""
-    device = resolve_device(device)
-    _check_weights(model.params, device)
-    k0, v0, d0, k1, v1, d1 = forward_detect(model, detect_params, imgs0,
-                                            imgs1, sparse, device)
-    if d0 is None:
-        raise ValueError("MHA matches descriptors; the model has none")
-    sizes = _host(sizes)
-    Hs = _tensor(Hs, device)
-    _, _, va, _, _, vb = _warps(sizes, k0, v0, k1, v1, Hs,
-                                _tensor(Hinvs, device))
-    m0, m1, ok = match_block(k0, va, k1, vb, d0, d1, bf_max_distance,
-                             sparse, match_dtype)
-    h_img, w_img = imgs0.shape[1], imgs0.shape[2]
+    with profiling.span("kbt.step.mha"):
+        device = resolve_device(device)
+        _check_weights(model.params, device)
+        k0, v0, d0, k1, v1, d1 = forward_detect(model, detect_params, imgs0,
+                                                imgs1, sparse, device)
+        if d0 is None:
+            raise ValueError("MHA matches descriptors; the model has none")
+        sizes = _host(sizes)
+        Hs = _tensor(Hs, device)
+        _, _, va, _, _, vb = _warps(sizes, k0, v0, k1, v1, Hs,
+                                    _tensor(Hinvs, device))
+        m0, m1, ok = match_block(k0, va, k1, vb, d0, d1, bf_max_distance,
+                                 sparse, match_dtype)
+        h_img, w_img = imgs0.shape[1], imgs0.shape[2]
 
-    def tail(w, h, m0, m1, ok, H, idx):
-        return (mha_pair(m0, m1, ok, H, w, h, h_img, w_img,
-                         thresholds=thresholds, n_hyp=N_HYP_H,
-                         sample_idx=idx),)
+        def tail(w, h, m0, m1, ok, H, idx):
+            return (mha_pair(m0, m1, ok, H, w, h, h_img, w_img,
+                             thresholds=thresholds, n_hyp=N_HYP_H,
+                             sample_idx=idx),)
 
-    return _per_size(sizes, tail, m0, m1, ok, Hs,
-                     pair_samples(ok, seeds, N_HYP_H, 4))[0]
+        return _per_size(sizes, tail, m0, m1, ok, Hs,
+                         pair_samples(ok, seeds, N_HYP_H, 4))[0]
 
 
 @torch.inference_mode()
@@ -233,25 +240,30 @@ def batched_auc_step(model, detect_params: DetectParams, imgs0, imgs1, K0s,
     errors [b] in degrees, 180 where the pose failed; inlier counts [b],
     0 there). Essential RANSAC ("8pt" or "5pt") + recoverPose on the
     mutual-NN matches of all keypoints."""
-    device = resolve_device(device)
-    _check_weights(model.params, device)
-    k0, v0, d0, k1, v1, d1 = forward_detect(model, detect_params, imgs0,
-                                            imgs1, sparse, device)
-    if d0 is None:
-        raise ValueError("AUC matches descriptors; the model has none")
-    m0, m1, ok = match_block(k0, v0, k1, v1, d0, d1, bf_max_distance,
-                             sparse, match_dtype)
-    h0, w0 = imgs0.shape[1:3]
-    h1, w1 = imgs1.shape[1:3]
-    p0 = m0[..., 0:2] * torch.tensor([w0 - 1.0, h0 - 1.0], device=device)
-    p1 = m1[..., 0:2] * torch.tensor([w1 - 1.0, h1 - 1.0], device=device)
-    R, t, _, n_in, okp = estimate_pose_pair(
-        p0, p1, ok, _tensor(K0s, device), _tensor(K1s, device), None,
-        n_hyp=n_hyp, solver=solver, samples=pair_samples(
-            ok, seeds, *ransac_sample_shape(solver, n_hyp)))
-    err = torch.where(okp, pose_error(R, t, _tensor(poses01, device)),
-                      torch.full_like(okp, 180.0, dtype=torch.float32))
-    return err, torch.where(okp, n_in, torch.zeros_like(n_in))
+    with profiling.span("kbt.step.auc"):
+        device = resolve_device(device)
+        _check_weights(model.params, device)
+        k0, v0, d0, k1, v1, d1 = forward_detect(model, detect_params, imgs0,
+                                                imgs1, sparse, device)
+        if d0 is None:
+            raise ValueError("AUC matches descriptors; the model has none")
+        m0, m1, ok = match_block(k0, v0, k1, v1, d0, d1, bf_max_distance,
+                                 sparse, match_dtype)
+        h0, w0 = imgs0.shape[1:3]
+        h1, w1 = imgs1.shape[1:3]
+        p0 = m0[..., 0:2] * torch.tensor([w0 - 1.0, h0 - 1.0],
+                                         device=device)
+        p1 = m1[..., 0:2] * torch.tensor([w1 - 1.0, h1 - 1.0],
+                                         device=device)
+        R, t, _, n_in, okp = estimate_pose_pair(
+            p0, p1, ok, _tensor(K0s, device), _tensor(K1s, device), None,
+            n_hyp=n_hyp, solver=solver, samples=pair_samples(
+                ok, seeds, *ransac_sample_shape(solver, n_hyp)))
+        with profiling.span("kbt.geometry.pose_error"):
+            err = pose_error(R, t, _tensor(poses01, device))
+            err = torch.where(okp, err, torch.full_like(
+                okp, 180.0, dtype=torch.float32))
+        return err, torch.where(okp, n_in, torch.zeros_like(n_in))
 
 
 class ShardedStep:

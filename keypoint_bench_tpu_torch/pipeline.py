@@ -75,6 +75,7 @@ from keypoint_bench_tpu_torch.tasks.mha import mha_pair
 from keypoint_bench_tpu_torch.tasks.vo import chain_poses, vo_pair_pose
 from keypoint_bench_tpu_torch.tasks.vo_ba import (chain_tracks, chain_w2c,
                                                   refine_window)
+from keypoint_bench_tpu_torch.utils import profiling
 
 MATCHERS = ("brute_force", "light_glue")
 _PRECISIONS = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
@@ -350,12 +351,15 @@ def detect_frames(model, frames, dp: DetectParams, device: torch.device,
         imgs = torch.as_tensor(frames[i0:i0 + chunk], device=device)
         if sparse:
             h, w = imgs.shape[1], imgs.shape[2]
-            score, feats = model.feats(imgs)
+            with profiling.span("kbt.models.forward"):
+                score, feats = model.feats(imgs)
             kpts, valid = detection_batch(score, dp)
-            desc = alike_sparse_descriptors_cm_batch(model.params, feats,
-                                                     kpts, h, w)
+            with profiling.span("kbt.ops.describe"):
+                desc = alike_sparse_descriptors_cm_batch(model.params, feats,
+                                                         kpts, h, w)
         else:
-            score, desc = model(imgs)
+            with profiling.span("kbt.models.forward"):
+                score, desc = model(imgs)
             kpts, valid = detection_batch(score, dp)
         parts.append((score, desc, kpts, valid))
     return tuple(None if parts[0][j] is None

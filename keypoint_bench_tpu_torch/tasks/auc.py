@@ -18,6 +18,7 @@ from keypoint_bench_tpu_torch.geometry.fivepoint import \
     ransac_essential_5pt_from_samples
 from keypoint_bench_tpu_torch.geometry.ransac import (
     _sample_minimal, ransac_essential_from_samples, recover_pose)
+from keypoint_bench_tpu_torch.utils import profiling
 
 
 def ransac_sample_shape(solver: str, n_hyp: int) -> tuple[int, int]:
@@ -45,23 +46,25 @@ def estimate_pose_pair(m_pts0: torch.Tensor, m_pts1: torch.Tensor,
     hypotheses). The minimal samples [..., n, 8] or [..., n, 5] come from
     `generator` (on the tensors' device), or are given as `samples`."""
     n, size = ransac_sample_shape(solver, n_hyp)
-    f_mean = (K0[..., 0, 0] + K1[..., 1, 1] + K0[..., 0, 0]
-              + K1[..., 1, 1]) / 4.0                        # AUC.py:45
-    norm_th = thresh_px / f_mean
 
     def normalize(p, K):
         c = torch.stack([K[..., 0, 2], K[..., 1, 2]], dim=-1)[..., None, :]
         f = torch.stack([K[..., 0, 0], K[..., 1, 1]], dim=-1)[..., None, :]
         return (p - c) / f
 
-    p0n, p1n = normalize(m_pts0, K0), normalize(m_pts1, K1)
-    ransac = ransac_essential_5pt_from_samples if solver == "5pt" \
-        else ransac_essential_from_samples
-    if samples is None:
-        samples = _sample_minimal(match_mask, n, size, generator)
-    E, inl, ok_e = ransac(p0n, p1n, match_mask, samples, norm_th)
-    R, t, pose_mask, n_in = recover_pose(E, p0n, p1n, inl)
-    return R, t, pose_mask, n_in, ok_e & (match_mask.sum(-1) >= 5)
+    with profiling.span("kbt.geometry.pose"):
+        f_mean = (K0[..., 0, 0] + K1[..., 1, 1] + K0[..., 0, 0]
+                  + K1[..., 1, 1]) / 4.0                    # AUC.py:45
+        norm_th = thresh_px / f_mean
+        p0n, p1n = normalize(m_pts0, K0), normalize(m_pts1, K1)
+        ransac = ransac_essential_5pt_from_samples if solver == "5pt" \
+            else ransac_essential_from_samples
+        if samples is None:
+            samples = _sample_minimal(match_mask, n, size, generator)
+        E, inl, ok_e = ransac(p0n, p1n, match_mask, samples, norm_th)
+        with profiling.span("kbt.geometry.pose.recover"):
+            R, t, pose_mask, n_in = recover_pose(E, p0n, p1n, inl)
+        return R, t, pose_mask, n_in, ok_e & (match_mask.sum(-1) >= 5)
 
 
 def pose_error(R_est: torch.Tensor, t_est: torch.Tensor,

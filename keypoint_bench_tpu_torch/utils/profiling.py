@@ -1,6 +1,6 @@
 """Cost, latency and traces of a model forward (counterpart of
 keypoint_bench_tpu/utils/profiling.py, which reads XLA's cost analysis
-and wraps jax.profiler).
+and wraps jax.profiler), and the port's own spans and counters.
 
 `model_cost` counts the forward's floating-point operations with
 `torch.utils.flop_counter.FlopCounterMode` (convolutions and matrix
@@ -8,18 +8,68 @@ products; XLA also counts elementwise operations), its bytes as the sum
 of every dispatched operation's input and output tensor bytes (XLA's
 "bytes accessed" counts a fused program's operands, so the two differ by
 the fusion), and its parameters from the weights.
+
+Tracing is on exactly while a torch profiler runs (`trace`, or any
+`torch.profiler.profile`); there is no setting. Then `span(name)` is a
+`torch.profiler.record_function`, so the port's spans (`kbt.<layer>.
+<stage>`, PERF.md §3) sit on the profiler's clock beside the device's
+activity and go out with its trace, and `counter` hands kernels a
+persistent accumulator that `counters()` reads after the traced stretch.
+With no profiler running, `span` returns one shared no-op context and
+`counter` returns None. Call both through the module
+(`profiling.span(...)`).
 """
 from __future__ import annotations
 
+import contextlib
 import os
 import time
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
-from torch.utils.flop_counter import FlopCounterMode
 
 from keypoint_bench_tpu_torch.device import resolve_device
+
+_NO_SPAN = contextlib.nullcontext()
+_COUNTERS: dict[str, torch.Tensor] = {}
+
+
+def span(name: str):
+    """A profiler span named `name` while a torch profiler runs; else the
+    shared no-op context (no allocation, no record_function)."""
+    if not torch.autograd._profiler_enabled():
+        return _NO_SPAN
+    return torch.profiler.record_function(name)
+
+
+def counter(name: str, numel: int, device) -> torch.Tensor | None:
+    """While a torch profiler runs, the int32 accumulator `name` of
+    `numel` entries on `device`, zeroed when first made and kept for the
+    process, for a kernel to add into; else None."""
+    if not torch.autograd._profiler_enabled():
+        return None
+    acc = _COUNTERS.get(name)
+    if acc is None:
+        # a normal tensor, so that counters() may zero it outside the
+        # inference mode of the steps
+        with torch.inference_mode(False):
+            acc = _COUNTERS[name] = torch.zeros(numel, dtype=torch.int32,
+                                                device=device)
+    elif acc.numel() != numel or acc.device != torch.device(device):
+        raise ValueError(f"counter {name} holds {acc.numel()} entries on "
+                         f"{acc.device}, asked for {numel} on {device}")
+    return acc
+
+
+def counters() -> dict[str, torch.Tensor]:
+    """{name: host copy} of every accumulator, each zeroed after the read.
+    The copy waits for the device: read it after the traced stretch."""
+    out = {}
+    for name, acc in _COUNTERS.items():
+        out[name] = acc.to("cpu", copy=True)
+        acc.zero_()
+    return out
 
 
 class _ByteCounter(TorchDispatchMode):
@@ -43,6 +93,8 @@ def model_cost(model_name: str, input_shape=(1, 512, 512, 3),
                device: str | torch.device = "cuda") -> dict:
     """One forward of `model_name` on a float32 image of `input_shape` on
     `device`: {"model", "gflops", "bytes_accessed", "params_k"}."""
+    from torch.utils.flop_counter import FlopCounterMode
+
     from keypoint_bench_tpu_torch.models import get_model
     from keypoint_bench_tpu_torch.weights import load_params
 

@@ -169,6 +169,32 @@ def test_nms_kernel_bit_equal_per_map_rounds(dev, case):
         assert stats[b] == tiles and stats[b + max_iter + 2] == tiles
 
 
+def test_nms_counter_accumulates_under_the_profiler(dev):
+    """Under the profiler nms_fixpoint hands kernel A the persistent
+    counter: after two calls it holds the sum of two zeroed `stats`
+    tensors of the same calls, and the maps equal a call without stats;
+    `counters()` zeroes it after the read."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from keypoint_bench_tpu_torch.utils import profiling
+    maps = [_blurred((3, 100, 130), 2, s).to(dev) for s in (11, 12)]
+    name = "kernel_A.stats.B3.iter30"
+    profiling.counters()
+    want = torch.zeros(3 + 2 * 31, dtype=torch.int32, device=dev)
+    with profile(activities=[ProfilerActivity.CPU]):
+        got = [cuda_nms.nms_fixpoint(m, 6, 30) for m in maps]
+    for m, g in zip(maps, got):
+        stats = torch.zeros_like(want)
+        assert torch.equal(cuda_nms.nms_cuda(m, 6, 30, stats=stats), g)
+        assert torch.equal(cuda_nms.nms_cuda(m, 6, 30), g)
+        want += stats
+    read = profiling.counters()
+    assert torch.equal(read[name], want.cpu())
+    assert int(want[:3].sum()) > 0
+    assert torch.equal(profiling.counters()[name],
+                       torch.zeros_like(want.cpu()))
+
+
 def _sample_case(dev, b, k, seed,
                  shapes=((160, 224), (80, 112), (20, 28), (5, 7))):
     rng = np.random.default_rng(seed)
