@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU: `python3 chip_smoke.py`.
 
 Phases, each fatal on failure:
-  1. the card's name and power limit; build the six CUDA kernels from
+  1. the card's name and power limit; build the seven CUDA kernels from
      keypoint_bench_tpu_torch/csrc with nvcc, in parallel, and print what
      `-Xptxas -v` says of kernels B, D, E, F and C (registers, shared
      memory, spills);
@@ -437,6 +437,15 @@ The last entry points (`convert_demo_phases`, after phase 61):
      A twice, D, RANSAC-H) against its plain twin: keypoint and match
      counts equal, PNGs byte-equal, both homographies' corners within 3
      px of the ground truth's; timed.
+ 65. (run after phase 5) the BatchNorm epilogue (csrc/bn_epilogue.cu):
+     each of its calls in ALIKE-t's `feats` on phase 5's 16 images and
+     in an R2D2 forward on four of them (8 a forward; phase 5 asserts 16
+     a step) against `bn_chain` on the same inputs, bit for bit; at the
+     cells' shapes ([32,8,512^2], [32,16,256^2], [32,64,16^2] with the
+     residual, R2D2's [4,128,512^2] with the conv bias) the kernel and
+     the chain in turns (CUDA events), the kernel's own device time and
+     its byte bound, in the `kernels` line (bound_ms and the top-level
+     times at R2D2's shape).
 Exits non-zero without CUDA, or without the port's package beside it.
 """
 from __future__ import annotations
@@ -572,8 +581,9 @@ def ptxas_info(name):
 def plain_twins():
     """Route CUDA tensors through the kernels' plain twins (the reference
     the kernels are held against); restored on exit."""
-    from keypoint_bench_tpu_torch.ops import (cuda_attention, cuda_lk,
-                                              cuda_match, cuda_nms,
+    from keypoint_bench_tpu_torch.models.common import bn_chain
+    from keypoint_bench_tpu_torch.ops import (cuda_attention, cuda_bn,
+                                              cuda_lk, cuda_match, cuda_nms,
                                               cuda_sample)
     from keypoint_bench_tpu_torch.ops.attention import fused_attention
     from keypoint_bench_tpu_torch.ops.detect import fast_nms, peel_topk
@@ -582,19 +592,21 @@ def plain_twins():
     from keypoint_bench_tpu_torch.ops.sparse_desc import sample_branches
     saved = (cuda_nms.nms_cuda, cuda_sample.sample_cuda,
              cuda_match.nn_dists_cuda, cuda_attention.attention_cuda,
-             cuda_lk.lk_level_cuda, cuda_nms.peel_cuda)
+             cuda_lk.lk_level_cuda, cuda_nms.peel_cuda, cuda_bn.bn_epilogue)
     cuda_nms.nms_cuda = fast_nms
     cuda_sample.sample_cuda = sample_branches
     cuda_match.nn_dists_cuda = nn_dists
     cuda_attention.attention_cuda = fused_attention
     cuda_lk.lk_level_cuda = _lk_level
     cuda_nms.peel_cuda = peel_topk
+    cuda_bn.bn_epilogue = bn_chain
     try:
         yield
     finally:
         (cuda_nms.nms_cuda, cuda_sample.sample_cuda,
          cuda_match.nn_dists_cuda, cuda_attention.attention_cuda,
-         cuda_lk.lk_level_cuda, cuda_nms.peel_cuda) = saved
+         cuda_lk.lk_level_cuda, cuda_nms.peel_cuda,
+         cuda_bn.bn_epilogue) = saved
 
 
 @contextlib.contextmanager
@@ -615,15 +627,16 @@ def recording(module, name):
 
 
 def kernel_handles():
-    """The kernels' launch counters (the six kernels and the bf16
+    """The kernels' launch counters (the seven kernels and the bf16
     instantiation of B), by the names in the JSON line."""
-    from keypoint_bench_tpu_torch.ops import (cuda_attention, cuda_lk,
-                                              cuda_match, cuda_nms,
+    from keypoint_bench_tpu_torch.ops import (cuda_attention, cuda_bn,
+                                              cuda_lk, cuda_match, cuda_nms,
                                               cuda_sample)
     return {"nms": cuda_nms.KERNEL, "sample": cuda_sample.KERNEL,
             "nn_match": cuda_match.KERNEL, "attention": cuda_attention.KERNEL,
             "lk": cuda_lk.KERNEL, "peel": cuda_nms.PEEL_KERNEL,
-            "sample_bf16": cuda_sample.KERNEL_BF16}
+            "sample_bf16": cuda_sample.KERNEL_BF16,
+            "bn_epilogue": cuda_bn.KERNEL}
 
 
 def reset_launches():
@@ -1750,11 +1763,12 @@ def family_model(name, dev):
 
 
 def bits_equal(a, b):
-    """Bit equality of two float32 tensors (a NaN equals a NaN with the
-    same bits, which torch.equal does not grant)."""
+    """Bit equality of two float32 or bfloat16 tensors (a NaN equals a NaN
+    with the same bits, which torch.equal does not grant)."""
     import torch
-    return a.shape == b.shape and torch.equal(
-        a.contiguous().view(torch.int32), b.contiguous().view(torch.int32))
+    ints = {2: torch.int16, 4: torch.int32}[a.element_size()]
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        a.contiguous().view(ints), b.contiguous().view(ints))
 
 
 def map_gap(got, want):
@@ -6431,6 +6445,126 @@ def _with_group(fn):
         return fn(mesh)
 
 
+# The BatchNorm epilogue's timed forms, f32 as the cells run them:
+# (name, shape, affine, residual, conv bias)
+BN_CASES = [("alike_t.block1", (32, 8, 512, 512), True, False, False),
+            ("alike_t.block2", (32, 16, 256, 256), True, True, False),
+            ("alike_t.block4", (32, 64, 16, 16), True, True, False),
+            ("r2d2", (4, 128, 512, 512), False, False, True)]
+L2_BYTES = 50e6
+
+
+def bn_bound(x, residual, out, n_stats):
+    """(ms, bound_by) of one epilogue: x (and the residual) read once, y
+    written once, and `n_stats` [C] f32 vectors read, at PEAK_BYTES."""
+    n = sum(t.numel() * t.element_size() for t in (x, residual, out)
+            if t is not None) + 4 * n_stats * x.shape[1]
+    return n / PEAK_BYTES * 1e3, "bytes"
+
+
+def bn_epilogue_phase(dev, errs, model, imgs):
+    """The BatchNorm epilogue (csrc/bn_epilogue.cu): every call of an
+    ALIKE-t `feats` on `imgs` and of an R2D2 forward on four of them
+    against `bn_chain` on the same inputs, bit for bit; then, at the
+    cells' shapes, the kernel and the chain in turns (CUDA events over
+    back-to-back calls that cycle over copies of the inputs, more than the
+    L2 holds), the kernel's own device time from the profiler and its
+    byte bound."""
+    import torch
+    from keypoint_bench_tpu_torch.models import get_model
+    from keypoint_bench_tpu_torch.models.common import bn_chain
+    from keypoint_bench_tpu_torch.ops import cuda_bn
+    from keypoint_bench_tpu_torch.weights import load_params
+    out = {"launches_per_forward": {}, "shapes": []}
+    with phase("BatchNorm epilogue vs plain bn_chain: the forwards' calls, "
+               "then the cells' shapes in turns"):
+        r2d2 = get_model("r2d2")(load_params("r2d2", device=dev)).eval()
+        forwards = {"alike_t.feats": lambda: model.feats(imgs),
+                    "r2d2.forward": lambda: r2d2(imgs[:4])}
+        for name, fwd in forwards.items():
+            before = cuda_bn.KERNEL.launches
+            with torch.inference_mode(), \
+                    recording(cuda_bn, "bn_epilogue") as calls:
+                fwd()
+            n = cuda_bn.KERNEL.launches - before
+            forms = []
+            for args, kw in calls:
+                with torch.inference_mode():
+                    same = bits_equal(cuda_bn.bn_epilogue(*args, **kw),
+                                      bn_chain(*args, **kw))
+                if not same:
+                    raise AssertionError(f"the epilogue differs from "
+                                         f"bn_chain in {name}")
+                x, gamma, _, _, _, _, relu, res, bias = args
+                forms.append(f"{list(x.shape)} {str(x.dtype)[6:]}"
+                             + " affine" * (gamma is not None)
+                             + " bias" * (bias is not None)
+                             + " residual" * (res is not None)
+                             + " relu" * bool(relu))
+            log(f"  {name}: {n} launches, each equal to bn_chain bit for "
+                f"bit: " + "; ".join(forms))
+            if n != 8 or len(calls) != 8:
+                raise AssertionError(f"{name}: 8 epilogues a forward, got "
+                                     f"{n} launches of {len(calls)} calls")
+            out["launches_per_forward"][name] = n
+            del calls
+        del r2d2
+        g = torch.Generator(device=dev).manual_seed(0)
+        for name, shape, affine, res, has_bias in BN_CASES:
+            c = shape[1]
+            per = 4 * torch.Size(shape).numel() * (2 + res)
+            copies = max(1, -(-int(2 * L2_BYTES) // per))
+            xs = [torch.randn(shape, generator=g, device=dev)
+                  for _ in range(copies)]
+            rs = [torch.randn(shape, generator=g, device=dev) if res
+                  else None for _ in range(copies)]
+
+            def vec(on=True):
+                return torch.randn(c, generator=g, device=dev) if on else None
+            stats = (vec(affine), vec(affine), vec(),
+                     torch.rand(c, generator=g, device=dev) + 0.5)
+            bias = vec(has_bias)
+            turn = [0]
+
+            def call(fn):
+                def run():
+                    i = turn[0] % copies
+                    turn[0] += 1
+                    return fn(xs[i], *stats, 1e-5, True, rs[i], bias)
+                return run
+            kernel, chain = call(cuda_bn.bn_epilogue), call(bn_chain)
+            with torch.inference_mode():
+                y = kernel()
+                turn[0] = 0
+                same = bits_equal(y, chain())
+            if not same:
+                raise AssertionError(f"the epilogue differs from bn_chain "
+                                     f"at {name}")
+            k_ms, c_ms, four = in_turns(kernel, chain, iters=50,
+                                        other_iters=50)
+            _, _, kernels = profile_step(lambda: [kernel()
+                                                  for _ in range(10)],
+                                         top=20)
+            own = sum(t for k, t in kernels if "bn_epilogue_kernel" in k) / 10
+            c_busy, _, _ = profile_step(lambda: [chain() for _ in range(10)])
+            bound, by = bn_bound(xs[0], rs[0], y, 2 + 2 * affine + has_bias)
+            row = {"case": name, "shape": list(shape), "affine": affine,
+                   "residual": res, "bias": has_bias, "copies": copies,
+                   "ms": k_ms, "plain_ms": c_ms, "ms_in_turns": four,
+                   "device_ms": own, "plain_device_ms": c_busy / 10,
+                   "bound_ms": bound, "bound_by": by}
+            out["shapes"].append(row)
+            log(f"  {name} {list(shape)}: kernel {k_ms:.4f} ms (events; own "
+                f"device time {own:.4f}), chain {c_ms:.4f} ms (device "
+                f"{c_busy / 10:.4f}); in turns kernel, chain, chain, kernel: "
+                + ", ".join(f"{t:.4f}" for t in four)
+                + f"; bound {bound:.4f} ms ({by}); bound / own device time "
+                f"{bound / own:.3f}")
+            del xs, rs, y
+            torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -6501,7 +6635,7 @@ def main() -> int:
                     for n in ("sample", "match", "attention", "lk", "peel")}
             list(pool.map(_build.build,
                           ["nms", "sample", "match", "attention", "lk",
-                           "peel"]))
+                           "peel", "bn_epilogue"]))
             ptxas = {n: f.result() for n, f in info.items()}
         log(f"build: {time.perf_counter() - t0:.1f} s")
         for name, lines in ptxas.items():
@@ -6523,7 +6657,7 @@ def main() -> int:
     model = get_model("Alike")(params).eval()
     dp = DetectParams(nms_dist=6, border_dist=8, top_k=K)
     errs = {"nms": 0.0, "sample": 0.0, "nn_match": 0.0, "attention": 0.0,
-            "lk": 0.0, "peel": 0.0}
+            "lk": 0.0, "peel": 0.0, "bn_epilogue": 0.0}
     sp_params = load_golden_params("SuperPoint", dev)
     sp_model = get_model("SuperPoint")(sp_params).eval()
     lg_params = load_golden_params("lightglue", dev)
@@ -6689,12 +6823,16 @@ def main() -> int:
         torch.cuda.synchronize()
         got = read_launches()
         log(f"  launches in one extract_match run: {got}")
-        launches = {k: got[k] for k in ("nms", "sample")}
+        launches = {k: got[k] for k in ("nms", "sample", "bn_epilogue")}
         if min(got["nms"], got["sample"], got["nn_match"]) <= 0:
             raise AssertionError(f"a kernel was not launched: {got}")
         if got["nms"] != 2:
             raise AssertionError(f"kernel A: one launch per detection "
                                  f"batch, 2 a step; got {got['nms']}")
+        if got["bn_epilogue"] != 16:
+            raise AssertionError(f"the BatchNorm epilogue: one launch a "
+                                 f"BatchNorm, 8 a feats, 16 a step; got "
+                                 f"{got['bn_epilogue']}")
         with torch.inference_mode():
             ext_k = [extract(model, params, im, dp) for im in (imgs0, imgs1)]
             with plain_twins():
@@ -6759,6 +6897,8 @@ def main() -> int:
             f"{samp_ms:.4f} / {samp_orig_ms:.4f}); sector bound "
             f"{samp_sector_ms:.4f} ms, bound {samp_bound_ms:.4f} ms; "
             f"sector bound / device time {samp_sector_ms / samp_dev_ms:.3f}")
+
+    bn = bn_epilogue_phase(dev, errs, model, imgs0)
 
     with phase("repeatability: synthetic, 4 pairs at 512^2"):
         cfg = EvalConfig.from_yaml(os.path.join(
@@ -7581,6 +7721,16 @@ def main() -> int:
          "sector_bound_ms": sb["sector_bound_ms"],
          "sector_bound_by": sb["sector_bound_by"],
          "launches_vo_step": bf["launches_vo_step"]},
+        {"name": "bn_epilogue", "route": "cuda",
+         "source": "keypoint_bench_tpu_torch/csrc/bn_epilogue.cu",
+         "replaces": None, "launches": launches["bn_epilogue"],
+         "max_abs_err": errs["bn_epilogue"],
+         **{k: bn["shapes"][-1][k] for k in (
+             "ms", "plain_ms", "bound_ms", "bound_by", "device_ms",
+             "plain_device_ms")},
+         "library_ms": None,
+         "launches_per_forward": bn["launches_per_forward"],
+         "shapes": bn["shapes"]},
     ]
     log(json.dumps({"xfeat_auc_step": {k: auc[k] for k in (
         "pairs_per_s", "stages_ms", "idle_share", "ransac_ms",

@@ -21,6 +21,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from keypoint_bench_tpu_torch.ops import cuda_bn
+
 
 class ParamModule(nn.Module):
     """A model built from a parameter dict: torch-layout tensors keyed by
@@ -95,19 +97,57 @@ def conv_transpose2d(x: torch.Tensor, w: torch.Tensor,
     return _with_bias(F.conv_transpose2d, x, w, b, stride)
 
 
-def bn_eval(x: torch.Tensor, gamma, beta, mean, var,
-            eps: float = 1e-5) -> torch.Tensor:
+def bn_eval(x: torch.Tensor, gamma, beta, mean, var, eps: float = 1e-5,
+            relu: bool = False, residual: torch.Tensor | None = None,
+            bias: torch.Tensor | None = None) -> torch.Tensor:
+    """The eval BatchNorm epilogue of a convolution: `bn_chain` on the CPU;
+    on the card one pass of the CUDA kernel (ops/cuda_bn.py, the operator
+    `kbt::bn_epilogue`), which gives the chain's bits and raises on a map
+    that is not contiguous NCHW."""
+    if x.is_cuda:
+        return cuda_bn.bn_epilogue(x, gamma, beta, mean, var, eps, relu,
+                                   residual, bias)
+    return bn_chain(x, gamma, beta, mean, var, eps, relu, residual, bias)
+
+
+def bn_chain(x: torch.Tensor, gamma, beta, mean, var, eps: float = 1e-5,
+             relu: bool = False, residual: torch.Tensor | None = None,
+             bias: torch.Tensor | None = None) -> torch.Tensor:
     """BatchNorm inference transform, in the JAX package's operation order:
     (x - mean) * rsqrt(var + eps) * gamma + beta, per channel of NCHW, in
-    f32 and stored back in x's dtype. gamma and beta None: BatchNorm
+    f32 and stored back in x's dtype; then `+ residual` (torch's dtype
+    promotion) and ReLU where asked. gamma and beta None: BatchNorm
     without affine (the JAX package's 1.0 and 0.0, whose product and sum
-    change nothing)."""
+    change nothing). bias: a conv's bias not yet added, added first as
+    torch adds it after cuDNN's convolution (x + bias, in f32)."""
     def c(v):
         return v[:, None, None]
+    if bias is not None:
+        x = x + c(bias)
     y = (x.float() - c(mean)) * c(torch.rsqrt(var + eps))
     if gamma is not None:
         y = y * c(gamma) + c(beta)
-    return y.to(x.dtype)
+    y = y.to(x.dtype)
+    if residual is not None:
+        y = y + residual
+    return torch.clamp_min(y, 0) if relu else y    # relu(), shadowed here
+
+
+def conv_bn(x: torch.Tensor, w: torch.Tensor, b, bn: tuple,
+            stride: int = 1, padding: int = 0, dilation: int = 1,
+            groups: int = 1, relu: bool = False,
+            residual: torch.Tensor | None = None) -> torch.Tensor:
+    """`conv2d` then `bn_eval`, bn = (gamma, beta, running_mean,
+    running_var). On the card an f32 conv bias is the epilogue's first
+    step: torch adds it after cuDNN's convolution in a pass of its own,
+    with the same f32 rounding (as `_with_bias` adds an f32 bias to a bf16
+    conv). Not for a grouped conv, which may run torch's depthwise kernel,
+    whose sum takes the bias in; nor on the CPU, where the conv adds it."""
+    fold = (x.is_cuda and groups == 1 and b is not None
+            and b.dtype == torch.float32)
+    y = conv2d(x, w, None if fold else b, stride, padding, dilation, groups)
+    return bn_eval(y, *bn, relu=relu, residual=residual,
+                   bias=b if fold else None)
 
 
 def instance_norm(x: torch.Tensor, gamma=None, beta=None,
@@ -258,10 +298,14 @@ def upsample_bilinear_align(x: torch.Tensor, factor: int) -> torch.Tensor:
 
 def conv_bn_relu(x, p, conv: str, bn: str, stride: int = 1,
                  padding: int = 1):
-    y = conv2d(x, p[f"{conv}.weight"], p.get(f"{conv}.bias"), stride, padding)
-    y = bn_eval(y, p[f"{bn}.weight"], p[f"{bn}.bias"],
-                p[f"{bn}.running_mean"], p[f"{bn}.running_var"])
-    return relu(y)
+    return conv_bn(x, p[f"{conv}.weight"], p.get(f"{conv}.bias"),
+                   bn_params(p, bn), stride, padding, relu=True)
+
+
+def bn_params(p, bn: str) -> tuple:
+    """(gamma, beta, running_mean, running_var) of BatchNorm `bn`."""
+    return tuple(p[f"{bn}.{k}"] for k in ("weight", "bias", "running_mean",
+                                           "running_var"))
 
 
 def conv_block(x, p, prefix: str):
@@ -275,9 +319,7 @@ def res_block(x, p, prefix: str, stride: int = 1):
     idn = conv2d(x, p[f"{prefix}.downsample.weight"],
                  p.get(f"{prefix}.downsample.bias"), 1, 0)
     y = conv_bn_relu(x, p, f"{prefix}.conv1", f"{prefix}.bn1", stride)
-    y = conv2d(y, p[f"{prefix}.conv2.weight"], p.get(f"{prefix}.conv2.bias"),
-               1, 1)
-    y = bn_eval(y, p[f"{prefix}.bn2.weight"], p[f"{prefix}.bn2.bias"],
-                p[f"{prefix}.bn2.running_mean"],
-                p[f"{prefix}.bn2.running_var"])
-    return relu(y + idn)
+    return conv_bn(y, p[f"{prefix}.conv2.weight"],
+                   p.get(f"{prefix}.conv2.bias"),
+                   bn_params(p, f"{prefix}.bn2"), 1, 1, relu=True,
+                   residual=idn)

@@ -25,10 +25,8 @@ def _handcrafted(x: torch.Tensor) -> torch.Tensor:
 def _learnable(x: torch.Tensor, p: dict) -> torch.Tensor:
     for i in (0, 1, 2):
         pre = f"feature_extractor.lb_block.conv{i}"
-        x = c.conv2d(x, p[f"{pre}.0.weight"], p.get(f"{pre}.0.bias"), 1, 2)
-        x = c.bn_eval(x, p[f"{pre}.1.weight"], p[f"{pre}.1.bias"],
-                      p[f"{pre}.1.running_mean"], p[f"{pre}.1.running_var"])
-        x = c.relu(x)
+        x = c.conv_bn(x, p[f"{pre}.0.weight"], p.get(f"{pre}.0.bias"),
+                      c.bn_params(p, f"{pre}.1"), 1, 2, relu=True)
     return x
 
 

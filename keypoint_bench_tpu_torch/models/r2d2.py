@@ -36,13 +36,15 @@ class R2D2(c.ParamModule):
         p = self.params
         x = c.nchw_image(image)
         for idx, dil, has_bn, has_relu, pad in _LAYERS:
-            x = c.conv2d(x, p[f"ops.{idx}.weight"], p.get(f"ops.{idx}.bias"),
-                         1, pad, dilation=dil)
+            w, b = p[f"ops.{idx}.weight"], p.get(f"ops.{idx}.bias")
             if has_bn:
-                x = c.bn_eval(x, None, None, p[f"ops.{idx + 1}.running_mean"],
-                              p[f"ops.{idx + 1}.running_var"])
-            if has_relu:
-                x = c.relu(x)
+                x = c.conv_bn(x, w, b, (None, None,
+                                        p[f"ops.{idx + 1}.running_mean"],
+                                        p[f"ops.{idx + 1}.running_var"]),
+                              1, pad, dil, relu=has_relu)
+            else:
+                x = c.conv2d(x, w, b, 1, pad, dilation=dil)
+                x = c.relu(x) if has_relu else x
         x2 = x * x
         urel = c.conv2d(x2, p["clf.weight"], p.get("clf.bias"))
         urep = c.conv2d(x2, p["sal.weight"], p.get("sal.bias"))

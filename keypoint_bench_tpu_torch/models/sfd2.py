@@ -16,34 +16,26 @@ from keypoint_bench_tpu_torch.models.registry import register
 STABILITY = (0.1, 0.5, 1.0)
 
 
-def _bn(y: torch.Tensor, p: dict, name: str) -> torch.Tensor:
-    return c.bn_eval(y, p[f"{name}.weight"], p[f"{name}.bias"],
-                     p[f"{name}.running_mean"], p[f"{name}.running_var"])
-
-
-def _bn_nf(y: torch.Tensor, p: dict, name: str) -> torch.Tensor:
-    """BatchNorm with affine=False."""
-    return c.bn_eval(y, None, None, p[f"{name}.running_mean"],
-                     p[f"{name}.running_var"])
-
-
-def _conv_bn_relu_nf(x, p, prefix, stride=1):
-    """`conv(..., relu=True, use_bn=True)` (sfd2.py:62-88): conv + bias, BN
-    without affine, ReLU."""
-    x = c.conv2d(x, p[f"{prefix}.0.weight"], p.get(f"{prefix}.0.bias"),
-                 stride, 1)
-    return c.relu(_bn_nf(x, p, f"{prefix}.1"))
+def _conv_bn(x, p, conv: str, bn: str, stride: int = 1, padding: int = 1,
+             groups: int = 1, affine: bool = True,
+             residual: torch.Tensor | None = None) -> torch.Tensor:
+    """Conv `conv` (with its bias, if it has one), BatchNorm `bn`, ReLU;
+    affine=False is the reference's `conv(..., use_bn=True)`
+    (sfd2.py:62-88), BatchNorm without affine."""
+    gb = (p[f"{bn}.weight"], p[f"{bn}.bias"]) if affine else (None, None)
+    return c.conv_bn(x, p[f"{conv}.weight"], p.get(f"{conv}.bias"),
+                     gb + (p[f"{bn}.running_mean"], p[f"{bn}.running_var"]),
+                     stride, padding, groups=groups, relu=True,
+                     residual=residual)
 
 
 def _res_block(x, p, prefix):
     """Grouped bottleneck (sfd2.py:17-46): 1x1 + BN + ReLU, grouped 3x3 +
     BN + ReLU, 1x1 + BN, add, ReLU; the BNs have affine parameters."""
-    out = c.relu(_bn(c.conv2d(x, p[f"{prefix}.conv1.weight"]), p,
-                     f"{prefix}.bn1"))
-    out = c.relu(_bn(c.conv2d(out, p[f"{prefix}.conv2.weight"], None, 1, 1,
-                              groups=32), p, f"{prefix}.bn2"))
-    out = _bn(c.conv2d(out, p[f"{prefix}.conv3.weight"]), p, f"{prefix}.bn3")
-    return c.relu(out + x)
+    out = _conv_bn(x, p, f"{prefix}.conv1", f"{prefix}.bn1", padding=0)
+    out = _conv_bn(out, p, f"{prefix}.conv2", f"{prefix}.bn2", groups=32)
+    return _conv_bn(out, p, f"{prefix}.conv3", f"{prefix}.bn3", padding=0,
+                    residual=x)
 
 
 def stability(sta: torch.Tensor) -> torch.Tensor:
@@ -64,30 +56,24 @@ class SFD2(c.ParamModule):
         p = self.params
         x = c.nchw_image(image)
         h, w = x.shape[-2], x.shape[-1]
-        x = _conv_bn_relu_nf(x, p, "conv1a")
-        x = c.relu(_bn_nf(c.conv2d(x, p["conv1b.0.weight"],
-                                   p.get("conv1b.0.bias"), 2, 1), p, "bn1b.0"))
-        x = _conv_bn_relu_nf(x, p, "conv2a")
-        x = c.relu(_bn_nf(c.conv2d(x, p["conv2b.0.weight"],
-                                   p.get("conv2b.0.bias"), 2, 1), p, "bn2b.0"))
-        x = _conv_bn_relu_nf(x, p, "conv3a")
-        x = c.relu(_bn_nf(c.conv2d(x, p["conv3b.0.weight"],
-                                   p.get("conv3b.0.bias"), 1, 1), p, "bn3b.0"))
+        for conv, bn, stride in (("conv1a.0", "conv1a.1", 1),
+                                 ("conv1b.0", "bn1b.0", 2),
+                                 ("conv2a.0", "conv2a.1", 1),
+                                 ("conv2b.0", "bn2b.0", 2),
+                                 ("conv3a.0", "conv3a.1", 1),
+                                 ("conv3b.0", "bn3b.0", 1)):
+            x = _conv_bn(x, p, conv, bn, stride, affine=False)
         for i in range(3):
             x = _res_block(x, p, f"conv4.{i}")
 
-        cpa = c.relu(_bn(c.conv2d(x, p["convPa.0.weight"],
-                                  p.get("convPa.0.bias"), 2, 1), p,
-                         "convPa.1"))
+        cpa = _conv_bn(x, p, "convPa.0", "convPa.1", 2)
         cpa = c.conv2d(cpa, p["convPa.3.weight"], p.get("convPa.3.bias"), 1, 1)
         semi = torch.exp(c.conv2d(cpa, p["convPb.weight"],
                                   p.get("convPb.bias")))
         semi = semi / (semi.sum(1, keepdim=True) + 1e-5)
         score = c.depth_to_space(semi[:, :-1], 8)
 
-        cda = c.relu(_bn(c.conv2d(x, p["convDa.0.weight"],
-                                  p.get("convDa.0.bias"), 1, 1), p,
-                         "convDa.1"))
+        cda = _conv_bn(x, p, "convDa.0", "convDa.1")
         cda = c.conv2d(cda, p["convDa.3.weight"], p.get("convDa.3.bias"), 1, 1)
         desc = c.l2_normalize(c.conv2d(cda, p["convDb.weight"],
                                        p.get("convDb.bias")), dim=1)

@@ -38,7 +38,10 @@ def export_model(model_name: str, out_path: str,
 
 def load_exported(path: str):
     """Load an exported model; returns a callable(image) -> its forward's
-    outputs."""
+    outputs. A program traced on the card calls the operator
+    `kbt::bn_epilogue`, which importing ops/cuda_bn.py defines."""
+    from keypoint_bench_tpu_torch.ops import cuda_bn  # noqa: F401
+
     module = torch.export.load(path).module()
 
     def call(image: torch.Tensor):

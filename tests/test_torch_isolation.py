@@ -11,8 +11,10 @@ import numpy as np
 import pytest
 import torch
 
-from keypoint_bench_tpu_torch.ops import (_build, cuda_attention, cuda_lk,
-                                          cuda_match, cuda_nms, cuda_sample)
+from keypoint_bench_tpu_torch.models import common
+from keypoint_bench_tpu_torch.ops import (_build, cuda_attention, cuda_bn,
+                                          cuda_lk, cuda_match, cuda_nms,
+                                          cuda_sample)
 from keypoint_bench_tpu_torch.ops.detect import fast_nms, peel_topk
 from keypoint_bench_tpu_torch.ops.lk import _lk_level
 from keypoint_bench_tpu_torch.ops.sparse_desc import sample_branches
@@ -190,6 +192,11 @@ def _lk_args():
             torch.rand(2, 6, 2) * 30, torch.rand(2, 6, 2) * 30, 5, 3)
 
 
+def _bn_args():
+    return (torch.randn(2, 4, 6, 5), torch.randn(4), torch.randn(4),
+            torch.randn(4), torch.rand(4), 1e-5, True, torch.randn(2, 4, 6, 5))
+
+
 def _kernel_of(mod, launch):
     return mod.PEEL_KERNEL if launch is cuda_nms.peel_cuda else mod.KERNEL
 
@@ -200,7 +207,8 @@ def _kernel_of(mod, launch):
     (cuda_lk, cuda_lk.lk_level_cuda, _lk_args),
     (cuda_sample, cuda_sample.sample_cuda, _sample_args),
     (cuda_match, cuda_match.nn_dists_cuda, _match_args),
-    (cuda_attention, cuda_attention.attention_cuda, _attention_args)])
+    (cuda_attention, cuda_attention.attention_cuda, _attention_args),
+    (cuda_bn, cuda_bn.bn_epilogue, _bn_args)])
 def test_failed_build_raises_on_the_kernel_path(monkeypatch, mod, launch,
                                                 args):
     kernel = _kernel_of(mod, launch)
@@ -218,8 +226,9 @@ def test_cpu_tensors_take_the_plain_twin_without_building(monkeypatch):
     monkeypatch.setattr(cuda_sample.KERNEL, "_fn", None)
     monkeypatch.setattr(cuda_nms.PEEL_KERNEL, "_fn", None)
     monkeypatch.setattr(cuda_lk.KERNEL, "_fn", None)
+    monkeypatch.setattr(cuda_bn.KERNEL, "_fn", None)
     kernels = (cuda_nms.KERNEL, cuda_sample.KERNEL, cuda_nms.PEEL_KERNEL,
-               cuda_lk.KERNEL)
+               cuda_lk.KERNEL, cuda_bn.KERNEL)
     before = [k.launches for k in kernels]
     maps, d = _nms_args()
     assert torch.equal(cuda_nms.nms_fixpoint(maps, d), fast_nms(maps, d))
@@ -232,6 +241,9 @@ def test_cpu_tensors_take_the_plain_twin_without_building(monkeypatch):
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     lk = _lk_args()
     assert torch.equal(cuda_lk.lk_level(*lk), _lk_level(*lk))
+    bn = _bn_args()
+    assert torch.equal(common.bn_eval(*bn[:5], relu=True, residual=bn[-1]),
+                       common.bn_chain(*bn[:5], relu=True, residual=bn[-1]))
     assert [k.launches for k in kernels] == before
 
 

@@ -16,7 +16,11 @@ relative of the plain twin (online softmax, another summation order).
 Kernel F (one LK level) within 5e-3 px of the plain `_lk_level` after 8
 iterations (another summation order of the five sums, amplified by the
 Gauss-Newton steps; the JAX package's tolerance between its kernel and
-`_lk_level`). Kernel C (the peel) only compares and selects: values equal
+`_lk_level`). The BatchNorm epilogue (csrc/bn_epilogue.cu) gives the bits
+of its plain twin, `models/common.py` `bn_chain` run on the card (NaN
+matching NaN; -0.0 and +0.0 differ), and so do whole forwards through it,
+against the forwards as they ran before it (conv biases in the conv) and
+exported. Kernel C (the peel) only compares and selects: values equal
 under == (NaN matching NaN; -0.0 ties with +0.0, as the reference's == has
 it), equal indices. `vo_step` on the card against its plain-twin run on
 the same generator seed: keypoints equal, match rows within 0.5% of the
@@ -39,8 +43,9 @@ import pytest
 import scipy.ndimage as ndi
 import torch
 
+from keypoint_bench_tpu_torch.models import common as tcommon
 from keypoint_bench_tpu_torch.models import lightglue as tlg
-from keypoint_bench_tpu_torch.ops import (cuda_attention, cuda_lk,
+from keypoint_bench_tpu_torch.ops import (cuda_attention, cuda_bn, cuda_lk,
                                           cuda_match, cuda_nms, cuda_sample)
 from keypoint_bench_tpu_torch.ops import lk as tlk
 from keypoint_bench_tpu_torch.ops.attention import fused_attention
@@ -54,6 +59,7 @@ from keypoint_bench_tpu_torch.ops.matching import (mutual_nn_fused,
 from keypoint_bench_tpu_torch.ops.sparse_desc import sample_branches
 from keypoint_bench_tpu_torch.weights import load_golden_params
 from keypoint_bench_tpu_torch.weights.io import GOLDEN_DIR
+from test_torch_bn_epilogue import same_bits
 
 pytestmark = pytest.mark.cuda
 
@@ -1034,3 +1040,228 @@ def test_ba_solve_on_card_matches_cpu(dev, dtype, tol):
     assert abs(e_card - e_cpu) <= tol and e_card < 1.0
     s, gap_r, gap_c, gap_p = _CHIP_SMOKE["gauge_gap"](card, cpu)
     assert abs(s - 1.0) <= 0.05 and max(gap_r, gap_c, gap_p) <= tol
+
+
+# The eval BatchNorm epilogue (csrc/bn_epilogue.cu). The shapes are the
+# cells' ([32,8,512,512] ALIKE-t block1, [32,16,256,256] block2,
+# [32,64,16,16] block4, [4,128,512,512] R2D2) and odd ones: B = 1, C = 1,
+# H*W not a multiple of 8 (so planes start off the vector width), H*W 1.
+_BN_SHAPES = [(32, 8, 512, 512), (32, 16, 256, 256), (32, 64, 16, 16),
+              (4, 128, 512, 512), (1, 3, 5, 7), (2, 1, 9, 13), (3, 5, 1, 1),
+              (1, 1, 1, 3)]
+
+
+def _bn_case(dev, shape, dtype, affine, res_dtype, seed=0, offset=0,
+             with_bias=False):
+    """x of `dtype` with NaN, +-inf and -0.0 at the first and last
+    elements and at random ones; f32 statistics (channel 0: mean 0, beta
+    -0.0, so -0.0 reaches the ReLU); a residual of `res_dtype` or None; an
+    f32 conv bias (channel 0: -0.0) or None. `offset` > 0 places x and the
+    residual that many elements into their buffers (contiguous, off
+    16-byte alignment)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    n, c, h, w = shape
+    numel = n * c * h * w
+
+    def field(scale, dt):
+        buf = torch.empty(numel + offset, dtype=dt, device=dev)
+        t = buf[offset:].view(shape)
+        t.copy_(torch.randn(shape, generator=g, device=dev) * scale)
+        return t
+    xf = torch.randn(shape, generator=g, device=dev) * 3
+    at = torch.cat([torch.tensor([0, numel - 1], device=dev),
+                    torch.randint(0, numel, (40,), generator=g, device=dev)])
+    specials = torch.tensor([float("nan"), float("inf"), float("-inf"), -0.0,
+                             0.0], device=dev)
+    xf.view(-1)[at] = specials.repeat(9)[:at.numel()]
+    x = field(0, dtype)
+    x.copy_(xf)
+    mean = torch.randn(c, generator=g, device=dev)
+    mean[0] = 0.0
+    var = torch.rand(c, generator=g, device=dev) * 2
+    gamma = beta = None
+    if affine:
+        gamma = torch.randn(c, generator=g, device=dev)
+        beta = torch.randn(c, generator=g, device=dev)
+        beta[0] = -0.0
+    res = None
+    if res_dtype is not None:
+        res = field(2, res_dtype)
+        res.view(-1)[torch.randint(0, numel, (8,), generator=g,
+                                   device=dev)] = -0.0
+    bias = None
+    if with_bias:
+        bias = torch.randn(c, generator=g, device=dev)
+        bias[0] = -0.0
+    return x, gamma, beta, mean, var, res, bias
+
+
+@pytest.mark.parametrize("with_bias", [False, True])
+@pytest.mark.parametrize("relu", [False, True])
+@pytest.mark.parametrize("affine", [False, True])
+@pytest.mark.parametrize("res_dtype", [None, torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", _BN_SHAPES, ids=str)
+def test_bn_epilogue_kernel_equals_chain(dev, shape, dtype, res_dtype,
+                                         affine, relu, with_bias):
+    x, gamma, beta, mean, var, res, bias = _bn_case(
+        dev, shape, dtype, affine, res_dtype, with_bias=with_bias)
+    want = tcommon.bn_chain(x, gamma, beta, mean, var, 1e-5, relu, res, bias)
+    before = cuda_bn.KERNEL.launches
+    got = tcommon.bn_eval(x, gamma, beta, mean, var, relu=relu, residual=res,
+                          bias=bias)
+    torch.cuda.synchronize()
+    assert cuda_bn.KERNEL.launches == before + 1
+    same_bits(got, want)
+
+
+@pytest.mark.parametrize("res_dtype", [None, torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bn_epilogue_kernel_off_16_byte_alignment(dev, dtype, res_dtype):
+    """Pointers off 16-byte alignment take the scalar path, with the same
+    bits."""
+    x, gamma, beta, mean, var, res, bias = _bn_case(
+        dev, (2, 3, 40, 24), dtype, True, res_dtype, seed=3, offset=1,
+        with_bias=True)
+    assert x.data_ptr() % 16 != 0
+    got = cuda_bn.bn_epilogue(x, gamma, beta, mean, var, 1e-5, True, res,
+                              bias)
+    same_bits(got, tcommon.bn_chain(x, gamma, beta, mean, var, 1e-5, True,
+                                    res, bias))
+
+
+def test_bn_epilogue_kernel_rejects_bad_input(dev):
+    x, gamma, beta, mean, var, res, bias = _bn_case(
+        dev, (2, 4, 8, 8), torch.float32, True, torch.float32,
+        with_bias=True)
+    before = cuda_bn.KERNEL.launches
+    bad = [
+        (x.to(memory_format=torch.channels_last), gamma, beta, mean, var,
+         None, None),                                    # not NCHW
+        (x.half(), gamma, beta, mean, var, None, None),  # dtype
+        (x.cpu(), gamma, beta, mean, var, None, None),   # not on the card
+        (x[0], gamma, beta, mean, var, None, None),      # not 4-d
+        (x, gamma, None, mean, var, None, None),      # gamma without beta
+        (x, gamma, beta, mean.double(), var, None, None),
+        (x, gamma, beta, mean[:3], var, None, None),
+        (x, gamma, beta, mean, var, None, bias[:3]),     # bias's shape
+        (x, gamma, beta, mean, var, None, bias.cpu()),
+        (x, gamma, beta, mean, var, res[:, :3], None),   # residual's shape
+        (x, gamma, beta, mean, var, res.transpose(2, 3), None)]
+    for args in bad:
+        with pytest.raises(ValueError):
+            cuda_bn.bn_epilogue(*args[:5], 1e-5, True, *args[5:])
+    assert cuda_bn.KERNEL.launches == before
+    with pytest.raises(RuntimeError, match="no backward"):
+        cuda_bn.bn_epilogue(x.clone().requires_grad_(), gamma, beta, mean,
+                            var)
+
+
+# (model, weights, input size, forward or feats, kernel launches a forward)
+_BN_MODELS = [("Alike", "npz", 512, "feats", 8), ("r2d2", "npz", 512,
+                                                   "forward", 8),
+              ("EdgePoint", "npz", 128, "forward", 8),
+              ("GoodPoint", "npz", 128, "forward", 2),
+              ("LETNet", "npz", 128, "forward", 2),
+              ("KeyNet", "npz", 128, "forward", 9),
+              ("sfd2", "golden", 128, "forward", 17)]
+
+
+def _bn_model(name, weights, dev, precision):
+    from keypoint_bench_tpu_torch.models import get_model
+    from keypoint_bench_tpu_torch.weights import load_params
+    params = (load_params(name, device=dev, precision=precision)
+              if weights == "npz" else load_golden_params(name, dev))
+    if weights != "npz" and precision == "bfloat16":
+        params = tcommon.cast_params_bf16(params)
+    return get_model(name)(params).eval()
+
+
+def _parent_conv_bn(x, w, b, bn, stride=1, padding=0, dilation=1,
+                    groups=1, relu=False, residual=None):
+    """`conv_bn` as the models ran it before the epilogue kernel: the conv
+    with its bias (cuDNN, then torch's bias pass), then the chain."""
+    return tcommon.bn_chain(tcommon.conv2d(x, w, b, stride, padding,
+                                           dilation, groups), *bn, relu=relu,
+                            residual=residual)
+
+
+@pytest.mark.parametrize("precision", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name,weights,size,call,launches", _BN_MODELS,
+                         ids=[m[0] for m in _BN_MODELS])
+def test_bn_models_on_card_equal_the_plain_chain(dev, monkeypatch, name,
+                                                 weights, size, call,
+                                                 launches, precision):
+    """Whole forwards of every model built on the epilogue: the kernel's
+    path (R2D2's and KeyNet's conv biases added by the kernel) and the
+    plain chain's as the models ran it before (the conv with its bias; on
+    the card, the same convolutions, cuDNN deterministic) give the same
+    bits, and the kernel runs once a BatchNorm."""
+    from torch.utils._pytree import tree_leaves
+    model = _bn_model(name, weights, dev, precision)
+    g = torch.Generator(device=dev).manual_seed(7)
+    img = torch.rand((2, size, size, 3), generator=g, device=dev)
+    outs = []
+    with torch.inference_mode(), torch.backends.cudnn.flags(
+            enabled=True, benchmark=False, deterministic=True,
+            allow_tf32=False):
+        before = cuda_bn.KERNEL.launches
+        outs.append(getattr(model, call)(img))
+        assert cuda_bn.KERNEL.launches == before + launches
+        with monkeypatch.context() as m:
+            m.setattr(cuda_bn, "bn_epilogue", tcommon.bn_chain)
+            m.setattr(tcommon, "conv_bn", _parent_conv_bn)
+            outs.append(getattr(model, call)(img))
+        assert cuda_bn.KERNEL.launches == before + launches
+    got, want = (tree_leaves(o) for o in outs)
+    assert len(got) == len(want) > 0
+    for a, b in zip(got, want):
+        same_bits(a, b)
+
+
+@pytest.mark.parametrize("name,call", [("Alike", "feats"),
+                                       ("r2d2", "forward")])
+def test_bn_epilogue_counter_reads_8_a_forward(dev, name, call):
+    """Under a profiler every BatchNorm of the forward adds 1 to the
+    counter `models.bn_epilogue`: 8 for ALIKE-t's `feats` and for R2D2."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from keypoint_bench_tpu_torch.utils import profiling
+    model = _bn_model(name, "npz", dev, "float32")
+    img = torch.rand((2, 256, 256, 3), device=dev)
+    profiling.counters()
+    with torch.inference_mode():
+        getattr(model, call)(img)      # no profiler: no counter
+        with profile(activities=[ProfilerActivity.CPU]):
+            getattr(model, call)(img)
+            getattr(model, call)(img)
+    assert int(profiling.counters()["models.bn_epilogue"]) == 16
+
+
+def test_exported_alike_on_card_launches_the_kernel(dev, tmp_path):
+    """torch.export records each epilogue as the operator
+    `kbt::bn_epilogue` (8 in ALIKE-t's forward); the loaded program
+    launches the kernel 8 times and gives the eager forward's bits."""
+    from torch.utils._pytree import tree_leaves
+
+    from keypoint_bench_tpu_torch.utils.export import (export_model,
+                                                       load_exported)
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                    deterministic=True, allow_tf32=False):
+        path = export_model("Alike", str(tmp_path / "alike.pt2"),
+                            (1, 64, 64, 3), device=dev)
+        nodes = [n for n in torch.export.load(path).graph.nodes
+                 if n.op == "call_function"
+                 and "kbt.bn_epilogue" in str(n.target)]
+        assert len(nodes) == 8
+        img = torch.rand((1, 64, 64, 3), device=dev)
+        before = cuda_bn.KERNEL.launches
+        got = load_exported(path)(img)
+        assert cuda_bn.KERNEL.launches == before + 8
+        with torch.inference_mode():
+            model = _bn_model("Alike", "npz", dev, "float32")
+            want = model(img)
+    got, want = tree_leaves(got), tree_leaves(want)
+    assert len(got) == len(want) > 0
+    for a, b in zip(got, want):
+        same_bits(a, b)
